@@ -5,12 +5,17 @@ NVIDIA card.
     python3 chip_smoke.py            # needs one CUDA card and nvcc
 
 1. Device and build: the card's name and power limit (nvidia-smi), TF32
-   off for the parity phases, every CUDA kernel built from ``csrc/`` (one
-   nvcc per source, started together) with ptxas's register report.
+   off for the parity phases, every CUDA kernel (K1-K4) built from
+   ``csrc/`` (one nvcc per source, started together) with ptxas's register
+   report.
 2. Kernels against their plain PyTorch versions on the card, at the main
-   path's shapes, in float32 and bf16, with kernel / plain timings and the
-   card's lower bound for the same work.
-3. The main path at full width: ``AVA22_ViT-B_fast`` (ViT-B, 6+6 layers,
+   path's four level shapes, in float32 and bf16, with kernel / plain
+   timings and the card's lower bound for the same work: K1 (fused blend)
+   at the eval batch B=2; K2 (blend from components), K3 (its dvol) and K4
+   (its d components) at B=1 and B=2 with offsets on exact ties, and K1's
+   autograd (grads of vol and the head lanes) against autograd through the
+   plain composite; timings at the train batch B=1.
+3. The eval path at full width: ``AVA22_ViT-B_fast`` (ViT-B, 6+6 layers,
    D=256, 80 classes, 15 queries) in bf16 with seeded random weights
    serves 3 requests of [2, 16, 256, 320, 3] clips through forward +
    ``postprocess_ava``; the launch counts show K1 ran 24 times per
@@ -20,6 +25,18 @@ NVIDIA card.
 4. The same full-width model in float32 on the card (kernels) and on the
    CPU (plain versions), B=1, same weights and input: all three heads must
    agree.
+5. The train path at full width: the bf16 model in ``train()`` mode and
+   ``engine.Trainer`` from the same YAML take 1 + 6 steps of the batch
+   bench.py times (B=1, 16x256x320, 32 gt slots, 3 live boxes): finite
+   losses, a finite non-zero gradient norm, the parameters moving, non-zero
+   gradients into every encoder layer's value/offset/weight projections,
+   and 24 launches each of K1, K3 and K4 per step; median ms/step, clips/s,
+   peak memory, stage shares, the host LSAP's ms.  Then the encoder's
+   components route (NUM_ENC_N_POINTS 4) takes 2 steps: 24 launches each of
+   K2, K3 and K4 per step.
+6. One float32 train step of the full-width model on the card and on the
+   CPU, same weights and batch, dropout off: the same matcher assignment,
+   the loss and every parameter's gradient agree.
 
 Every phase raises on failure (exit code != 0).  The last two lines are a
 JSON object of per-kernel numbers and ``{"ok": true, "device": ...}``.
@@ -102,26 +119,32 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def kernel_device_ms(fn, name: str, iters: int = 20) -> float:
-    """Mean device time per launch of the CUDA kernel whose name contains
-    ``name``, from torch.profiler's kernel rows: the kernel alone, without
-    the host's wrapper and launch time between back-to-back calls."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def kernel_device_ms(fn, iters: int = 20) -> float:
+    """Mean device time of one call of ``fn`` (one kernel launch) back to
+    back on the stream, without the host's wrapper time between calls: the
+    host queues all ``iters`` calls behind a device-side sleep, so the CUDA
+    events around them see only the card (kernels and the card's own gap
+    between launches).  The sleep grows until it outlasts the queueing.
+    CUDA events, not torch.profiler's kernel rows: the profiler's trace has
+    come back without a kernel's rows on this card."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    cycles = 10 ** 7                         # ~5 ms at the H100's clock
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
         for _ in range(iters):
             fn()
+        stop.record()
+        queued_in_time = not start.query()   # the sleep still ran
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if name in e.key and e.device_type == DeviceType.CUDA]
-    # the mean over the launches the trace holds: a cold profiler may
-    # miss the first one of the window
-    check(len(rows) == 1 and 0 < rows[0].count <= iters,
-          f"profiler rows for {name}: {[(e.key, e.count) for e in rows]}")
-    return rows[0].self_device_time_total / rows[0].count / 1e3
+        if queued_in_time:
+            return start.elapsed_time(stop) / iters
+        cycles *= 4
+    raise RuntimeError("the host could not queue the timed launches within "
+                       "the device-side sleep")
 
 
 def k1_work(h: int, w: int, itemsize: int):
@@ -167,7 +190,7 @@ def phase_kernels(dev, bw, peak):
             max_err = max(max_err, err)
             if dtype == torch.bfloat16:             # the main path's dtype
                 call = lambda: fused_blend2d(vol, fused, 8, 1.0)
-                t_k = kernel_device_ms(call, "fused_blend2d_kernel")
+                t_k = kernel_device_ms(call)
                 t_call = cuda_ms(call, 50)
                 t_p = cuda_ms(
                     lambda: fused_blend2d_reference(vol, fused, 8, 1.0), 5, 1)
@@ -176,7 +199,7 @@ def phase_kernels(dev, bw, peak):
                 bound_by["bytes" if nbytes / bw >= ops / peak
                          else "operations"] += t_b
                 print(f"K1 bf16     {h:3d}x{w:<3d}: kernel {t_k:.4f} ms "
-                      f"(device; {t_call:.4f} ms per back-to-back call with "
+                      f"(device, queued; {t_call:.4f} ms per back-to-back call with "
                       f"the wrapper), plain {t_p:.4f} ms, bound {t_b:.4f} ms "
                       f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP) -> "
                       f"{nbytes / t_k / 1e6:.0f} GB/s")
@@ -192,6 +215,181 @@ def phase_kernels(dev, bw, peak):
         "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": max(bound_by, key=bound_by.get), "library_ms": None,
     }
+
+
+# K2-K4 and K1's autograd: the train step's batch B=1 (timed) and B=2
+TRAIN_B = 1
+# K2: float32 summation order only; K3/K4 outputs in bf16 are rounded after
+# sums in another order (one bf16 ulp, 2^-8); K1's gradients in bf16 also
+# pass bf16 roundings of the recomputed offsets and weights
+BLEND_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+K1_GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def blend_inputs(rng, b, h, w, dtype, dev):
+    """vol, dx, dy, a at one level shape; a third of the offsets exactly
+    on -1, 0 or 1 (the tie points of hat'); G float32."""
+    shape = (b, K1_J, K1_T, h, w, K1_KP)
+    vol = rng.standard_normal((b, K1_J, K1_T, h, w, K1_C), np.float32)
+    offs = []
+    for _ in range(2):
+        x = rng.uniform(-1.0, 1.0, shape).astype(np.float32)
+        pick = rng.random(shape) < 1 / 3
+        x[pick] = rng.integers(-1, 2, shape)[pick]
+        offs.append(x)
+    a = rng.uniform(0.0, 0.3, shape).astype(np.float32)
+    g = rng.standard_normal((b, K1_T, h, w, K1_C), np.float32)
+    comps = [torch.from_numpy(x).to(dev, dtype) for x in (vol, *offs, a)]
+    return comps, torch.from_numpy(g).to(dev)
+
+
+def blend_work(kernel: str, b: int, h: int, w: int, itemsize: int):
+    """(bytes, operations) one launch of K2, K3 or K4 must spend: each
+    input read once, each output written once; per (query, level): 9 taps
+    x C multiply-adds (K2, K3: the blend; K4: the per-head dots) + ~12 ops
+    per tap and point for hats and masses (~30 in K4 with hat')."""
+    q = b * K1_T * h * w
+    vol = b * K1_J * K1_T * h * w * K1_C * itemsize
+    comps = 3 * q * K1_J * K1_KP * itemsize
+    g32 = q * K1_C * 4
+    per_point = 30 if kernel == "K4" else 12
+    ops = q * K1_J * (9 * K1_C * 2 + 9 * K1_KP * per_point)
+    nbytes = {"K2": vol + comps + g32,          # out is float32 like G
+              "K3": g32 + comps + vol,          # dvol like vol
+              "K4": g32 + vol + comps + comps}[kernel]
+    return nbytes, ops
+
+
+def rel_err(got, want):
+    err = (got.float() - want.float()).abs().max().item()
+    return err, err / max(want.float().abs().max().item(), 1e-30)
+
+
+def phase_blend_kernels(dev, bw, peak):
+    """K2, K3, K4 and K1's autograd against their plain versions; timings
+    of the bf16 train shapes (B=1, one encoder layer = 4 levels)."""
+    from class_query_vad_tpu_torch.ops.blend2d import (
+        blend2d,
+        blend2d_bwd_dcomps,
+        blend2d_bwd_dcomps_reference,
+        blend2d_bwd_dvol,
+        blend2d_bwd_dvol_reference,
+        blend2d_reference,
+    )
+    from class_query_vad_tpu_torch.ops.fast_deform_cuda import (
+        fused_blend2d,
+        fused_components,
+    )
+
+    rng = np.random.default_rng(1)
+    err = {k: 0.0 for k in ("K2", "K3", "K4")}
+    num = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+               "bound_by": {"bytes": 0.0, "operations": 0.0}} for k in err}
+    k1_bwd_ms = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for b in (TRAIN_B, 2):
+            for h, w in K1_LEVELS:
+                (vol, dx, dy, a), g = blend_inputs(rng, b, h, w, dtype, dev)
+                calls = {
+                    "K2": (lambda: blend2d(vol, dx, dy, a, 8),
+                           lambda: blend2d_reference(vol, dx, dy, a, 8)),
+                    "K3": (lambda: blend2d_bwd_dvol(dx, dy, a, g, dtype, 8),
+                           lambda: blend2d_bwd_dvol_reference(dx, dy, a, g,
+                                                              dtype, 8)),
+                    "K4": (lambda: blend2d_bwd_dcomps(vol, dx, dy, a, g, 8),
+                           lambda: blend2d_bwd_dcomps_reference(vol, dx, dy,
+                                                                a, g, 8)),
+                }
+                for k, (kern, plain) in calls.items():
+                    got, want = kern(), plain()
+                    torch.cuda.synchronize()
+                    if k != "K4":
+                        got, want = (got,), (want,)
+                    for x in got:
+                        check(bool(torch.isfinite(x).all()), f"{k} not finite")
+                    e = max(rel_err(x, y)[1] for x, y in zip(got, want))
+                    tol = 1e-5 if k == "K2" else BLEND_TOL[dtype]
+                    ok = e <= tol
+                    print(f"{k} {str(dtype)[6:]:8s} B={b} {h:3d}x{w:<3d}: "
+                          f"max|err| = {e:.2e} x max|ref| (tol {tol:.0e}) "
+                          f"{'ok' if ok else 'FAIL'}")
+                    check(ok, f"{k} disagrees with its plain version at "
+                              f"B={b} {h}x{w} {dtype}")
+                    err[k] = max(err[k], max(rel_err(x, y)[0]
+                                             for x, y in zip(got, want)))
+                    if dtype == torch.bfloat16 and b == TRAIN_B:
+                        t_k = kernel_device_ms(kern)
+                        t_p = cuda_ms(plain, 3, 1)
+                        nbytes, ops = blend_work(k, b, h, w, 2)
+                        t_b = max(nbytes / bw, ops / peak) * 1e3
+                        n = num[k]
+                        n["bound_by"]["bytes" if nbytes / bw >= ops / peak
+                                      else "operations"] += t_b
+                        n["ms"] += t_k
+                        n["plain_ms"] += t_p
+                        n["bound_ms"] += t_b
+                        print(f"{k} bf16     B={b} {h:3d}x{w:<3d}: kernel "
+                              f"{t_k:.4f} ms (device, queued), plain "
+                              f"{t_p:.4f} ms, "
+                              f"bound {t_b:.4f} ms ({nbytes / 1e6:.1f} MB) "
+                              f"-> {nbytes / t_k / 1e6:.0f} GB/s")
+
+                # K1's autograd against the plain composite: autograd
+                # through the plain recompute of the offsets and weights,
+                # fed the plain K3/K4 (XLA's tie rules; numpy's float32
+                # normals include exact zeros, so offsets hit the ties)
+                vol1 = vol.clone().requires_grad_()
+                fused = torch.from_numpy(2.0 * rng.standard_normal(
+                    (b, K1_T, h, w, 3 * K1_J * K1_KP), np.float32)
+                ).to(dev, dtype).requires_grad_()
+                out = fused_blend2d(vol1, fused, 8, 1.0)
+                grads = torch.autograd.grad(out, (vol1, fused), g,
+                                            retain_graph=True)
+                comps = fused_components(fused, K1_J)
+                cd = [c.detach() for c in comps]
+                ref = (blend2d_bwd_dvol_reference(*cd, g, dtype, 8),
+                       torch.autograd.grad(comps, fused,
+                                           blend2d_bwd_dcomps_reference(
+                                               vol, *cd, g, 8))[0])
+                for name, x, y in zip(("d vol", "d fused"), grads, ref):
+                    e = rel_err(x, y)[1]
+                    ok = bool(torch.isfinite(x).all()) and e <= K1_GRAD_TOL[dtype]
+                    print(f"K1 grad {name:7s} {str(dtype)[6:]:8s} B={b} "
+                          f"{h:3d}x{w:<3d}: max|err| = {e:.2e} x max|ref| "
+                          f"(tol {K1_GRAD_TOL[dtype]:.0e}) "
+                          f"{'ok' if ok else 'FAIL'}")
+                    check(ok, f"K1's gradient ({name}) disagrees with the "
+                              f"plain composite at B={b} {h}x{w} {dtype}")
+                if dtype == torch.bfloat16 and b == TRAIN_B:
+                    t = cuda_ms(lambda: torch.autograd.grad(
+                        out, (vol1, fused), g, retain_graph=True), 20)
+                    k1_bwd_ms += t
+                    print(f"K1 backward bf16 B={b} {h:3d}x{w:<3d}: {t:.4f} ms "
+                          f"per call (recompute + K3 + K4 + the recompute's "
+                          f"backward; CUDA events)")
+    print(f"K1 backward per encoder layer (bf16, B={TRAIN_B}, 4 levels): "
+          f"{k1_bwd_ms:.4f} ms, of which K3 {num['K3']['ms']:.4f} and K4 "
+          f"{num['K4']['ms']:.4f} ms of kernel device time")
+    names = {"K2": ("blend2d", "blend2d.cu", 186),
+             "K3": ("blend2d_bwd_dvol", "blend2d_bwd_dvol.cu", 786),
+             "K4": ("blend2d_bwd_dcomps", "blend2d_bwd_dcomps.cu", 733)}
+    entries = []
+    for k, (name, src, line) in names.items():
+        n = num[k]
+        print(f"{k} per encoder layer (4 launches, bf16, B={TRAIN_B}): kernel "
+              f"{n['ms']:.4f} ms, plain {n['plain_ms']:.4f} ms, bound "
+              f"{n['bound_ms']:.4f} ms ({n['bound_ms'] / n['ms']:.1%} of the "
+              f"bound's speed)")
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"class_query_vad_tpu_torch/csrc/{src}",
+            "replaces": f"class_query_vad_tpu/ops/fast_deform_pallas.py:{line}",
+            "launches": None, "max_abs_err": err[k], "ms": n["ms"],
+            "plain_ms": n["plain_ms"], "bound_ms": n["bound_ms"],
+            "bound_by": max(n["bound_by"], key=n["bound_by"].get),
+            "library_ms": None,
+        })
+    return entries, k1_bwd_ms
 
 
 def make_request(seed: int, b: int = 2):
@@ -215,6 +413,15 @@ def serve(model, pixels, mask, dev):
     with torch.inference_mode():
         out = model(x, m)
         return out, postprocess_ava(out, sizes)
+
+
+def trace_holds(device_rows, expected: dict) -> str:
+    """How many of the port's kernel launches the profiler's device rows
+    hold, against how many ran: a trace that lost rows under-counts the
+    card's busy time."""
+    return ", ".join(
+        f"{k} {sum(e.count for e in device_rows if f'{k}_kernel' in e.key)}"
+        f"/{n}" for k, n in expected.items())
 
 
 def stage_breakdown(model, pixels, mask, dev, wall_ms: float, iters: int = 5):
@@ -274,7 +481,8 @@ def stage_breakdown(model, pixels, mask, dev, wall_ms: float, iters: int = 5):
           f"idle share {1 - busy / wall_ms:.1%}; the profiler's own "
           f"'Activity Buffer Request' row is "
           f"{'in' if any(e.key == 'Activity Buffer Request' for e in device) else 'not in'}"
-          f" the busy sum")
+          f" the busy sum; the trace holds launches "
+          f"{trace_holds(device, {'fused_blend2d': 24})}")
 
 
 def phase_main_path(dev, counters):
@@ -305,10 +513,9 @@ def phase_main_path(dev, counters):
               f"top score {scores.max().item():.4f}")
     launches = {c.__name__: c.launches for c in counters}
     print(f"kernel launches over {len(requests)} requests: {launches}")
-    for c in counters:
-        check(c.launches > 0, f"{c.__name__} never launched on the main path")
-    check(launches["fused_blend2d"] == 24 * len(requests),
-          f"K1 launches {launches}, expected 24 per forward")
+    check(launches == {**{k: 0 for k in launches},
+                       "fused_blend2d": 24 * len(requests)},
+          f"eval launches {launches}, expected K1 alone, 24 per forward")
 
     pixels, mask = requests[0]
     for _ in range(2):
@@ -366,15 +573,297 @@ def phase_in_model(dev):
         check(ok, f"card and CPU disagree on {k}")
 
 
+def train_batch(cfg, seed: int = 0, b: int = TRAIN_B):
+    """The batch bench.py's train-step metric builds (bench.py:223-237):
+    [b, T, 256, 320, 3] pixels, no padding, MAX_BOXES gt slots with boxes
+    uniform in 0.2-0.7, 5 % multi-hot labels, 3 live boxes."""
+    t, m = cfg.CONFIG.DATA.TEMP_LEN, int(cfg.CONFIG.DATA.MAX_BOXES)
+    nc = cfg.CONFIG.DATA.NUM_CLASSES
+    rng = np.random.default_rng(seed)
+    return {
+        "pixels": rng.normal(size=(b, t, 256, 320, 3)).astype(np.float32),
+        "mask": np.zeros((b, 256, 320), bool),
+        "boxes": np.clip(rng.uniform(0.2, 0.7, (b, m, 4)), 0.05, 0.95
+                         ).astype(np.float32),
+        "labels": (rng.uniform(size=(b, m, nc)) < 0.05).astype(np.float32),
+        "n_boxes": np.full((b,), min(3, m), np.int32),
+    }
+
+
+def check_train_step(trainer, metrics, before):
+    """The per-step checks of phase 5."""
+    for k, v in metrics.items():
+        check(bool(torch.isfinite(v).all()), f"{k} not finite: {v}")
+    norm = metrics["grad_norm"].item()
+    check(norm > 0, f"global gradient norm {norm}")
+    opt = trainer.optimizer
+    moved = sum(not torch.equal(x, m) for x, m in zip(before, opt.masters))
+    check(moved >= 0.9 * len(before),
+          f"only {moved} of {len(before)} parameter tensors moved")
+    for i, layer in enumerate(trainer.model.transformer.encoder.layers):
+        att = layer.self_attn
+        for name in ("value_proj", "window_offsets", "window_weights"):
+            g = opt.last_grad(getattr(att, name).weight)
+            check(g is not None and bool(g.abs().max() > 0),
+                  f"encoder layer {i} {name} got no gradient")
+    return norm, moved
+
+
+def phase_train(dev, counters):
+    """Full-width bf16 train steps through build_model + Trainer."""
+    from class_query_vad_tpu_torch.config import get_cfg_custom
+    from class_query_vad_tpu_torch.engine import Trainer
+    from class_query_vad_tpu_torch.losses.matcher import cost_matrix
+    from class_query_vad_tpu_torch.models import build_model
+    from class_query_vad_tpu_torch.ops.lsap import linear_sum_assignment
+
+    cfg = get_cfg_custom(CONFIG)
+    model = build_model(cfg, dtype=torch.bfloat16)
+    trainer = Trainer(model, cfg)
+    tc = cfg.CONFIG.TRAIN
+    print(f"trainer: LR {float(tc.LR)} ({tc.get('LR_POLICY', 'constant')}), "
+          f"GRAD_ACCUM {tc.GRAD_ACCUM}, clip {tc.get('CLIP_GRAD_NORM', 1.0)}, "
+          f"dropout {cfg.CONFIG.MODEL.DROPOUT}, drop path "
+          f"{cfg.CONFIG.ViT.DROP_PATH_RATE}, ViT checkpointing "
+          f"{cfg.CONFIG.ViT.USE_CHECKPOINT}")
+    batch = train_batch(cfg)
+    times, per_step = [], []
+    for c in counters:
+        c.launches = 0
+    for i in range(7):
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        before = [m.clone() for m in trainer.optimizer.masters]
+        counts = [c.launches for c in counters]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = trainer.step(batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        norm, moved = check_train_step(trainer, metrics, before)
+        step_launches = {c.__name__: c.launches - n
+                         for c, n in zip(counters, counts)}
+        per_step.append(step_launches)
+        if i:
+            times.append(ms)
+        print(f"train step {i}{' (warm-up)' if i == 0 else ''}: {ms:.2f} ms, "
+              f"total {metrics['total_loss'].item():.5f} ("
+              + ", ".join(f"{k} {metrics[k].item():.4f}"
+                          for k in trainer.weight_dict)
+              + f"), |g| {norm:.4f}, {moved}/{len(before)} tensors moved, "
+              f"launches {step_launches}")
+        del before
+    launches = {c.__name__: c.launches for c in counters}
+    check(all(d == {**{k: 0 for k in d}, "fused_blend2d": 24,
+                    "blend2d_bwd_dvol": 24, "blend2d_bwd_dcomps": 24}
+              for d in per_step),
+          f"train launches per step {per_step}, expected 24 each of K1, "
+          f"K3, K4 and no K2")
+    med = statistics.median(times)
+    print(f"full-width train, B={TRAIN_B} bf16, forward + matcher + criterion "
+          f"+ backward + clip + AdamW, host->device copy included: median "
+          f"{med:.2f} ms/step ({1e3 * TRAIN_B / med:.2f} clips/s) over "
+          f"{len(times)} steps; min {min(times):.2f}, max {max(times):.2f}; "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB; launches over the {len(per_step)} steps {launches}")
+
+    # the host LSAP on this step's costs (6 decoder layers, one copy)
+    x = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+    with torch.no_grad():
+        out = model(x["pixels"], x["mask"])
+        layers = out["aux_outputs"] + [out]
+        mc = cfg.CONFIG.MATCHER
+        cost = cost_matrix(torch.stack([o["pred_boxes"] for o in layers]),
+                           torch.stack([o["pred_logits_b"] for o in layers]),
+                           x["boxes"], mc.COST_CLASS, mc.COST_BBOX,
+                           mc.COST_GIOU)
+        t0 = time.perf_counter()
+        host = cost.cpu().numpy()
+        copy_ms = (time.perf_counter() - t0) * 1e3
+    lsap = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        linear_sum_assignment(host, n_valid_cols=batch["n_boxes"])
+        lsap.append((time.perf_counter() - t0) * 1e3)
+    print(f"host LSAP (ops/lsap.py, numpy): {statistics.median(lsap):.2f} ms "
+          f"per step for {host.shape[0]}x{host.shape[1]} costs of "
+          f"{host.shape[2]}x{host.shape[3]} (median of 5); the device-to-host "
+          f"copy {copy_ms:.2f} ms")
+    train_breakdown(trainer, batch, med)
+    del trainer, model, out
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_breakdown(trainer, batch, wall_ms: float):
+    """Device ms of one step's stages (CUDA events) and the card's busy
+    share of the median ms/step (torch.profiler's device rows)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x = {k: torch.as_tensor(v).to(trainer.device) for k, v in batch.items()}
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    host = []
+    marks[0].record()
+    t0 = time.perf_counter()
+    outputs = trainer.model(x["pixels"], x["mask"])
+    marks[1].record()
+    host.append(time.perf_counter())
+    targets = {k: x[k] for k in ("boxes", "labels", "n_boxes")}
+    losses = trainer.criterion(outputs, targets)
+    total = sum(losses[k] * w for k, w in trainer.weight_dict.items())
+    marks[2].record()
+    host.append(time.perf_counter())
+    total.backward()
+    marks[3].record()
+    host.append(time.perf_counter())
+    trainer.optimizer.update()
+    marks[4].record()
+    host.append(time.perf_counter())
+    torch.cuda.synchronize()
+    names = ("forward (train mode, ViT checkpointed)",
+             "matcher + criterion (host LSAP)", "backward (K1 bwd: K3, K4)",
+             "clip + AdamW + master copy")
+    dev_ms = [marks[i].elapsed_time(marks[i + 1]) for i in range(4)]
+    host_ms = [(b - a) * 1e3 for a, b in zip([t0] + host[:-1], host)]
+    print(f"train stage breakdown (one step; CUDA events between the "
+          f"stages, host clock of each call):")
+    for name, d, h in zip(names, dev_ms, host_ms):
+        print(f"  {name:40s} {d:8.2f} ms  {d / sum(dev_ms):6.1%}   host "
+              f"{h:8.2f} ms")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.step(batch)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    print(events.table(sort_by="self_cuda_time_total", row_limit=15,
+                       max_name_column_width=60))
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in device) / 1e3
+    held = trace_holds(device, {k: 24 for k in (
+        "fused_blend2d", "blend2d_bwd_dvol", "blend2d_bwd_dcomps")})
+    print(f"train step: device busy {busy:.2f} ms (profiled) = "
+          f"{busy / wall_ms:.1%} of the median {wall_ms:.2f} ms/step; idle "
+          f"share {1 - busy / wall_ms:.1%}; the trace holds launches {held}")
+
+
+def phase_components_route(dev, counters):
+    """The encoder's components route (NUM_ENC_N_POINTS 4: no fused head
+    kernel) at full width: K2 forward, K3 + K4 backward."""
+    from class_query_vad_tpu_torch.config import get_cfg_custom
+    from class_query_vad_tpu_torch.engine import Trainer
+    from class_query_vad_tpu_torch.models import build_model
+
+    cfg = get_cfg_custom(CONFIG)
+    cfg.CONFIG.MODEL.NUM_ENC_N_POINTS = 4
+    model = build_model(cfg, dtype=torch.bfloat16)
+    check(not model.transformer.encoder.layers[0].self_attn.fused_route,
+          "NUM_ENC_N_POINTS 4 should take the components route")
+    trainer = Trainer(model, cfg)
+    batch = train_batch(cfg, seed=1)
+    for c in counters:
+        c.launches = 0
+    for i in range(2):
+        metrics = trainer.step(batch)
+        for k, v in metrics.items():
+            check(bool(torch.isfinite(v).all()), f"{k} not finite: {v}")
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    print(f"components route, 2 full-width bf16 train steps: total "
+          f"{metrics['total_loss'].item():.5f}; launches {launches}")
+    check(launches == {"fused_blend2d": 0, "blend2d": 48,
+                       "blend2d_bwd_dvol": 48, "blend2d_bwd_dcomps": 48},
+          f"components-route launches {launches}, expected 24 each of K2, "
+          f"K3, K4 per step and no K1")
+    del trainer, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+# phase 6: float32 on both sides through 12 ViT blocks, 6 + 6 layers and
+# their backward, summed in other orders (cuBLAS / cuDNN vs CPU kernels)
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_GRAD_TOL = 1e-2       # x max|grad| of each tensor ...
+TRAIN_GRAD_FLOOR = 1e-5     # ... + this x the model's max|grad|: some
+# gradients are zero up to rounding (a key bias shifts all of a query's
+# logits alike) and their noise has no scale of its own
+
+
+def phase_train_card_vs_cpu(dev):
+    from class_query_vad_tpu_torch.config import get_cfg_custom
+    from class_query_vad_tpu_torch.engine import Trainer
+    from class_query_vad_tpu_torch.models import build_model
+    from class_query_vad_tpu_torch.models.detr import randomize_constants
+
+    cfg = get_cfg_custom(CONFIG, ["CONFIG.MODEL.FAST_DTYPE", "float32",
+                                  "CONFIG.MODEL.DECODER_DTYPE", "float32"])
+    cfg.CONFIG.MODEL.DROPOUT = 0.0
+    cfg.CONFIG.ViT.DROP_PATH_RATE = 0.0
+    m_cpu = build_model(cfg, torch.float32, "cpu",
+                        torch.Generator().manual_seed(7))
+    randomize_constants(m_cpu, torch.Generator().manual_seed(8))
+    m_gpu = build_model(cfg, torch.float32, dev)
+    m_gpu.load_state_dict(m_cpu.state_dict(), strict=True)
+    batch = train_batch(cfg, seed=2)
+    res = {}
+    for name, model, d in (("card", m_gpu, dev), ("CPU", m_cpu, "cpu")):
+        model.head_dropout.p = 0.0           # the class head's fixed 0.5
+        trainer = Trainer(model, cfg, device=d)
+        t0 = time.perf_counter()
+        total, losses, match = trainer.loss(
+            {k: torch.as_tensor(v).to(d) for k, v in batch.items()})
+        total.backward()
+        if d != "cpu":
+            torch.cuda.synchronize()
+        print(f"{name} float32 train step (loss + backward): "
+              f"{time.perf_counter() - t0:.1f} s")
+        res[name] = (total.item(), {k: v.item() for k, v in losses.items()},
+                     match, {k: p.grad.float().cpu()
+                             for k, p in model.named_parameters()})
+    (t_g, l_g, m_g, g_g), (t_c, l_c, m_c, g_c) = res["card"], res["CPU"]
+    ok = m_c.match_ok
+    same = (torch.equal(ok, m_g.match_ok.cpu())
+            and torch.equal(m_c.gt_idx[ok], m_g.gt_idx.cpu()[ok]))
+    print(f"matcher assignment (last layer; query -> gt slot, -1 = none): "
+          f"card {torch.where(m_g.match_ok, m_g.gt_idx, -1)[-1].tolist()}, "
+          f"CPU {torch.where(ok, m_c.gt_idx, -1)[-1].tolist()} -> "
+          f"{'same' if same else 'DIFFERENT'} over all "
+          f"{m_c.gt_idx.shape[0]} layers")
+    check(same, "card and CPU matchers disagree")
+    e = abs(t_g - t_c) / abs(t_c)
+    print(f"train loss card {t_g:.7f} vs CPU {t_c:.7f}: rel err {e:.2e} "
+          f"(tol {TRAIN_LOSS_TOL:.0e}); losses {l_g}")
+    check(e <= TRAIN_LOSS_TOL, "card and CPU train losses disagree")
+    floor = TRAIN_GRAD_FLOOR * max(g.abs().max().item() for g in g_c.values())
+    worst, worst_k = 0.0, None
+    for k, gc in g_c.items():
+        gg = g_g[k]
+        check(bool(torch.isfinite(gg).all()), f"card gradient of {k} not finite")
+        lim = TRAIN_GRAD_TOL * gc.abs().max().item() + floor
+        err = (gg - gc).abs().max().item()
+        check(err <= lim, f"card and CPU gradients of {k} disagree: "
+                          f"max|err| {err:.3e} > {lim:.3e}")
+        if err / lim > worst:
+            worst, worst_k = err / lim, k
+    print(f"gradients of all {len(g_c)} parameter tensors agree (tol "
+          f"{TRAIN_GRAD_TOL:.0e} x max|grad| + {TRAIN_GRAD_FLOOR:.0e} x the "
+          f"model's max|grad|); closest to its limit: {worst_k} at "
+          f"{worst:.1%} of it")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
     from class_query_vad_tpu_torch.ops import cuda_build
+    from class_query_vad_tpu_torch.ops.blend2d import (
+        blend2d,
+        blend2d_bwd_dcomps,
+        blend2d_bwd_dvol,
+    )
     from class_query_vad_tpu_torch.ops.fast_deform_cuda import fused_blend2d
 
-    counters = [fused_blend2d]
+    counters = [fused_blend2d, blend2d, blend2d_bwd_dvol, blend2d_bwd_dcomps]
     dev = torch.device("cuda", 0)
     card = card_info()
     name = torch.cuda.get_device_name(0)
@@ -397,10 +886,16 @@ def main() -> int:
                 print(f"  {k}: {line.strip()}")
 
     kernels = [phase_kernels(dev, bw, peak)]
-    launches = phase_main_path(dev, counters)
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
+    blend, _ = phase_blend_kernels(dev, bw, peak)
+    kernels += blend
+    phase_main_path(dev, counters)
     phase_in_model(dev)
+    launches = phase_train(dev, counters)
+    comps = phase_components_route(dev, counters)
+    # launches on the train path; K2 runs on the components route only
+    for k in kernels:
+        k["launches"] = (comps if k["name"] == "blend2d" else launches)[k["name"]]
+    phase_train_card_vs_cpu(dev)
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

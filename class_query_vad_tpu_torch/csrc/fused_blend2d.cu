@@ -42,46 +42,14 @@
 // head (32 channels = 4 lanes), accumulating in float32.  Borders are masked
 // per tap; H and W need no padding.  No wgmma/TMA: later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "blend2d_common.cuh"
+
+using namespace blend2d;
 
 namespace {
 
-constexpr int kHeads = 8;
 constexpr int kPoints = 8;
 constexpr int kKp = kHeads * kPoints;   // 64 lanes per level and component
-constexpr int kChannels = 256;          // 32 lanes x 8 channels
-constexpr int kMaxLevels = 4;
-constexpr int kTaps = 9;
-constexpr int kWarps = 8;               // queries per block
-
-__device__ __forceinline__ void load8(const float* p, float v[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float v[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-__device__ __forceinline__ float hat(float u) {
-  return fmaxf(0.0f, 1.0f - fabsf(u));
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)

@@ -47,6 +47,25 @@ class LayerNorm(nn.LayerNorm):
 ChannelLayerNorm = LayerNorm
 
 
+class DropPath(nn.Module):
+    """Stochastic depth (``class_query_vad_tpu/models/common.py:67-82``):
+    in ``train()`` mode each sample of the batch is kept with probability
+    1 - rate and scaled by 1 / (1 - rate), or zeroed whole.  The draw comes
+    from torch's default generator of the tensor's device."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+        mask = torch.rand(shape, device=x.device) < keep
+        return torch.where(mask, x / keep, 0.0)
+
+
 class MLP(nn.Module):
     """ReLU MLP head (``layers.{i}`` as in the reference MLP)."""
 

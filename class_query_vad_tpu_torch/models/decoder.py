@@ -15,7 +15,11 @@ Layouts are batch-first: queries [BT, NQ, C], memory [BT, L, HW, C],
 class state [BT*NQ, NC, C].  bf16 serving mode (``DECODER_DTYPE``):
 the layers compute in the decoder dtype, while the sine embeds, the
 query-scale / ref-point / anchor / box MLPs (iterative box refinement)
-and every attention softmax stay float32.  Eval only (no dropout).
+and every attention softmax stay float32.
+
+Dropout as in the JAX package, active in ``train()`` mode: on the
+attention weights of every attention (decoder.py:79, 115) and on the
+layers' residual branches and FFN activations (:195-240, :292-353).
 """
 
 from __future__ import annotations
@@ -45,9 +49,11 @@ class ProjFreeMHA(nn.Module):
     projection.  ``logits`` [B, nh, Lq, Lk] (already scaled) replaces the
     q.k dot when given."""
 
-    def __init__(self, embed_dim: int, num_heads: int, vdim: int):
+    def __init__(self, embed_dim: int, num_heads: int, vdim: int,
+                 dropout: float = 0.0):
         super().__init__()
         self.embed_dim, self.num_heads, self.vdim = embed_dim, num_heads, vdim
+        self.attn_drop = nn.Dropout(dropout)
         self.out_proj = Linear(vdim, vdim)
 
     def forward(self, q, k, v, key_padding_mask=None, logits=None):
@@ -63,7 +69,7 @@ class ProjFreeMHA(nn.Module):
         vh = v.reshape(b, -1, nh, self.vdim // nh)
         mask = (None if key_padding_mask is None
                 else key_padding_mask[:, None, None, :])
-        attn = masked_softmax(logits, mask).to(v.dtype)
+        attn = self.attn_drop(masked_softmax(logits, mask).to(v.dtype))
         out = torch.einsum("bhqk,bkhd->bqhd", attn, vh).reshape(b, lq, self.vdim)
         return self.out_proj(out)
 
@@ -72,9 +78,11 @@ class QuerySpecificMHA(nn.Module):
     """Concat-key attention whose values carry a per-query axis, from
     caller-computed logits [B, nh, NQ, S]: v [B, NQ, S, V] -> [B, NQ, V]."""
 
-    def __init__(self, embed_dim: int, num_heads: int, vdim: int):
+    def __init__(self, embed_dim: int, num_heads: int, vdim: int,
+                 dropout: float = 0.0):
         super().__init__()
         self.num_heads, self.vdim = num_heads, vdim
+        self.attn_drop = nn.Dropout(dropout)
         self.out_proj = Linear(vdim, vdim)
 
     def forward(self, v, logits, key_padding_mask=None):
@@ -83,7 +91,7 @@ class QuerySpecificMHA(nn.Module):
         vh = v.reshape(b, nq, -1, nh, self.vdim // nh)
         mask = (None if key_padding_mask is None
                 else key_padding_mask[:, None, None, :])
-        attn = masked_softmax(logits, mask).to(v.dtype)
+        attn = self.attn_drop(masked_softmax(logits, mask).to(v.dtype))
         out = torch.einsum("bhqs,bqshd->bqhd", attn, vh).reshape(b, nq, self.vdim)
         return self.out_proj(out)
 
@@ -121,16 +129,18 @@ class PointConv2d(nn.Conv2d):
 class LocDecoderLayer(nn.Module):
     def __init__(self, d_model: int = 256, nhead: int = 8,
                  dim_feedforward: int = 2048, n_levels: int = 4,
-                 has_query_pos_proj: bool = True):
+                 has_query_pos_proj: bool = True, dropout: float = 0.1):
         super().__init__()
         d = d_model
         self.nhead = nhead
+        # one module for the five dropout sites, as the JAX layer's ``drop``
+        self.drop = nn.Dropout(dropout)
         self.sa_qcontent_proj = Linear(d, d)
         self.sa_qpos_proj = Linear(d, d)
         self.sa_kcontent_proj = Linear(d, d)
         self.sa_kpos_proj = Linear(d, d)
         self.sa_v_proj = Linear(d, d)
-        self.self_attn = ProjFreeMHA(d, nhead, d)
+        self.self_attn = ProjFreeMHA(d, nhead, d, dropout)
         self.norm1 = LayerNorm(d)
         self.lvl_w_embed = Linear(d, n_levels)
         self.ca_qcontent_proj = Linear(d, d)
@@ -141,7 +151,7 @@ class LocDecoderLayer(nn.Module):
         self.ca_kpos_proj = Linear(d, d)
         self.ca_v_proj = Linear(d, d)
         self.ca_qpos_sine_proj = Linear(d, d)
-        self.cross_attn = QuerySpecificMHA(2 * d, nhead, d)
+        self.cross_attn = QuerySpecificMHA(2 * d, nhead, d, dropout)
         self.norm_ = LayerNorm(d)
         self.linear1 = Linear(d, dim_feedforward)
         self.linear2 = Linear(dim_feedforward, d)
@@ -158,7 +168,7 @@ class LocDecoderLayer(nn.Module):
         q = self.sa_qcontent_proj(tgt) + self.sa_qpos_proj(query_pos)
         k = self.sa_kcontent_proj(tgt) + self.sa_kpos_proj(query_pos)
         v = self.sa_v_proj(tgt)
-        tgt = self.norm1(tgt + self.self_attn(q, k, v))
+        tgt = self.norm1(tgt + self.drop(self.self_attn(q, k, v)))
 
         # level mixing -> query-specific memory [BT, NQ, HW, C]
         lvl_w = torch.softmax(self.lvl_w_embed(tgt), dim=-1)
@@ -187,32 +197,35 @@ class LocDecoderLayer(nn.Module):
             k_pos.reshape(bt, hw, nh, hd),
         )
         tgt2 = self.cross_attn(v_mem, logits, memory_key_padding_mask)
-        tgt = self.norm2(tgt + tgt2)
+        tgt = self.norm2(tgt + self.drop(tgt2))
         tgt_temp = tgt
 
         # FFN
-        tgt = self.norm3(tgt + self.linear2(F.relu(self.linear1(tgt))))
+        tgt2 = self.linear2(self.drop(F.relu(self.linear1(tgt))))
+        tgt = self.norm3(tgt + self.drop(tgt2))
         return tgt, tgt_temp, q_memory
 
 
 class ClsDecoderLayer(nn.Module):
     def __init__(self, d_model: int = 256, nhead: int = 8,
-                 dim_feedforward: int = 2048, num_conv_blocks: int = 3):
+                 dim_feedforward: int = 2048, num_conv_blocks: int = 3,
+                 dropout: float = 0.1):
         super().__init__()
         d = d_model
         self.nhead = nhead
+        self.drop = nn.Dropout(dropout)
         self.cls_linear1 = Linear(d, dim_feedforward)
         self.cls_linear2 = Linear(dim_feedforward, d)
         self.cls_norm = LayerNorm(d)
         self.conv_norm = LayerNorm(d)
         block = ConvBlock(d)
         self.conv_blocks = nn.ModuleList([block] * num_conv_blocks)
-        self.self_attn = ProjFreeMHA(d, nhead, d)
+        self.self_attn = ProjFreeMHA(d, nhead, d, dropout)
         self.norm1 = LayerNorm(d)
         self.k_proj = PointConv2d(d, d)
         self.v_proj = PointConv2d(d, d)
         self.cls_qpos_sine_proj = Linear(d, d)
-        self.cross_attn = ProjFreeMHA(2 * d, nhead, d)
+        self.cross_attn = ProjFreeMHA(2 * d, nhead, d, dropout)
         self.cls_linear1_ = Linear(d, dim_feedforward)
         self.cls_linear2_ = Linear(dim_feedforward, d)
         self.cls_norm_ = LayerNorm(d)
@@ -223,8 +236,8 @@ class ClsDecoderLayer(nn.Module):
         h, w = orig_res
         hw = h * w
 
-        af2 = self.cls_linear2(F.relu(self.cls_linear1(actor_feature)))
-        actor_feature = self.cls_norm(actor_feature + af2)
+        af2 = self.cls_linear2(self.drop(F.relu(self.cls_linear1(actor_feature))))
+        actor_feature = self.cls_norm(actor_feature + self.drop(af2))
 
         # actor-centric conv features on the level grid
         cls_feature = self.conv_norm(actor_feature[:, :, None, :] + q_memory)
@@ -240,7 +253,7 @@ class ClsDecoderLayer(nn.Module):
         else:
             query = class_queries
             nc = query.shape[1]
-        query = self.norm1(query + self.self_attn(query, query, query))
+        query = self.norm1(query + self.drop(self.self_attn(query, query, query)))
 
         # cross-attention against actor-conditioned conv features: the
         # whole-lane [content | pos] concat puts content in heads
@@ -263,8 +276,8 @@ class ClsDecoderLayer(nn.Module):
         value = self.v_proj(q_memory).reshape(bt * nq, hw, d)
         cls_out = self.cross_attn(None, None, value, logits=logits)
 
-        co2 = self.cls_linear2_(F.relu(self.cls_linear1_(cls_out)))
-        cls_out = self.cls_norm_(cls_out + co2)
+        co2 = self.cls_linear2_(self.drop(F.relu(self.cls_linear1_(cls_out))))
+        cls_out = self.cls_norm_(cls_out + self.drop(co2))
         return cls_out.reshape(bt, nq, nc, d), cls_out
 
 
@@ -277,18 +290,18 @@ class TransformerDecoder(nn.Module):
                  nhead: int = 8, dim_feedforward: int = 2048,
                  num_classes: int = 80, query_dim: int = 4,
                  bbox_embed_diff_each_layer: bool = False,
-                 n_levels: int = 4):
+                 n_levels: int = 4, dropout: float = 0.1):
         super().__init__()
         d = d_model
         self.num_layers, self.d_model, self.query_dim = num_layers, d, query_dim
         self.bbox_embed_diff_each_layer = bbox_embed_diff_each_layer
         self.layers = nn.ModuleList(
             LocDecoderLayer(d, nhead, dim_feedforward, n_levels,
-                            has_query_pos_proj=(i == 0))
+                            has_query_pos_proj=(i == 0), dropout=dropout)
             for i in range(num_layers)
         )
         self.cls_layers = nn.ModuleList(
-            ClsDecoderLayer(d, nhead, dim_feedforward)
+            ClsDecoderLayer(d, nhead, dim_feedforward, dropout=dropout)
             for _ in range(num_layers)
         )
         self.norm = LayerNorm(d)

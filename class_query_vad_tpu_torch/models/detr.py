@@ -6,7 +6,12 @@ backbone -> transformer -> heads: learned anchors ``refpoint_embed``
 (Linear(d, 3)), class logits = the MEAN over the feature axis of the
 class-query outputs, and the box head shared with the decoder's iterative
 refinement, in float32.  Outputs [B, NQ, ...] plus per-layer
-``aux_outputs``.  Eval only.
+``aux_outputs``.
+
+Training and evaluation follow torch's ``train()`` / ``eval()`` (the JAX
+package's ``deterministic`` flag): ``train()`` turns on the dropouts, the
+ViT's drop path and checkpointing, and the class head's dropout (rate 0.5
+on the class-query outputs, detr.py:126).
 """
 
 from __future__ import annotations
@@ -39,10 +44,15 @@ class DETR(nn.Module):
             spec.num_queries * spec.model_temp_len)
         self.refpoint_embed = nn.Embedding(n_ref, 4)
         self.class_embed_b = Linear(spec.d_model, 3)
+        self.head_dropout = nn.Dropout(0.5)
 
     def forward(self, pixels: torch.Tensor, mask: torch.Tensor) -> Dict:
         """pixels [B, T, H, W, 3]; mask [B, H, W] bool, True = padded."""
         s = self.spec
+        if self.training and s.gradient_checkpointing:
+            raise NotImplementedError(
+                "CONFIG.GRADIENT_CHECKPOINTING (encoder and decoder remat) is "
+                "not ported yet (ROADMAP.md Queue 1, step 8a)")
         t_tokens = pixels.shape[1] // s.vit.tubelet_size
         plan = center_slice_plan(s.fast_eff_slice, s.single_frame,
                                  s.fast_window, s.num_feature_levels,
@@ -70,7 +80,7 @@ class DETR(nn.Module):
         s = self.spec
         outputs_class_b = self.class_embed_b(hs)
         outputs_coord = self.transformer.decode_boxes(hs, references)
-        outputs_class = cls_hs.float().mean(dim=-1)        # [NL, BT, NQ, NC]
+        outputs_class = self.head_dropout(cls_hs).float().mean(dim=-1)  # [NL, BT, NQ, NC]
         nl = hs.shape[0]
         nq, nc = s.num_queries, s.num_classes
         if s.dataset_mode == "ava":
@@ -185,7 +195,8 @@ def randomize_constants(model: DETR, generator: torch.Generator) -> None:
 
 def build_model(cfg, dtype: torch.dtype = torch.float32, device=None,
                 generator: torch.Generator | None = None) -> DETR:
-    """Build the eval model of ``cfg`` with seeded weights.
+    """Build the model of ``cfg`` with seeded weights, in ``eval()`` mode
+    (``model.train()`` for training, ``engine.train``).
 
     ``dtype`` is the backbone's compute dtype (the JAX package's DETR
     ``dtype``); the encoder and the decoder take ``MODEL.FAST_DTYPE`` and

@@ -1,16 +1,25 @@
 """Fast deformable encoder — windowed multi-scale attention over level grids
 (counterpart of ``class_query_vad_tpu/models/fast_encoder.py``).
 
-Only the route of the ``AVA22_ViT-B_fast`` configuration is ported:
-``FAST_CROSS_LEVEL: resample``, ``FAST_WINDOW: 2d``, ``FAST_RADIUS: 1`` —
-the JAX package's fully fused route (fast_encoder.py:175-194).  Every
-value level is aligned onto each query grid, and one K1 launch per query
-grid (``ops.fast_deform_cuda.fused_blend2d``) computes the tanh offsets,
-the per-head softmax and the 9-tap blend over all levels.
+Only ``FAST_CROSS_LEVEL: resample``, ``FAST_WINDOW: 2d`` and
+``FAST_RADIUS: 1`` are ported, with both of the JAX package's routes:
+
+* fused (nh=8, C a multiple of 256, points a multiple of 8 — the
+  ``AVA22_ViT-B_fast`` main path; fast_encoder.py:175-194): every value
+  level is aligned onto each query grid, and one K1 launch per query grid
+  (``ops.fast_deform_cuda.fused_blend2d``) computes the tanh offsets, the
+  per-head softmax and the 9-tap blend over all levels;
+* components (any other shape; fast_encoder.py:196-263 with ``dt=None``):
+  tanh and the softmax in torch (``fused_components``, K1's plain front
+  end), the per-level dx, dy, a stacks, and the blend through K2
+  (``ops.blend2d.blend2d``).
+
+Both are differentiable; their backward runs K3 and K4.
 
 The encoder carries ONE flattened token stream [B, sum(t*h*w), C] across
 layers; post-norm residual layers as in the reference's deformable
-encoder layer.  Eval only (no dropout).
+encoder layer, with the JAX package's three dropouts (active in
+``train()`` mode).
 
 Lane layouts of the fused offset+weight head (fast_encoder.py:112-119):
 offsets in (level, component x/y, head, point) order in lanes
@@ -28,8 +37,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.blend2d import blend2d
 from ..ops.fast_deform import align_all_levels
-from ..ops.fast_deform_cuda import fused_blend2d
+from ..ops.fast_deform_cuda import fused_blend2d, fused_components
 from .common import LayerNorm, Linear
 
 Shapes = Tuple[Tuple[int, int, int], ...]     # per level (T, H, W)
@@ -67,6 +77,9 @@ class FastDeformAttn2D(nn.Module):
                 "Queue 1, 'Other fast-encoder modes')")
         self.d_model, self.n_levels = d_model, n_levels
         self.n_heads, self.n_points, self.radius = n_heads, n_points, radius
+        # the JAX package's fused-route conditions (fast_encoder.py:175-176)
+        self.fused_route = (n_heads == 8 and d_model % 256 == 0
+                            and n_points % 8 == 0)
         kp = n_heads * n_points
         self.value_proj = Linear(d_model, d_model)
         self.window_offsets = Linear(d_model, n_levels * 2 * kp)
@@ -93,11 +106,12 @@ class FastDeformAttn2D(nn.Module):
                             self.window_weights.bias])
         fused = F.linear((src + pos).to(dt), head_w, head_b)
         # PER-HEAD max subtraction on the weight-logit lanes, once, at the
-        # producer: the kernel's softmax then sees per-head denominators
-        # >= 1.  A global max alone lets low heads' exp underflow to
-        # denormals once head logit ranges spread, and training NaNs.
+        # producer, with no gradient (as the JAX package's stop_gradient):
+        # the softmax then sees per-head denominators >= 1.  A global max
+        # alone lets low heads' exp underflow to denormals once head logit
+        # ranges spread, and training NaNs.
         lg = fused[..., n_off:].float().reshape(*fused.shape[:-1], nl, nh, np_)
-        lg = lg - lg.amax(dim=(-3, -1), keepdim=True)
+        lg = lg - lg.amax(dim=(-3, -1), keepdim=True).detach()
         fused = torch.cat(
             [fused[..., :n_off], lg.reshape(*fused.shape[:-1], nl * kp).to(dt)],
             dim=-1)
@@ -108,31 +122,41 @@ class FastDeformAttn2D(nn.Module):
         outs = []
         for i, (t, h, w) in enumerate(shapes):
             vol = torch.stack(aligned_all[i], dim=1)        # [B, J, T, H, W, C]
-            out = fused_blend2d(vol, fused_levels[i].contiguous(), nh,
-                                float(self.radius)).to(dt)
-            outs.append(out.reshape(b, t * h * w, self.d_model))
+            lanes = fused_levels[i].contiguous()
+            if self.fused_route:
+                out = fused_blend2d(vol, lanes, nh, float(self.radius))
+            else:
+                comps = fused_components(lanes, nl, nh, float(self.radius))
+                out = blend2d(vol, *comps, nh)
+            outs.append(out.to(dt).reshape(b, t * h * w, self.d_model))
         return self.output_proj(torch.cat(outs, dim=1))
 
 
 class FastEncoderLayer(nn.Module):
-    """Windowed deformable self-attention + FFN, post-norm."""
+    """Windowed deformable self-attention + FFN, post-norm, with dropout
+    after the attention, inside the FFN and after it (fast_encoder.py:
+    314-332)."""
 
     def __init__(self, d_model: int = 256, d_ffn: int = 2048,
                  n_levels: int = 4, n_heads: int = 8, n_points: int = 8,
                  radius: int = 1, window: str = "2d",
-                 cross_level: str = "resample"):
+                 cross_level: str = "resample", dropout: float = 0.1):
         super().__init__()
         self.self_attn = FastDeformAttn2D(d_model, n_levels, n_heads,
                                           n_points, radius, window,
                                           cross_level)
+        self.dropout1 = nn.Dropout(dropout)
         self.norm1 = LayerNorm(d_model)
         self.linear1 = Linear(d_model, d_ffn)
+        self.dropout2 = nn.Dropout(dropout)
         self.linear2 = Linear(d_ffn, d_model)
+        self.dropout3 = nn.Dropout(dropout)
         self.norm2 = LayerNorm(d_model)
 
     def forward(self, src, pos, shapes: Shapes, mask):
-        x = self.norm1(src + self.self_attn(src, pos, shapes, mask))
-        return self.norm2(x + self.linear2(F.relu(self.linear1(x))))
+        x = self.norm1(src + self.dropout1(self.self_attn(src, pos, shapes, mask)))
+        y = self.linear2(self.dropout2(F.relu(self.linear1(x))))
+        return self.norm2(x + self.dropout3(y))
 
 
 class FastDeformableEncoder(nn.Module):
@@ -141,11 +165,11 @@ class FastDeformableEncoder(nn.Module):
     def __init__(self, num_layers: int = 6, d_model: int = 256,
                  d_ffn: int = 2048, n_levels: int = 4, n_heads: int = 8,
                  n_points: int = 8, radius: int = 1, window: str = "2d",
-                 cross_level: str = "resample"):
+                 cross_level: str = "resample", dropout: float = 0.1):
         super().__init__()
         self.layers = nn.ModuleList(
             FastEncoderLayer(d_model, d_ffn, n_levels, n_heads, n_points,
-                             radius, window, cross_level)
+                             radius, window, cross_level, dropout)
             for _ in range(num_layers)
         )
 

@@ -117,13 +117,13 @@ class DABTransformer(nn.Module):
         self.encoder = FastDeformableEncoder(
             s.enc_layers, s.d_model, s.dim_feedforward, s.num_feature_levels,
             s.nhead, s.enc_n_points, s.fast_radius, s.fast_window,
-            s.fast_cross_level,
+            s.fast_cross_level, s.dropout,
         )
         self.decoder = TransformerDecoder(
             s.dec_layers, s.d_model, s.nhead, s.dim_feedforward,
             s.num_classes, query_dim=4,
             bbox_embed_diff_each_layer=s.bbox_embed_diff_each_layer,
-            n_levels=s.num_feature_levels,
+            n_levels=s.num_feature_levels, dropout=s.dropout,
         )
 
     def forward(self, srcs, masks, poses, refpoint_embed, pre_sliced=None):

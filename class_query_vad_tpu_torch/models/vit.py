@@ -20,7 +20,12 @@ attention kernel would keep them in float32.
 
 Key names follow the reference's torch ViT (``patch_embed.proj``,
 ``blocks.{i}.attn.qkv``, ``.q_bias``, ``.v_bias``, ``mlp.fc1``...).
-Eval only: drop path and dropout are the identity.
+
+Training (``train()`` mode): drop path on both residual branches at rates
+rising linearly over the blocks, ``drop_path_rate * i / (depth - 1)``
+(vit.py:212-214); with ``use_checkpoint`` each block is recomputed in the
+backward (``torch.utils.checkpoint``, the JAX package's ``nn.remat`` of
+``ViTBlock``, vit.py:209-210), which replays the drop-path draws.
 """
 
 from __future__ import annotations
@@ -28,8 +33,9 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from .common import LayerNorm, Linear
+from .common import DropPath, LayerNorm, Linear
 from .position_encoding import vit_sinusoid_table
 from .resize import bicubic_resize_2d
 
@@ -101,7 +107,7 @@ def softmax(scores: torch.Tensor) -> torch.Tensor:
     dtype, the row sum in float32 rounded to it, then ``e / s``.  torch's
     exp of a bf16 tensor computes in float32 and rounds once, so no
     float32 copy of the [B, H, Nq, N] scores is made."""
-    e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    e = torch.exp(scores - scores.amax(dim=-1, keepdim=True).detach())
     s = e.sum(dim=-1, keepdim=True, dtype=torch.float32)
     return e / s.to(scores.dtype)
 
@@ -118,12 +124,13 @@ class Mlp(nn.Module):
 
 class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 qkv_bias: bool = True):
+                 qkv_bias: bool = True, drop_path: float = 0.0):
         super().__init__()
         self.norm1 = LayerNorm(dim)
         self.attn = Attention(dim, num_heads, qkv_bias)
         self.norm2 = LayerNorm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.drop_path = DropPath(drop_path)
 
     def forward(self, x: torch.Tensor, q_rows=None) -> torch.Tensor:
         # q_rows=(start, stop): restrict this block's queries (and so its
@@ -134,8 +141,8 @@ class Block(nn.Module):
         else:
             x = x[:, q_rows[0] : q_rows[1]]
             y = self.attn(y[:, q_rows[0] : q_rows[1]], kv=y)
-        x = x + y
-        return x + self.mlp(self.norm2(x))
+        x = x + self.drop_path(y)
+        return x + self.drop_path(self.mlp(self.norm2(x)))
 
 
 class ViT(nn.Module):
@@ -146,9 +153,11 @@ class ViT(nn.Module):
         self.spec = spec
         d = spec.embed_dim
         self.patch_embed = PatchEmbed(3, d, spec.tubelet_size, spec.patch_size)
+        rates = [spec.drop_path_rate * i / max(spec.depth - 1, 1)
+                 for i in range(spec.depth)]
         self.blocks = nn.ModuleList(
-            Block(d, spec.num_heads, spec.mlp_ratio, spec.qkv_bias)
-            for _ in range(spec.depth)
+            Block(d, spec.num_heads, spec.mlp_ratio, spec.qkv_bias, rate)
+            for rate in rates
         )
         self.norm = LayerNorm(d)
 
@@ -174,7 +183,13 @@ class ViT(nn.Module):
             q_rows = (f0 * h * w, f1 * h * w)       # token rows are t-major
             n_frames = f1 - f0
         last = len(self.blocks) - 1
+        remat = (self.training and self.spec.use_checkpoint
+                 and torch.is_grad_enabled())
         for i, blk in enumerate(self.blocks):
-            x = blk(x, q_rows if i == last else None)
+            rows = q_rows if i == last else None
+            if remat:
+                x = checkpoint(blk, x, rows, use_reentrant=False)
+            else:
+                x = blk(x, rows)
         x = self.norm(x)
         return x.reshape(b, n_frames, h, w, c)

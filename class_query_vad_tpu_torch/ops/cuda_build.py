@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C launcher and is compiled by
 ``nvcc`` for ``sm_90a`` into ``_build/lib<name>-<hash>.so`` (the hash covers
-the source and the flags, so an edited source rebuilds), then loaded with
-``ctypes``.  No PyTorch headers are compiled: a build takes seconds.
+the source, the shared headers ``csrc/*.cuh`` and the flags, so an edited
+source rebuilds), then loaded with ``ctypes``.  No PyTorch headers are compiled: a build takes seconds.
 Nothing here runs at import time — the CPU tests import every module on a
 machine without ``nvcc``.
 """
@@ -30,6 +30,18 @@ KERNELS = {
         "fused_blend2d.cu", "fused_blend2d_launch",
         [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     ),
+    "blend2d": (
+        "blend2d.cu", "blend2d_launch",
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    ),
+    "blend2d_bwd_dvol": (
+        "blend2d_bwd_dvol.cu", "blend2d_bwd_dvol_launch",
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    ),
+    "blend2d_bwd_dcomps": (
+        "blend2d_bwd_dcomps.cu", "blend2d_bwd_dcomps_launch",
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    ),
 }
 
 NVCC_FLAGS = [
@@ -54,10 +66,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / KERNELS[name][0]
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / KERNELS[name][0]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

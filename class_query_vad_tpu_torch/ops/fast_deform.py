@@ -46,9 +46,12 @@ def _resize_matrix_on(n_in: int, n_out: int, device: torch.device,
                       dtype: torch.dtype) -> torch.Tensor:
     """``_resize_matrix`` as a tensor, copied to ``device`` once: a copy
     from pageable host memory waits for the stream, so a fresh copy per
-    call would stall the forward ~24 times per encoder layer."""
-    return torch.from_numpy(_resize_matrix(n_in, n_out)).to(device=device,
-                                                           dtype=dtype)
+    call would stall the forward ~24 times per encoder layer.  Made outside
+    inference mode, so that a matrix first cached while serving can later
+    enter autograd in training."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_resize_matrix(n_in, n_out)).to(device=device,
+                                                               dtype=dtype)
 
 
 def _resize_axis(feat: torch.Tensor, n_out: int, axis: int) -> torch.Tensor:

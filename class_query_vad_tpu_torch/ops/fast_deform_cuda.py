@@ -1,22 +1,36 @@
-"""Fused-head windowed blend (K1): CUDA kernel wrapper and plain version.
+"""Fused-head windowed blend (K1): CUDA kernel wrapper, plain version and
+autograd.
 
 Counterpart of ``class_query_vad_tpu/ops/fast_deform_pallas.py``
-``windowed_blend_fused_head`` (TPU kernel ``_fused_kernel_2d``, :1413).  The
-kernel is ``csrc/fused_blend2d.cu``; what it computes, what bounds it and
-its design are in that file's header.
+``windowed_blend_fused_head`` (``_fused2d`` :1536 and its custom_vjp; TPU
+kernel ``_fused_kernel_2d``, :1413).  The kernel is ``csrc/fused_blend2d.cu``;
+what it computes, what bounds it and its design are in that file's header.
 
-``fused_blend2d`` takes a CUDA tensor to the kernel and a CPU tensor to
-``fused_blend2d_reference``; anything else raises.  There is no fallback:
-on the card it launches the kernel or raises.
+``fused_blend2d`` is differentiable.  Its forward takes a CUDA tensor to
+the kernel and a CPU tensor to ``fused_blend2d_reference``; anything else
+raises.  Its backward follows the JAX package's ``_fused2d_bwd`` (:1569):
+it recomputes the offsets and weights from the saved head lanes with plain
+torch ops (``fused_components``, the front half of ``_fused2d_composite``
+:1509), takes the blend's backward on them directly (K3 and K4 on the card,
+``ops.blend2d``; the blend's output itself is not needed, so K2 does not
+run) and pushes that back through the recompute.  There is no fallback: on
+the card it launches the kernels or raises.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
-from . import cuda_build
+from .blend2d import (
+    blend2d_backward,
+    blend2d_reference,
+    check_kernel_args,
+    device_of,
+    launch,
+)
 
-_HEADS, _POINTS, _CHANNELS, _MAX_LEVELS = 8, 8, 256, 4
+_POINTS = 8
 
 
 def _shapes(vol: torch.Tensor, fused: torch.Tensor, nh: int):
@@ -38,78 +52,91 @@ def _shapes(vol: torch.Tensor, fused: torch.Tensor, nh: int):
     return b, jl, t, h, w, c, kp
 
 
+def fused_components(fused: torch.Tensor, jl: int, nh: int = 8,
+                     radius: float = 1.0):
+    """The offsets and weights K1 computes from the raw head lanes, as the
+    JAX package's ``_fused2d_composite`` (:1517-1531) does: offsets
+    ``radius * tanh`` in ``fused``'s dtype; the softmax over (level, point)
+    per head in float32, after subtracting the max over all weight lanes
+    with no gradient, cast to ``fused``'s dtype.  fused [B, T, H, W,
+    3*J*kp] -> dx, dy, a [B, J, T, H, W, kp]."""
+    kp = fused.shape[-1] // (3 * jl)
+    nw0 = 2 * jl * kp
+    raw = radius * torch.tanh(fused[..., :nw0])
+    logits = fused[..., nw0:].float()
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True).detach())
+    lanes = e.shape[:-1]
+    e = e.reshape(*lanes, jl, nh, kp // nh)
+    a = (e / e.sum(dim=(-3, -1), keepdim=True)).reshape(*lanes, jl * kp)
+    a = a.to(fused.dtype)
+    dx = torch.stack([raw[..., 2 * j * kp:(2 * j + 1) * kp]
+                      for j in range(jl)], dim=1)
+    dy = torch.stack([raw[..., (2 * j + 1) * kp:(2 * j + 2) * kp]
+                      for j in range(jl)], dim=1)
+    a = torch.stack([a[..., j * kp:(j + 1) * kp] for j in range(jl)], dim=1)
+    return dx, dy, a
+
+
 def fused_blend2d_reference(vol: torch.Tensor, fused: torch.Tensor,
                             nh: int = 8, radius: float = 1.0) -> torch.Tensor:
     """Plain PyTorch version of the kernel (the JAX package's
-    ``_fused2d_composite`` + ``_blend_xla_vol_2d``): offsets
-    radius*tanh and the per-head softmax in float32 — after subtracting the
-    max over all weight lanes — both rounded to bf16 when ``fused`` is
-    bf16, then the 9-tap blend with zero borders.  Any device; returns
-    float32 [B, T, H, W, C]."""
-    b, jl, t, h, w, c, kp = _shapes(vol, fused, nh)
-    p, d = kp // nh, c // nh
-    nw0 = 2 * jl * kp
-    off = radius * torch.tanh(fused[..., :nw0].float())
-    logits = fused[..., nw0:].float()
-    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
-    e = e.reshape(b, t, h, w, jl, nh, p)
-    a = (e / e.sum(dim=(-3, -1), keepdim=True)).reshape(b, t, h, w, jl * kp)
-    if fused.dtype == torch.bfloat16:
-        off = off.bfloat16().float()
-        a = a.bfloat16().float()
+    ``_fused2d_composite``): ``fused_components`` — so bf16 head lanes give
+    bf16 offsets and weights, as the kernel rounds them — then the 9-tap
+    blend with zero borders.  Any device; returns float32 [B, T, H, W, C]."""
+    jl = _shapes(vol, fused, nh)[1]
+    return blend2d_reference(vol, *fused_components(fused, jl, nh, radius), nh)
 
-    vp = torch.nn.functional.pad(vol.float(), (0, 0, 1, 1, 1, 1))
-    out = torch.zeros((b, t, h, w, nh, d), dtype=torch.float32,
-                      device=vol.device)
-    for j in range(jl):
-        vj = vp[:, j].reshape(b, t, h + 2, w + 2, nh, d)
-        dx = off[..., (2 * j) * kp:(2 * j + 1) * kp]
-        dy = off[..., (2 * j + 1) * kp:(2 * j + 2) * kp]
-        aj = a[..., j * kp:(j + 1) * kp]
-        for sy in range(3):
-            ay = aj * (1.0 - (dy - (sy - 1)).abs()).clamp(min=0.0)
-            for sx in range(3):
-                hx = (1.0 - (dx - (sx - 1)).abs()).clamp(min=0.0)
-                m = (ay * hx).reshape(b, t, h, w, nh, p).sum(-1)
-                out = out + m[..., None] * vj[:, :, sy:sy + h, sx:sx + w]
-    return out.reshape(b, t, h, w, c)
+
+def _fused_blend2d_forward(vol, fused, nh: int, radius: float):
+    """K1 on CUDA tensors, the plain version on CPU tensors."""
+    b, jl, t, h, w, c, kp = _shapes(vol, fused, nh)
+    if device_of(vol, fused) == "cpu":
+        return fused_blend2d_reference(vol, fused, nh, radius)
+    check_kernel_args(nh, c, jl, vol.dtype, {"vol": vol, "fused": fused})
+    if kp != nh * _POINTS:
+        raise ValueError(f"the kernel takes kp=64; got kp={kp}")
+    out = torch.empty((b, t, h, w, c), dtype=torch.float32, device=vol.device)
+    launch("fused_blend2d", vol.device, vol.data_ptr(), fused.data_ptr(),
+           out.data_ptr(), int(vol.dtype == torch.bfloat16), b, jl, t, h, w,
+           float(radius))
+    fused_blend2d.launches += 1
+    return out
+
+
+class _FusedBlend2d(torch.autograd.Function):
+    """K1 forward with the JAX package's residuals (vol, fused); backward
+    by recompute + K3/K4 (see the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, vol, fused, nh, radius):
+        ctx.save_for_backward(vol, fused)
+        ctx.nh, ctx.radius = nh, radius
+        return _fused_blend2d_forward(vol, fused, nh, radius)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        vol, fused = ctx.saved_tensors
+        need_vol, need_fused = ctx.needs_input_grad[:2]
+        jl = vol.shape[1]
+        with torch.enable_grad():
+            f = fused.detach().requires_grad_(need_fused)
+            comps = fused_components(f, jl, ctx.nh, ctx.radius)
+        dvol, *dcomps = blend2d_backward(
+            vol, *(x.detach() for x in comps), g, ctx.nh,
+            need_vol=need_vol, need_comps=need_fused)
+        dfused = None
+        if need_fused:
+            (dfused,) = torch.autograd.grad(comps, f, dcomps)
+        return dvol, dfused, None, None
 
 
 def fused_blend2d(vol: torch.Tensor, fused: torch.Tensor, nh: int = 8,
                   radius: float = 1.0) -> torch.Tensor:
     """vol [B, J, T, H, W, C] (value levels aligned onto this query grid),
     fused [B, T, H, W, 3*J*kp] (raw offset+weight head lanes) ->
-    float32 [B, T, H, W, C]."""
-    b, jl, t, h, w, c, kp = _shapes(vol, fused, nh)
-    if vol.device.type == "cpu" and fused.device.type == "cpu":
-        return fused_blend2d_reference(vol, fused, nh, radius)
-    if vol.device.type != "cuda" or fused.device != vol.device:
-        raise ValueError(f"fused_blend2d takes CPU or CUDA tensors on one "
-                         f"device; got {vol.device} and {fused.device}")
-    if vol.dtype != fused.dtype or vol.dtype not in (torch.float32,
-                                                     torch.bfloat16):
-        raise ValueError(f"vol and fused must both be float32 or bfloat16; "
-                         f"got {vol.dtype} and {fused.dtype}")
-    if (nh, kp, c) != (_HEADS, _HEADS * _POINTS, _CHANNELS) or not (
-            1 <= jl <= _MAX_LEVELS):
-        raise ValueError(f"the kernel takes nh=8, kp=64, C=256, 1<=J<=4; got "
-                         f"nh={nh}, kp={kp}, C={c}, J={jl}")
-    for name, x in (("vol", vol), ("fused", fused)):
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if x.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
-    out = torch.empty((b, t, h, w, c), dtype=torch.float32, device=vol.device)
-    launch = cuda_build.launcher("fused_blend2d")
-    with torch.cuda.device(vol.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = launch(vol.data_ptr(), fused.data_ptr(), out.data_ptr(),
-                     int(vol.dtype == torch.bfloat16), b, jl, t, h, w,
-                     float(radius), stream)
-    if err != 0:
-        raise RuntimeError(f"fused_blend2d launch failed: CUDA error {err}")
-    fused_blend2d.launches += 1
-    return out
+    float32 [B, T, H, W, C], differentiable in vol and fused."""
+    return _FusedBlend2d.apply(vol, fused, nh, radius)
 
 
 fused_blend2d.launches = 0

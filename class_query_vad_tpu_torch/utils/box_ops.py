@@ -1,6 +1,8 @@
 """Bounding-box operations (counterpart of ``class_query_vad_tpu/utils/box_ops.py``).
 
-Only what the eval forward needs; the matcher's IoU/GIoU come with training.
+Shape-polymorphic: every function broadcasts over leading batch axes.
+Degenerate boxes give the algebraic result (no asserts), as in the JAX
+package: static-shape padding rows are masked by the callers.
 """
 
 from __future__ import annotations
@@ -13,3 +15,36 @@ def box_cxcywh_to_xyxy(x: torch.Tensor) -> torch.Tensor:
     return torch.stack(
         [xc - 0.5 * w, yc - 0.5 * h, xc + 0.5 * w, yc + 0.5 * h], dim=-1
     )
+
+
+def box_area(boxes: torch.Tensor) -> torch.Tensor:
+    """Area of [..., 4] xyxy boxes."""
+    return (boxes[..., 2] - boxes[..., 0]) * (boxes[..., 3] - boxes[..., 1])
+
+
+def box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor):
+    """Pairwise IoU of xyxy boxes [..., N, 4] x [..., M, 4] -> (iou, union)
+    [..., N, M]."""
+    area1 = box_area(boxes1)
+    area2 = box_area(boxes2)
+    lt = torch.maximum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.minimum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
+    wh = (rb - lt).clamp(min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = area1[..., :, None] + area2[..., None, :] - inter
+    return inter / union, union
+
+
+def generalized_box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """Pairwise GIoU of xyxy boxes [..., N, 4] x [..., M, 4] -> [..., N, M]."""
+    iou, union = box_iou(boxes1, boxes2)
+    lt = torch.minimum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.maximum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
+    wh = (rb - lt).clamp(min=0.0)
+    area = wh[..., 0] * wh[..., 1]
+    return iou - (area - union) / area
+
+
+def pairwise_l1(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """cdist(.., p=1): [..., N, 4] x [..., M, 4] -> [..., N, M]."""
+    return (boxes1[..., :, None, :] - boxes2[..., None, :, :]).abs().sum(-1)

@@ -2,7 +2,9 @@
 
 ``params_from_jax(params)`` takes the JAX package's DETR params as nested
 dicts of numpy arrays (``{"params": ...}`` or the bare tree) and returns a
-state_dict for ``model.load_state_dict(sd, strict=True)``.  The keys are
+state_dict for ``model.load_state_dict(sd, strict=True)``.  Every layout
+rule below is linear, so a gradient tree of the same structure maps onto
+the port's parameter names the same way.  The keys are
 the reference's torch names wherever the reference has the module
 (``backbone.0.body.*``, ``backbone.0.lateral_convs.{l}.{i}.*``,
 ``transformer.decoder.layers.{i}.*``, ...).  Layout rules:

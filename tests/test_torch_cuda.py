@@ -12,12 +12,21 @@ import pytest
 import torch
 
 from class_query_vad_tpu_torch.config import get_cfg_defaults
+from class_query_vad_tpu_torch.engine import Trainer
 from class_query_vad_tpu_torch.models import build_model
 from class_query_vad_tpu_torch.models.detr import randomize_constants
 from class_query_vad_tpu_torch.models.vit import softmax
+from class_query_vad_tpu_torch.ops.blend2d import (
+    blend2d,
+    blend2d_backward_reference,
+    blend2d_bwd_dcomps,
+    blend2d_bwd_dvol,
+    blend2d_reference,
+)
 from class_query_vad_tpu_torch.ops.fast_deform_cuda import (
     fused_blend2d,
     fused_blend2d_reference,
+    fused_components,
 )
 
 
@@ -64,6 +73,132 @@ def test_vit_softmax_rounds_like_the_cast_form(card):
     want = e / e.float().sum(dim=-1, keepdim=True).bfloat16()
     assert torch.equal(torch.exp(d), e)
     torch.testing.assert_close(softmax(s), want, atol=0, rtol=2.0 ** -8)
+
+
+def _comps(card, dtype, jl, thw, points, seed, ties=False):
+    tt, h, w = thw
+    g = torch.Generator().manual_seed(seed)
+    shape = (2, jl, tt, h, w, 8 * points)
+    vol = torch.randn((2, jl, tt, h, w, 256), generator=g)
+    dx = torch.rand(shape, generator=g) * 2 - 1
+    dy = torch.rand(shape, generator=g) * 2 - 1
+    if ties:
+        for x in (dx, dy):
+            pick = torch.rand(shape, generator=g) < 1 / 3
+            x[pick] = torch.randint(-1, 2, shape, generator=g).float()[pick]
+    a = torch.rand(shape, generator=g) * 0.3
+    grad = torch.randn((2, tt, h, w, 256), generator=g)
+    return ([x.to(card, dtype) for x in (vol, dx, dy, a)],
+            grad.to(card))
+
+
+def _close(got, want, tol, what):
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * max(want.float().abs().max().item(), 1e-30), (what, err)
+
+
+# K2-K4: float32 differs only in summation order; bf16 outputs (K3, K4)
+# are rounded to bf16 after sums in another order (one ulp, 2^-8)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("jl,thw,points,ties", [
+    (4, (2, 7, 9), 8, False), (4, (2, 7, 9), 8, True),
+    (2, (1, 16, 20), 8, True), (3, (1, 1, 5), 4, False)])
+def test_blend2d_kernels_match_plain(card, dtype, tol, jl, thw, points, ties):
+    (vol, dx, dy, a), g = _comps(card, dtype, jl, thw, points, 7, ties)
+    before = (blend2d.launches, blend2d_bwd_dvol.launches,
+              blend2d_bwd_dcomps.launches)
+    out = blend2d(vol, dx, dy, a, 8)
+    dvol = blend2d_bwd_dvol(dx, dy, a, g, vol.dtype, 8)
+    ddx, ddy, da = blend2d_bwd_dcomps(vol, dx, dy, a, g, 8)
+    torch.cuda.synchronize()
+    assert (blend2d.launches, blend2d_bwd_dvol.launches,
+            blend2d_bwd_dcomps.launches) == tuple(x + 1 for x in before)
+    _close(out, blend2d_reference(vol, dx, dy, a, 8), 1e-5, "K2")
+    want = blend2d_backward_reference(vol, dx, dy, a, g, 8)
+    for name, got, w in zip(("K3 dvol", "K4 ddx", "K4 ddy", "K4 da"),
+                            (dvol, ddx, ddy, da), want):
+        assert got.dtype == dtype, name
+        _close(got, w, tol, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_fused_blend2d_autograd_matches_plain(card, dtype, tol):
+    """K1 forward + its backward (recompute, K3, K4) against autograd
+    through the plain composite on the same card."""
+    g = torch.Generator().manual_seed(3)
+    vol = torch.randn((2, 4, 2, 8, 10, 256), generator=g).to(card, dtype)
+    fused = (2 * torch.randn((2, 2, 8, 10, 768), generator=g)).to(card, dtype)
+    grad = torch.randn((2, 2, 8, 10, 256), generator=g).to(card)
+    before = (fused_blend2d.launches, blend2d_bwd_dvol.launches,
+              blend2d_bwd_dcomps.launches, blend2d.launches)
+    a = [vol.clone().requires_grad_(), fused.clone().requires_grad_()]
+    fused_blend2d(*a, 8, 1.0).backward(grad)
+    torch.cuda.synchronize()
+    assert (fused_blend2d.launches, blend2d_bwd_dvol.launches,
+            blend2d_bwd_dcomps.launches, blend2d.launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 1, before[3])
+    b = [vol.clone().requires_grad_(), fused.clone().requires_grad_()]
+    blend2d_reference(b[0], *fused_components(b[1], 4, 8, 1.0), 8).backward(grad)
+    _close(a[0].grad, b[0].grad, tol, "d vol")
+    _close(a[1].grad, b[1].grad, tol, "d fused")
+
+
+@pytest.mark.cuda
+def test_tiny_train_step_on_the_card(card):
+    """One tiny float32 train step on the card and on the CPU, same seeded
+    weights and batch, dropout off: same losses and gradients, and K1, K3,
+    K4 each launched once per encoder layer and query level."""
+    cfg = get_cfg_defaults()
+    c = cfg.CONFIG
+    c.DATA.NUM_CLASSES, c.DATA.TEMP_LEN, c.MODEL.TEMP_LEN = 12, 8, 8
+    c.MODEL.SINGLE_FRAME = True
+    c.MODEL.ENCODER_TYPE, c.MODEL.FAST_WINDOW = "fast_attention", "2d"
+    c.MODEL.ENC_LAYERS, c.MODEL.DEC_LAYERS = 2, 2
+    c.MODEL.DIM_FEEDFORWARD, c.MODEL.QUERY_NUM, c.ViT.DEPTH = 64, 4, 1
+    c.MODEL.DROPOUT, c.ViT.DROP_PATH_RATE = 0.0, 0.0
+    m_cpu = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
+    randomize_constants(m_cpu, torch.Generator().manual_seed(2))
+    m_gpu = build_model(cfg, device=card)
+    m_gpu.load_state_dict(m_cpu.state_dict(), strict=True)
+    rng = np.random.default_rng(0)
+    batch = {
+        "pixels": rng.standard_normal((2, 8, 64, 64, 3), np.float32),
+        "mask": np.zeros((2, 64, 64), bool),
+        "boxes": rng.uniform(0.2, 0.7, (2, 6, 4)).astype(np.float32),
+        "labels": (rng.random((2, 6, 12)) < 0.2).astype(np.float32),
+        "n_boxes": np.array([3, 2], np.int32),
+    }
+    res = []
+    for model, dev in ((m_cpu, "cpu"), (m_gpu, card)):
+        model.head_dropout.p = 0.0
+        trainer = Trainer(model, cfg, device=dev)
+        before = [k.launches for k in (fused_blend2d, blend2d_bwd_dvol,
+                                       blend2d_bwd_dcomps)]
+        total, losses, match = trainer.loss(
+            {k: torch.as_tensor(v).to(dev) for k, v in batch.items()})
+        total.backward()
+        after = [k.launches for k in (fused_blend2d, blend2d_bwd_dvol,
+                                      blend2d_bwd_dcomps)]
+        res.append((total.item(), match, {k: p.grad.cpu() for k, p in
+                                          model.named_parameters()},
+                    [x - y for x, y in zip(after, before)]))
+    (t_c, m_c, g_c, n_c), (t_g, m_g, g_g, n_g) = res
+    assert n_c == [0, 0, 0] and n_g == [2 * 4] * 3
+    ok = m_c.match_ok
+    assert torch.equal(ok, m_g.match_ok.cpu())
+    assert torch.equal(m_c.gt_idx[ok], m_g.gt_idx.cpu()[ok])
+    assert abs(t_g - t_c) <= 1e-4 * abs(t_c)
+    # 1e-2 of each tensor's largest gradient, with a floor of 1e-5 of the
+    # model's: some gradients are zero up to rounding (a key bias shifts
+    # all of a query's logits alike) and their noise has no scale
+    floor = 1e-5 * max(g.abs().max().item() for g in g_c.values())
+    for k in g_c:
+        err = (g_g[k] - g_c[k]).abs().max().item()
+        assert err <= 1e-2 * g_c[k].abs().max().item() + floor, (k, err)
 
 
 @pytest.mark.cuda

@@ -23,28 +23,7 @@ from class_query_vad_tpu_torch.losses import postprocess_ava
 from class_query_vad_tpu_torch.models import build_model
 from class_query_vad_tpu_torch.utils.weights import params_from_jax
 
-from torch_parity import n, random_params, t
-
-
-def _tiny(cfg, eff_slice: bool, depth2: bool = False):
-    c = cfg.CONFIG
-    c.DATA.DATASET_NAME = "ava"
-    c.DATA.NUM_CLASSES = 12
-    c.DATA.TEMP_LEN = 8
-    c.MODEL.TEMP_LEN = 8
-    c.MODEL.SINGLE_FRAME = True
-    c.MODEL.BACKBONE_NAME = "ViT"
-    c.MODEL.ENCODER_TYPE = "fast_attention"
-    c.MODEL.FAST_RADIUS = 1
-    c.MODEL.FAST_WINDOW = "2d"
-    c.MODEL.FAST_EFF_SLICE = eff_slice
-    c.MODEL.ENC_LAYERS = 2
-    c.MODEL.DEC_LAYERS = 2 if depth2 else 1
-    c.MODEL.DIM_FEEDFORWARD = 64
-    c.MODEL.QUERY_NUM = 4
-    c.ViT.DEPTH = 2 if depth2 else 1
-    c.ViT.USE_CHECKPOINT = False
-    return cfg
+from torch_parity import n, random_params, t, tiny_cfg
 
 
 @functools.lru_cache(maxsize=None)
@@ -53,12 +32,12 @@ def _world(eff_slice: bool, depth2: bool, seed: int):
     pixels = rng.normal(size=(2, 8, 64, 64, 3)).astype(np.float32)
     mask = np.zeros((2, 64, 64), bool)
     mask[1, :, 48:] = True                       # second clip padded right
-    jm = jax_build_model(_tiny(jax_cfg_defaults(), eff_slice, depth2))
+    jm = jax_build_model(tiny_cfg(jax_cfg_defaults(), eff_slice, depth2))
     params = random_params(lambda k, x, m: jm.init(k, x, m, True),
                            jnp.asarray(pixels), jnp.asarray(mask), seed=seed)
     out_j = jax.jit(lambda p, x, m: jm.apply(p, x, m, True))(
         params, jnp.asarray(pixels), jnp.asarray(mask))
-    model = build_model(_tiny(get_cfg_defaults(), eff_slice, depth2),
+    model = build_model(tiny_cfg(get_cfg_defaults(), eff_slice, depth2),
                         device="cpu")
     model.load_state_dict(params_from_jax(params), strict=True)
     with torch.inference_mode():

@@ -228,7 +228,7 @@ def test_vit(out_frame_range):
                            seed=5)
     want = jax.jit(lambda p, a: jm.apply(p, a, True, out_frame_range))(
         params, jnp.asarray(x))
-    tm = ViT(spec.ViTSpec(**_VIT))
+    tm = ViT(spec.ViTSpec(**_VIT)).eval()              # deterministic=True
     load_from_flax(tm, params, ("backbone", "body"), "backbone.0.body.")
     with torch.inference_mode():
         got = tm(t(x), out_frame_range=out_frame_range)
@@ -264,7 +264,7 @@ def test_backbone_fpn(sliced):
     want = jax.jit(lambda p, a, b: jm.apply(p, a, b, True, **kw))(
         params, jnp.asarray(x), jnp.asarray(m))
     tm = backbone.ViTBackboneFPN(
-        spec.ModelSpec(d_model=32, vit=spec.ViTSpec(**_VIT)), 32)
+        spec.ModelSpec(d_model=32, vit=spec.ViTSpec(**_VIT)), 32).eval()
     load_from_flax(tm, params, ("backbone",), "backbone.0.")
     with torch.inference_mode():
         got = tm(t(x), t(m), **kw)
@@ -287,7 +287,7 @@ def test_fast_encoder():
     args = [[jnp.asarray(a) for a in x] for x in (srcs, poses, masks)]
     params = random_params(lambda k, *a: jm.init(k, *a, True), *args, seed=7)
     want = jax.jit(lambda p, *a: jm.apply(p, *a, True))(params, *args)
-    tm = FastDeformableEncoder(2, 256, 64, 3, 8, 8, 1, "2d", "resample")
+    tm = FastDeformableEncoder(2, 256, 64, 3, 8, 8, 1, "2d", "resample").eval()
     load_from_flax(tm, params, ("transformer", "encoder"),
                    "transformer.encoder.")
     with torch.inference_mode():
@@ -312,7 +312,7 @@ def test_decoder(num_layers):
     params = random_params(lambda k, *a: jm.init(k, *a, (h, w), True), *args,
                            seed=8)
     want = jax.jit(lambda p, *a: jm.apply(p, *a, (h, w), True))(params, *args)
-    tm = TransformerDecoder(num_layers, d, 8, 32, 5, n_levels=nl)
+    tm = TransformerDecoder(num_layers, d, 8, 32, 5, n_levels=nl).eval()
     load_from_flax(tm, params, ("transformer", "decoder"),
                    "transformer.decoder.")
     with torch.inference_mode():

@@ -13,10 +13,17 @@ import torch
 from class_query_vad_tpu.config import get_cfg_custom as jax_get_cfg_custom
 from class_query_vad_tpu.models.spec import spec_from_cfg as jax_spec_from_cfg
 from class_query_vad_tpu_torch.config import get_cfg_custom, get_cfg_defaults
+from class_query_vad_tpu_torch.engine import Trainer
+from class_query_vad_tpu_torch.losses import build_criterion_and_postprocessor, build_matcher
 from class_query_vad_tpu_torch.models import build_model
 from class_query_vad_tpu_torch.models.detr import randomize_constants
 from class_query_vad_tpu_torch.models.fast_encoder import FastDeformAttn2D
 from class_query_vad_tpu_torch.models.spec import spec_from_cfg
+from class_query_vad_tpu_torch.ops.blend2d import (
+    blend2d,
+    blend2d_bwd_dcomps,
+    blend2d_bwd_dvol,
+)
 from class_query_vad_tpu_torch.ops.fast_deform_cuda import fused_blend2d
 
 REPO = Path(__file__).resolve().parents[1]
@@ -44,7 +51,8 @@ def test_port_imports_no_jax(path):
         assert root not in FORBIDDEN, f"{path.name} imports {mod}"
 
 
-@pytest.mark.parametrize("name", ["fast_deform_cuda.py", "cuda_build.py"])
+@pytest.mark.parametrize("name", ["fast_deform_cuda.py", "cuda_build.py",
+                                  "blend2d.py"])
 def test_kernel_path_has_no_try(name):
     """No ``try`` around the build or the launch: on the card the wrapper
     launches the kernel or raises."""
@@ -59,6 +67,42 @@ def test_wrapper_rejects_non_cpu_non_cuda_tensors():
     with pytest.raises(ValueError):
         fused_blend2d(vol, fused, 8, 1.0)
     assert fused_blend2d.launches == before
+
+
+def _meta_comps(shape=(1, 2, 1, 3, 4)):
+    vol = torch.empty(shape + (256,), device="meta")
+    comps = [torch.empty(shape + (64,), device="meta") for _ in range(3)]
+    g = torch.empty((shape[0],) + shape[2:] + (256,), device="meta")
+    return vol, comps, g
+
+
+def test_blend_wrappers_reject_non_cpu_non_cuda_tensors():
+    vol, (dx, dy, a), g = _meta_comps()
+    counters = (blend2d, blend2d_bwd_dvol, blend2d_bwd_dcomps)
+    before = [c.launches for c in counters]
+    with pytest.raises(ValueError):
+        blend2d(vol, dx, dy, a, 8)
+    with pytest.raises(ValueError):
+        blend2d_bwd_dvol(dx, dy, a, g, vol.dtype, 8)
+    with pytest.raises(ValueError):
+        blend2d_bwd_dcomps(vol, dx, dy, a, g, 8)
+    with pytest.raises(ValueError):      # one CPU, one meta tensor
+        blend2d(torch.zeros(vol.shape), dx, dy, a, 8)
+    assert [c.launches for c in counters] == before
+
+
+def test_blend_wrappers_take_cpu_tensors_to_the_plain_versions():
+    g = torch.Generator().manual_seed(0)
+    vol = torch.randn((1, 2, 1, 3, 4, 256), generator=g)
+    dx, dy, a = (torch.rand((1, 2, 1, 3, 4, 64), generator=g) for _ in range(3))
+    counters = (fused_blend2d, blend2d, blend2d_bwd_dvol, blend2d_bwd_dcomps)
+    before = [c.launches for c in counters]
+    xs = [x.clone().requires_grad_() for x in (vol, dx, dy, a)]
+    blend2d(*xs, 8).sum().backward()
+    f = torch.randn((1, 1, 3, 4, 3 * 2 * 64), generator=g, requires_grad=True)
+    fused_blend2d(xs[0], f, 8, 1.0).sum().backward()
+    assert all(x.grad is not None for x in xs) and f.grad is not None
+    assert [c.launches for c in counters] == before
 
 
 def _tiny_cfg():
@@ -110,6 +154,34 @@ def test_build_model_is_seeded_and_casts_per_part():
     assert not sd["transformer.encoder.layers.0.self_attn.window_offsets.weight"].any()
     assert not sd["transformer.encoder.layers.0.self_attn.window_weights.weight"].any()
     assert sd["transformer.encoder.layers.0.self_attn.window_offsets.bias"].abs().max() == 8
+
+
+def test_trainer_needs_a_card_or_an_explicit_cpu(monkeypatch):
+    model = build_model(_tiny_cfg(), device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(model, _tiny_cfg())
+    trainer = Trainer(model, _tiny_cfg(), device="cpu")
+    assert trainer.model.training and trainer.device.type == "cpu"
+
+
+def test_unported_training_options_raise():
+    cfg = _tiny_cfg()
+    cfg.CONFIG.GRADIENT_CHECKPOINTING = True
+    model = build_model(cfg, device="cpu")
+    pixels = torch.zeros((1, 8, 64, 64, 3))
+    mask = torch.zeros((1, 64, 64), dtype=torch.bool)
+    with torch.no_grad():
+        model(pixels, mask)                  # eval: no remat to do
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            model.train()(pixels, mask)
+    for name in ("ucf", "jhmdb"):
+        cfg = _tiny_cfg()
+        cfg.CONFIG.DATA.DATASET_NAME = name
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build_matcher(cfg)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build_criterion_and_postprocessor(cfg, None)
 
 
 def test_randomize_constants_gives_nonzero_class_logits():

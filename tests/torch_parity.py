@@ -64,3 +64,56 @@ def n(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().float().cpu().numpy()
     return np.asarray(x, np.float32)
+
+
+def tiny_cfg(cfg, eff_slice: bool, depth2: bool = False):
+    """The tiny AVA configuration of the port's whole-model tests (ViT
+    depth 1 or 2, 2 encoder and 1 or 2 decoder layers, d_ffn 64, 12
+    classes, 8 frames), set on a config tree of either package."""
+    c = cfg.CONFIG
+    c.DATA.DATASET_NAME = "ava"
+    c.DATA.NUM_CLASSES = 12
+    c.DATA.TEMP_LEN = 8
+    c.MODEL.TEMP_LEN = 8
+    c.MODEL.SINGLE_FRAME = True
+    c.MODEL.BACKBONE_NAME = "ViT"
+    c.MODEL.ENCODER_TYPE = "fast_attention"
+    c.MODEL.FAST_RADIUS = 1
+    c.MODEL.FAST_WINDOW = "2d"
+    c.MODEL.FAST_EFF_SLICE = eff_slice
+    c.MODEL.ENC_LAYERS = 2
+    c.MODEL.DEC_LAYERS = 2 if depth2 else 1
+    c.MODEL.DIM_FEEDFORWARD = 64
+    c.MODEL.QUERY_NUM = 4
+    c.ViT.DEPTH = 2 if depth2 else 1
+    c.ViT.USE_CHECKPOINT = False
+    return cfg
+
+
+TRAIN_M = 6          # gt slots per clip in the train tests
+
+
+def train_cfg(get_defaults):
+    """``tiny_cfg`` with two decoder layers (one aux layer) and dropout and
+    drop path at 0, for the train-step tests."""
+    cfg = tiny_cfg(get_defaults(), eff_slice=True, depth2=True)
+    c = cfg.CONFIG
+    c.MODEL.DROPOUT = 0.0
+    c.ViT.DROP_PATH_RATE = 0.0
+    c.DATA.MAX_BOXES = TRAIN_M
+    return cfg
+
+
+def train_batch(seed: int = 0):
+    """A seeded batch of 2 clips [8, 64, 64] (the second padded right), 6
+    gt slots with 3 and 2 live boxes, 20 % multi-hot labels of 12 classes."""
+    rng = np.random.default_rng(seed)
+    mask = np.zeros((2, 64, 64), bool)
+    mask[1, :, 48:] = True
+    return {
+        "pixels": rng.normal(size=(2, 8, 64, 64, 3)).astype(np.float32),
+        "mask": mask,
+        "boxes": rng.uniform(0.2, 0.7, (2, TRAIN_M, 4)).astype(np.float32),
+        "labels": (rng.random((2, TRAIN_M, 12)) < 0.2).astype(np.float32),
+        "n_boxes": np.array([3, 2], np.int32),
+    }
