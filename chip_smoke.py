@@ -5,7 +5,7 @@ NVIDIA card.
     python3 chip_smoke.py            # needs one CUDA card and nvcc
 
 1. Device and build: the card's name and power limit (nvidia-smi), TF32
-   off for the parity phases, every CUDA kernel (K1-K4) built from
+   off for the parity phases, every CUDA kernel (K1-K5) built from
    ``csrc/`` (one nvcc per source, started together) with ptxas's register
    report.
 2. Kernels against their plain PyTorch versions on the card, at the main
@@ -37,6 +37,20 @@ NVIDIA card.
 6. One float32 train step of the full-width model on the card and on the
    CPU, same weights and batch, dropout off: the same matcher assignment,
    the loss and every parameter's gradient agree.
+7. K5 (the selective scan) against its plain version on the card at the
+   VSS path's shapes, with their real strides (the backbone's [B=2,
+   KD=384, L=5121, N=16] in bf16 with a float32 delta and all float32; the
+   encoder's [2, 1024, 320, 4, G=4] float32) and an awkward one (L=37,
+   KD=96, G=2), with and without D, delta_bias and the softplus; device
+   times and the card's lower bound.
+8. The VSS eval path at full width: ``AVA22_train-mamba_VSS`` (VideoMamba-
+   tiny, 24 blocks; VSS encoder, 6 layers; 6 decoder layer pairs) in bf16
+   with seeded random weights serves 3 requests of [2, 16, 256, 320, 3]
+   through forward + ``postprocess_ava``; the launch counts show K5 ran 96
+   times per forward (48 backbone and 48 encoder scans); median ms/batch,
+   peak memory, device ms per stage, the profiler's busy share.
+9. The same VSS model in float32 on the card (K5) and on the CPU (plain
+   scan), B=1: all three heads must agree.
 
 Every phase raises on failure (exit code != 0).  The last two lines are a
 JSON object of per-kernel numbers and ``{"ok": true, "device": ...}``.
@@ -57,6 +71,7 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(REPO, "configuration", "AVA22_ViT-B_fast.yaml")
+VSS_CONFIG = os.path.join(REPO, "configuration", "AVA22_train-mamba_VSS.yaml")
 
 # Device memory bandwidth (bytes/s) and float32 CUDA-core peak (FLOP/s) by
 # card name (NVIDIA data sheets, dense); the bound of a kernel is the larger
@@ -771,7 +786,8 @@ def phase_components_route(dev, counters):
     print(f"components route, 2 full-width bf16 train steps: total "
           f"{metrics['total_loss'].item():.5f}; launches {launches}")
     check(launches == {"fused_blend2d": 0, "blend2d": 48,
-                       "blend2d_bwd_dvol": 48, "blend2d_bwd_dcomps": 48},
+                       "blend2d_bwd_dvol": 48, "blend2d_bwd_dcomps": 48,
+                       "selective_scan": 0},
           f"components-route launches {launches}, expected 24 each of K2, "
           f"K3, K4 per step and no K1")
     del trainer, model
@@ -850,6 +866,284 @@ def phase_train_card_vs_cpu(dev):
           f"{worst:.1%} of it")
 
 
+# K5 at the VSS path's shapes (B, KD, L, N, G): the backbone's scans (24
+# BiMamba blocks x 2 directions per forward) and the encoder's (6 layers x
+# 2 time directions x 4 frames), and an awkward shape
+K5_BACKBONE = (2, 384, 5121, 16, 1)
+K5_ENCODER = (2, 1024, 320, 4, 4)
+K5_AWKWARD = (1, 96, 37, 8, 2)
+K5_PER_FORWARD = {K5_BACKBONE: 48, K5_ENCODER: 48}
+# float32: the same arithmetic in other orders (fused multiply-adds, the
+# state sum split over threads); the recurrence carries a last-bit
+# difference over ~1 / (1 - exp(delta A)) steps (~1000 at the dt init).
+# bf16: y is rounded to bf16 on both sides (one ulp, 2^-8 of |y|)
+K5_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+SFU_RATE = 132 * 16 * 1.98e9     # H100 SXM: exps per second (16/clk/SM)
+
+
+def k5_work(b, kd, length, ns, g, itemsize):
+    """(bytes, operations, exps) one K5 launch must spend: u, delta (float32),
+    B, C read once and y written once; per (b, d, l): delta + bias,
+    softplus (~6), delta * u, D * u + y; per state: delta * A, exp, the
+    update (multiply-add + multiply) and C * h (multiply-add)."""
+    steps = b * kd * length
+    nbytes = (steps * (2 * itemsize + 4)
+              + 2 * b * g * ns * length * itemsize)
+    return nbytes, steps * (10 + 7 * ns), steps * ns
+
+
+def scan_inputs(rng, shape, dtype, dev):
+    """Inputs of one K5 launch laid out as the VSS path hands them over:
+    the backbone's u [B, KD, L] contiguous (the conv's output), delta a
+    transposed view of [B, L, KD] and B, C views of the x_proj output
+    [B, L, R + 2N]; the encoder's delta contiguous and B, C slices of
+    [B, K, R + 2N, L].  delta ~ N(0, 0.5) plus the dt init's bias, A and D
+    at the init (A = -(1..N), D = 1)."""
+    b, kd, length, ns, g = shape
+    f = lambda *sz: torch.from_numpy(
+        rng.standard_normal(sz).astype(np.float32)).to(dev)
+    u = f(b, kd, length).to(dtype)
+    if g == 1:
+        delta = (0.5 * f(b, length, kd)).transpose(1, 2)
+        dbl = f(b, length, 12 + 2 * ns).to(dtype)
+        bm = dbl[..., 12:12 + ns].transpose(1, 2)[:, None]
+        cm = dbl[..., 12 + ns:].transpose(1, 2)[:, None]
+    else:
+        delta = 0.5 * f(b, kd, length)
+        dbl = f(b, g, 8 + 2 * ns, length).to(dtype)
+        bm, cm = dbl[:, :, 8:8 + ns], dbl[:, :, 8 + ns:]
+    a = -torch.arange(1.0, ns + 1, device=dev).repeat(kd, 1)
+    dt = torch.exp(torch.from_numpy(rng.uniform(
+        np.log(1e-3), np.log(0.1), kd).astype(np.float32))).to(dev)
+    bias = dt + torch.log(-torch.expm1(-dt))
+    return u, delta, a, bm, cm, torch.ones(kd, device=dev), bias
+
+
+def phase_scan_kernel(dev, bw, peak):
+    from class_query_vad_tpu_torch.ops.selective_scan import (
+        selective_scan, selective_scan_reference)
+
+    rng = np.random.default_rng(5)
+    max_err = 0.0
+    per_shape = {}
+    cases = [(K5_BACKBONE, torch.bfloat16, "all"), (K5_BACKBONE, torch.float32, "all"),
+             (K5_ENCODER, torch.float32, "all"), (K5_ENCODER, torch.float32, "none"),
+             (K5_AWKWARD, torch.float32, "all"), (K5_AWKWARD, torch.float32, "none"),
+             (K5_AWKWARD, torch.float32, "softplus"),
+             (K5_AWKWARD, torch.bfloat16, "skip+bias")]
+    for shape, dtype, flags in cases:
+        u, delta, a, bm, cm, d, bias = scan_inputs(rng, shape, dtype, dev)
+        kw = dict(D=d, delta_bias=bias, delta_softplus=True)
+        if flags == "none":
+            kw, delta = dict(D=None, delta_bias=None, delta_softplus=False), delta.abs()
+        elif flags == "softplus":
+            kw = dict(D=None, delta_bias=None, delta_softplus=True)
+        elif flags == "skip+bias":
+            kw, delta = dict(D=d, delta_bias=bias.abs(), delta_softplus=False), delta.abs()
+        with torch.inference_mode():
+            got, last = selective_scan(u, delta, a, bm, cm, return_last_state=True, **kw)
+            want, last_p = selective_scan_reference(u, delta, a, bm, cm,
+                                                    return_last_state=True, **kw)
+        torch.cuda.synchronize()
+        check(got.dtype == u.dtype and got.shape == u.shape,
+              f"K5 output {got.dtype} {tuple(got.shape)}")
+        check(bool(torch.isfinite(got).all()), "K5 output not finite")
+        err, rel = rel_err(got, want)
+        _, rel_last = rel_err(last, last_p)
+        ok = max(rel, rel_last) <= K5_TOL[dtype]
+        print(f"K5 {str(dtype)[6:]:8s} {'x'.join(map(str, shape)):16s} "
+              f"{flags:9s}: max|err| = {rel:.2e} x max|y|, last state "
+              f"{rel_last:.2e} (tol {K5_TOL[dtype]:.0e}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"K5 disagrees with its plain version at {shape} {dtype} {flags}")
+        max_err = max(max_err, err)
+        main_dtype = torch.bfloat16 if shape == K5_BACKBONE else torch.float32
+        if shape in K5_PER_FORWARD and dtype == main_dtype and flags == "all":
+            call = lambda: selective_scan(u, delta, a, bm, cm, **kw)
+            with torch.inference_mode():
+                t_k = kernel_device_ms(call)
+                t_p = cuda_ms(lambda: selective_scan_reference(
+                    u, delta, a, bm, cm, **kw), 2, 1)
+            nbytes, ops, exps = k5_work(*shape, u.element_size())
+            t_b = max(nbytes / bw, ops / peak) * 1e3
+            per_shape[shape] = (t_k, t_p, t_b,
+                                "bytes" if nbytes / bw >= ops / peak else "operations")
+            print(f"K5 {str(dtype)[6:]:8s} {'x'.join(map(str, shape)):16s}: "
+                  f"kernel {t_k:.4f} ms (device, queued), plain {t_p:.2f} ms, "
+                  f"bound {t_b:.4f} ms ({nbytes / 1e6:.1f} MB, "
+                  f"{ops / 1e9:.3f} GFLOP; the {exps / 1e6:.1f} M exps alone "
+                  f"{exps / SFU_RATE * 1e3:.4f} ms at the SFU rate) -> kernel at "
+                  f"{t_b / t_k:.1%} of the bound's speed")
+    ms = sum(n * per_shape[s][0] for s, n in K5_PER_FORWARD.items())
+    plain_ms = sum(n * per_shape[s][1] for s, n in K5_PER_FORWARD.items())
+    bound_ms = sum(n * per_shape[s][2] for s, n in K5_PER_FORWARD.items())
+    bound_by = {}
+    for s_, n_ in K5_PER_FORWARD.items():
+        bound_by[per_shape[s_][3]] = bound_by.get(per_shape[s_][3], 0.0) + n_ * per_shape[s_][2]
+    print(f"K5 per VSS forward (48 backbone + 48 encoder launches): kernel "
+          f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms")
+    return {
+        "name": "selective_scan", "route": "cuda",
+        "source": "class_query_vad_tpu_torch/csrc/selective_scan.cu",
+        "replaces": "class_query_vad_tpu/ops/selective_scan_pallas.py:37",
+        "launches": None, "max_abs_err": max_err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": max(bound_by, key=bound_by.get), "library_ms": None,
+    }
+
+
+def vss_stage_breakdown(model, pixels, mask, dev, wall_ms: float,
+                        iters: int = 3):
+    """Mean device ms of the VSS forward's stages (CUDA events from forward
+    hooks) and the card's busy share of ``wall_ms`` (torch.profiler)."""
+    body = model.backbone[0]
+    stages = {"VideoMamba (24 blocks)": body.body,
+              "mamba_proj": body.mamba_proj,
+              "VSS encoder (6 layers)": model.transformer.encoder,
+              "decoder (6 layer pairs)": model.transformer.decoder}
+    events = {k: [] for k in stages}
+    handles = []
+    for k, mod in stages.items():
+        def pre(_m, _a, k=k):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            events[k].append([e, None])
+
+        def post(_m, _a, _o, k=k):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            events[k][-1][1] = e
+        handles += [mod.register_forward_pre_hook(pre),
+                    mod.register_forward_hook(post)]
+    total = []
+    for _ in range(iters):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        serve(model, pixels, mask, dev)
+        e.record()
+        total.append((s, e))
+    torch.cuda.synchronize()
+    for h in handles:
+        h.remove()
+    fwd = statistics.mean(s.elapsed_time(e) for s, e in total)
+    print(f"VSS stage breakdown (device ms, mean of {iters}): forward + "
+          f"postprocess {fwd:.2f}")
+    for k, evs in events.items():
+        ms = statistics.mean(a.elapsed_time(b) for a, b in evs)
+        print(f"  {k:30s} {ms:8.2f} ms  {ms / fwd:6.1%}")
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        serve(model, pixels, mask, dev)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    print(events.table(sort_by="self_cuda_time_total", row_limit=15,
+                       max_name_column_width=60))
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in device) / 1e3
+    print(f"VSS device busy {busy:.2f} ms per forward (profiled) = "
+          f"{busy / wall_ms:.1%} of the median {wall_ms:.2f} ms/batch; idle "
+          f"share {1 - busy / wall_ms:.1%}; the trace holds launches "
+          f"{trace_holds(device, {'selective_scan': 96})}")
+
+
+def phase_vss_main_path(dev, counters):
+    """The VSS eval path at full width in bf16: 3 requests, 96 K5 launches
+    per forward, timings."""
+    from class_query_vad_tpu_torch.config import get_cfg_custom
+    from class_query_vad_tpu_torch.models import build_model
+    from class_query_vad_tpu_torch.models.detr import randomize_constants
+
+    cfg = get_cfg_custom(VSS_CONFIG)
+    t0 = time.perf_counter()
+    model = build_model(cfg, dtype=torch.bfloat16)
+    randomize_constants(model, torch.Generator().manual_seed(4))
+    torch.cuda.synchronize()
+    print(f"VSS build_model (bf16, seeded init on the host): "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{sum(p.numel() for p in model.parameters()) / 1e6:.2f} M params")
+    requests = [make_request(seed) for seed in (4, 5, 6)]
+    for c in counters:
+        c.launches = 0
+    for i, (pixels, mask) in enumerate(requests):
+        out, (scores, boxes, actor) = serve(model, pixels, mask, dev)
+        torch.cuda.synchronize()
+        for name, x, shape in (("scores", scores, (2, 15, 80)),
+                               ("boxes", boxes, (2, 15, 4)),
+                               ("actorness", actor, (2, 15, 1))):
+            check(tuple(x.shape) == shape, f"VSS {name} shape {tuple(x.shape)}")
+            check(bool(torch.isfinite(x).all()), f"VSS {name} not finite")
+        print(f"VSS request {i}: scores {tuple(scores.shape)} boxes "
+              f"{tuple(boxes.shape)} actorness {tuple(actor.shape)}, finite; "
+              f"top score {scores.max().item():.4f}")
+    launches = {c.__name__: c.launches for c in counters}
+    print(f"VSS kernel launches over {len(requests)} requests: {launches}")
+    check(launches == {**{k: 0 for k in launches},
+                       "selective_scan": 96 * len(requests)},
+          f"VSS eval launches {launches}, expected K5 alone, 96 per forward")
+
+    pixels, mask = requests[0]
+    for _ in range(2):
+        serve(model, pixels, mask, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        serve(model, pixels, mask, dev)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    med = statistics.median(times)
+    print(f"full-width VSS eval, B=2 bf16, forward + postprocess, host->device "
+          f"copy included: median {med:.2f} ms/batch ({2e3 / med:.2f} "
+          f"clips/s) over {len(times)} iterations; min {min(times):.2f}, "
+          f"max {max(times):.2f}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    vss_stage_breakdown(model, pixels, mask, dev, med)
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_vss_card_vs_cpu(dev):
+    """The VSS model in float32, B=1: K5 on the card, the plain scan on the
+    CPU, same weights and input."""
+    from class_query_vad_tpu_torch.config import get_cfg_custom
+    from class_query_vad_tpu_torch.models import build_model
+    from class_query_vad_tpu_torch.models.detr import randomize_constants
+
+    cfg = get_cfg_custom(VSS_CONFIG)
+    m_cpu = build_model(cfg, torch.float32, "cpu",
+                        torch.Generator().manual_seed(9))
+    randomize_constants(m_cpu, torch.Generator().manual_seed(10))
+    m_gpu = build_model(cfg, torch.float32, dev)
+    m_gpu.load_state_dict(m_cpu.state_dict(), strict=True)
+    pixels, mask = make_request(12, b=1)
+    out_g, _ = serve(m_gpu, pixels, mask, dev)
+    torch.cuda.synchronize()
+    torch.set_num_threads(os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    out_c, _ = serve(m_cpu, pixels, mask, "cpu")
+    print(f"VSS CPU float32 forward (plain scan): "
+          f"{time.perf_counter() - t0:.1f} s")
+    for k in ("pred_logits", "pred_boxes", "pred_logits_b"):
+        g, c = out_g[k].float().cpu(), out_c[k].float()
+        err = (g - c).abs().max().item()
+        scale = c.abs().max().item()
+        ok = bool(torch.isfinite(g).all()) and err <= VSS_MODEL_TOL * scale
+        print(f"VSS fp32 card vs CPU {k:14s}: max|err| {err:.3e} = "
+              f"{err / scale:.2e} x max|ref| (tol {VSS_MODEL_TOL:.0e}) "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"VSS card and CPU disagree on {k}")
+
+
+# phase 9: float32 on both sides; 24 bidirectional 5121-step scans and 6
+# encoder layers summed in other orders (cuBLAS / cuDNN and K5's fused
+# multiply-adds vs the CPU's kernels and the plain loop)
+VSS_MODEL_TOL = 2e-3
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -862,8 +1156,10 @@ def main() -> int:
         blend2d_bwd_dvol,
     )
     from class_query_vad_tpu_torch.ops.fast_deform_cuda import fused_blend2d
+    from class_query_vad_tpu_torch.ops.selective_scan import selective_scan
 
-    counters = [fused_blend2d, blend2d, blend2d_bwd_dvol, blend2d_bwd_dcomps]
+    counters = [fused_blend2d, blend2d, blend2d_bwd_dvol, blend2d_bwd_dcomps,
+                selective_scan]
     dev = torch.device("cuda", 0)
     card = card_info()
     name = torch.cuda.get_device_name(0)
@@ -896,6 +1192,10 @@ def main() -> int:
     for k in kernels:
         k["launches"] = (comps if k["name"] == "blend2d" else launches)[k["name"]]
     phase_train_card_vs_cpu(dev)
+    kernels.append(phase_scan_kernel(dev, bw, peak))
+    vss = phase_vss_main_path(dev, counters)
+    kernels[-1]["launches"] = vss["selective_scan"]
+    phase_vss_card_vs_cpu(dev)
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

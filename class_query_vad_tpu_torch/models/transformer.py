@@ -1,6 +1,7 @@
-"""DAB transformer: fast encoder, common-grid interpolation, decoder
-(counterpart of ``class_query_vad_tpu/models/transformer.py``, fast-attention
-branch only).
+"""DAB transformer: encoder, common-grid interpolation, decoder
+(counterpart of ``class_query_vad_tpu/models/transformer.py``: the
+fast-attention and the SSM / VSS encoder branches; the exact deformable
+encoder is not ported yet).
 
 * every level gets a learned ``level_embed`` on its positional encoding;
 * the encoder output levels are resampled onto the grid of level index -2
@@ -10,7 +11,9 @@ branch only).
   grid, a temporal lerp of two encoder frames: with the 2d window the
   encoder never mixes time, so the centre-frame slice (``center_slice_plan``)
   runs the encoder on just those frames — exactly.  On the main path the
-  backbone already delivers the sliced frames (``pre_sliced``).
+  backbone already delivers the sliced frames (``pre_sliced``);
+* the SSM / VSS encoders (one level) return the key frame's memory and
+  pose, decoded as a single frame.
 """
 
 from __future__ import annotations
@@ -106,19 +109,26 @@ class DABTransformer(nn.Module):
     def __init__(self, spec):
         super().__init__()
         s = self.spec = spec
-        if s.encoder_type != "fast_attention":
-            raise NotImplementedError(
-                f"ENCODER_TYPE={s.encoder_type} is not ported yet (ROADMAP.md "
-                "Queue 1: the exact encoder and the Mamba family)")
-        from .fast_encoder import FastDeformableEncoder
-
         self.level_embed = nn.Parameter(
             torch.zeros(s.num_feature_levels, s.d_model))
-        self.encoder = FastDeformableEncoder(
-            s.enc_layers, s.d_model, s.dim_feedforward, s.num_feature_levels,
-            s.nhead, s.enc_n_points, s.fast_radius, s.fast_window,
-            s.fast_cross_level, s.dropout,
-        )
+        if s.encoder_type == "fast_attention":
+            from .fast_encoder import FastDeformableEncoder
+
+            self.encoder = FastDeformableEncoder(
+                s.enc_layers, s.d_model, s.dim_feedforward,
+                s.num_feature_levels, s.nhead, s.enc_n_points, s.fast_radius,
+                s.fast_window, s.fast_cross_level, s.dropout,
+            )
+        elif s.encoder_type in ("ssm", "vssm"):
+            from .ssm_encoder import SSMEncoder
+
+            self.encoder = SSMEncoder(s.enc_layers, s.d_model,
+                                      s.dim_feedforward, s.encoder_type,
+                                      s.dropout)
+        else:
+            raise NotImplementedError(
+                f"ENCODER_TYPE={s.encoder_type} is not ported yet (ROADMAP.md "
+                "Queue 1 step 12: the exact encoder)")
         self.decoder = TransformerDecoder(
             s.dec_layers, s.d_model, s.nhead, s.dim_feedforward,
             s.num_classes, query_dim=4,
@@ -133,6 +143,8 @@ class DABTransformer(nn.Module):
         backbone, and pos_dec is the ref level's sine pose at the decode
         frame.  Returns (hs, cls_hs, references)."""
         s = self.spec
+        if s.encoder_type in ("ssm", "vssm"):
+            return self._ssm_forward(srcs, masks, poses, refpoint_embed)
         fdt = torch_dtype(s.fast_dtype)
         shapes = tuple(tuple(x.shape[1:4]) for x in srcs)
         if pre_sliced is not None:
@@ -176,6 +188,22 @@ class DABTransformer(nn.Module):
         pos_levels = [p.to(hdt) for p in pos_levels]
         return self._common_grid_decode(mem_levels, pos_levels, masks,
                                         shapes, refpoint_embed)
+
+    def _ssm_forward(self, srcs, masks, poses, refpoint_embed):
+        """SSM / VSS encoder path (JAX ``transformer.py:246-272``): the
+        levels flattened with ``level_embed`` on their poses, the encoder
+        in float32 collapsing to the key frame (the last), and the decoder
+        on that one frame (T = 1)."""
+        b, d = srcs[0].shape[0], self.spec.d_model
+        src_flat = torch.cat([x.reshape(b, -1, d) for x in srcs], 1).float()
+        pos_flat = torch.cat([p.reshape(b, -1, d) + self.level_embed[l]
+                              for l, p in enumerate(poses)], 1).float()
+        memory, key_pos = self.encoder(src_flat, pos_flat,
+                                       tuple(srcs[0].shape[1:4]))
+        h0, w0 = srcs[0].shape[2:4]
+        return self._decode([memory.reshape(b, 1, h0, w0, d)],
+                            key_pos.reshape(b, 1, h0, w0, d),
+                            masks[0][:, :1], refpoint_embed)
 
     def _center_frame_decode(self, mem_levels, poses, masks, shapes,
                              refpoint_embed, plan, fdt, hdt):

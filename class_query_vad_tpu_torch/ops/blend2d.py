@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from . import cuda_build
+from .cuda_build import device_of, launch
 
 _HEADS, _CHANNELS, _MAX_LEVELS = 8, 256, 4
 
@@ -47,18 +47,6 @@ def hat_grad(u: torch.Tensor) -> torch.Tensor:
     au = u.abs()
     inner = torch.where(u >= 0, -1.0, 1.0).to(u.dtype)
     return torch.where(au < 1, inner, torch.where(au == 1, 0.5 * inner, 0.0))
-
-
-def device_of(*tensors: torch.Tensor) -> str:
-    """"cpu" when every tensor lies on the CPU, "cuda" when all lie on one
-    CUDA device; raises otherwise (the wrappers' only routing rule)."""
-    devs = {x.device for x in tensors}
-    if all(d.type == "cpu" for d in devs):
-        return "cpu"
-    if len(devs) == 1 and next(iter(devs)).type == "cuda":
-        return "cuda"
-    raise ValueError(f"takes CPU tensors or CUDA tensors on one device; got "
-                     f"{sorted(str(d) for d in devs)}")
 
 
 def _shapes(vol: torch.Tensor, dx: torch.Tensor, dy: torch.Tensor,
@@ -96,16 +84,6 @@ def check_kernel_args(nh: int, c: int, jl: int, dtype: torch.dtype,
             raise ValueError(f"{name} must be contiguous")
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-
-
-def launch(name: str, device: torch.device, *args) -> None:
-    """Call kernel ``name``'s C launcher on ``device``'s current stream and
-    raise on a non-zero CUDA error."""
-    fn = cuda_build.launcher(name)
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
 # --------------------------------------------------------------------------

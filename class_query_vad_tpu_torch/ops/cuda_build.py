@@ -5,7 +5,10 @@ Each ``csrc/<name>.cu`` exposes a plain C launcher and is compiled by
 the source, the shared headers ``csrc/*.cuh`` and the flags, so an edited
 source rebuilds), then loaded with ``ctypes``.  No PyTorch headers are compiled: a build takes seconds.
 Nothing here runs at import time — the CPU tests import every module on a
-machine without ``nvcc``.
+machine without ``nvcc``.  The wrappers' two shared rules live here too:
+``device_of`` (CPU tensors go to the plain version, CUDA tensors on one
+device to the kernel, anything else raises) and ``launch`` (the C
+launcher on the current stream; a non-zero CUDA error raises).
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, Iterable
+
+import torch
 
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
@@ -41,6 +46,10 @@ KERNELS = {
     "blend2d_bwd_dcomps": (
         "blend2d_bwd_dcomps.cu", "blend2d_bwd_dcomps_launch",
         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    ),
+    "selective_scan": (
+        "selective_scan.cu", "selective_scan_launch",
+        [_P] * 10 + [_I] * 7 + [_P],
     ),
 }
 
@@ -112,3 +121,25 @@ def launcher(name: str):
         fn.restype = ctypes.c_int
         _launchers[name] = fn
     return _launchers[name]
+
+
+def device_of(*tensors: torch.Tensor) -> str:
+    """"cpu" when every tensor lies on the CPU, "cuda" when all lie on one
+    CUDA device; raises otherwise (the wrappers' only routing rule)."""
+    devs = {x.device for x in tensors}
+    if all(d.type == "cpu" for d in devs):
+        return "cpu"
+    if len(devs) == 1 and next(iter(devs)).type == "cuda":
+        return "cuda"
+    raise ValueError(f"takes CPU tensors or CUDA tensors on one device; got "
+                     f"{sorted(str(d) for d in devs)}")
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call kernel ``name``'s C launcher on ``device``'s current stream and
+    raise on a non-zero CUDA error."""
+    fn = launcher(name)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")

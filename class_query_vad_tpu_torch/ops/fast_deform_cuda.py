@@ -22,13 +22,8 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
-from .blend2d import (
-    blend2d_backward,
-    blend2d_reference,
-    check_kernel_args,
-    device_of,
-    launch,
-)
+from .blend2d import blend2d_backward, blend2d_reference, check_kernel_args
+from .cuda_build import device_of, launch
 
 _POINTS = 8
 

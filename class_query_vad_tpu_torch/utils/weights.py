@@ -23,6 +23,25 @@ the reference's torch names wherever the reference has the module
 * the fast encoder's ``sampling_offsets_kernel/bias`` and
   ``attention_weights_kernel/bias`` -> ``self_attn.window_offsets`` and
   ``self_attn.window_weights`` (no reference counterpart; lane order kept)
+
+The Mamba family (the reference names of the JAX package's
+``utils/checkpoint_convert.py`` ``convert_videomamba``,
+``convert_mamba_proj``, ``convert_ssm_encoder``, ``convert_vss_block``,
+``convert_mamba_block``):
+
+* VideoMamba's params (flax ``backbone/...``, no ``body`` level) ->
+  ``backbone.0.body.*``; ``mamba_proj_{k}`` -> ``backbone.0.mamba_proj.{k}``
+* depthwise Conv1d kernel [k, 1, C] -> Conv1d weight [C, 1, k]
+* ``dt_proj{,_b}_kernel`` [R, D] / ``_bias`` -> ``dt_proj{,_b}.weight``
+  [D, R] / ``.bias``
+* the SSM encoder's ``nn.scan`` subtree ``recurrent/step/...`` -> the
+  layer itself (``ssm_norm``, ``ssm.*``)
+* VSSBlock: ``proj_conv`` / ``proj_bn`` -> ``proj_conv.0`` / ``proj_conv.1``,
+  its LayerNorm ``norm`` -> ``norm.norm`` (LayerNorm2d), SS2D's Dense
+  ``in_proj`` / ``out_proj`` [I, O] -> 1x1 Conv2d [O, I, 1, 1]
+* raw params (position tables, cls token, A_log, D, SS2D's x_proj_weight,
+  dt_projs_*, A_logs, Ds, FrozenBatchNorm's weight / bias / running stats)
+  as they are
 """
 
 from __future__ import annotations
@@ -53,6 +72,8 @@ _FAST_HEADS = {
     "attention_weights_bias": ("window_weights", "bias"),
 }
 _NUM_CONV_BLOCKS = 3
+_VSS_RENAME = {"proj_conv": "proj_conv.0", "proj_bn": "proj_conv.1",
+               "norm": "norm.norm"}
 
 
 def _flatten(tree, prefix=()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
@@ -64,8 +85,21 @@ def _flatten(tree, prefix=()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
 
 
 def _module_path(mods: Tuple[str, ...]) -> list:
+    if mods and mods[0] == "backbone" and (
+            len(mods) == 1 or not re.fullmatch(r"body|lateral_convs_\d",
+                                               mods[1])):
+        # VideoMamba: flax's backbone is the body itself
+        return ["backbone", "0", "body"] + _module_path(mods[1:])
+    mp = re.fullmatch(r"mamba_proj_(\d)", mods[0]) if mods else None
+    if mp:
+        return ["backbone", "0", "mamba_proj", mp.group(1)]
     out = []
     for i, m in enumerate(mods):
+        if m in ("recurrent", "step"):        # the SSM encoder's nn.scan
+            continue
+        if i and mods[i - 1] == "ssm" and m in _VSS_RENAME:
+            out.append(_VSS_RENAME[m])
+            continue
         lat = re.fullmatch(r"lateral_convs_(\d)", m)
         if lat:
             lvl = int(lat.group(1))
@@ -96,15 +130,25 @@ def _convert(path: Tuple[str, ...], v: np.ndarray):
     if leaf in ("class_queries", "refpoint_embed"):
         yield ".".join(_module_path(tuple(mods)) + [leaf, "weight"]), v
         return
+    dt = re.fullmatch(r"(dt_proj(?:_b)?)_(kernel|bias)", leaf)
+    if dt:
+        yield ".".join(_module_path(tuple(mods)) + [
+            dt.group(1), "weight" if dt.group(2) == "kernel" else "bias"]), (
+            v.T if dt.group(2) == "kernel" else v)
+        return
     base = _module_path(tuple(mods))
     if leaf == "scale":
         out = ("weight", v)
     elif leaf == "kernel":
         if v.ndim == 2:
-            if mods[-1] in ("k_proj", "v_proj") and "cls_layers" in base:
+            if ((mods[-1] in ("k_proj", "v_proj") and "cls_layers" in base)
+                    or (mods[-1] in ("in_proj", "out_proj")
+                        and mods[-2:-1] == ["op"])):
                 out = ("weight", v.T[:, :, None, None])
             else:
                 out = ("weight", v.T)
+        elif v.ndim == 3:                    # depthwise Conv1d [k, 1, C]
+            out = ("weight", v.transpose(2, 1, 0))
         elif v.ndim == 5 and mods[-1] in ("up1", "up2"):
             out = ("weight", v[::-1, ::-1, ::-1].transpose(3, 4, 0, 1, 2))
         elif v.ndim == 5:

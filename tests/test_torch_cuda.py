@@ -28,6 +28,10 @@ from class_query_vad_tpu_torch.ops.fast_deform_cuda import (
     fused_blend2d_reference,
     fused_components,
 )
+from class_query_vad_tpu_torch.ops.selective_scan import (
+    selective_scan,
+    selective_scan_reference,
+)
 
 
 @pytest.fixture
@@ -225,6 +229,89 @@ def test_tiny_model_card_matches_cpu(card):
         out_g = m_gpu(pixels.to(card), mask.to(card))
         out_c = m_cpu(pixels, mask)
     assert fused_blend2d.launches == before + 2 * 4      # layers x levels
+    for k in ("pred_logits", "pred_boxes", "pred_logits_b"):
+        g, r = out_g[k].cpu(), out_c[k]
+        assert (g - r).abs().max().item() <= 1e-4 * max(1.0, r.abs().max().item()), k
+
+
+
+# float32: the same arithmetic in other orders, carried by the recurrence;
+# bf16: y rounded to bf16 on both sides
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("shape,time_major", [
+    ((2, 384, 700, 16, 1), True),        # backbone-like: delta [B, L, KD]
+    ((2, 1024, 320, 4, 4), False),       # the VSS encoder's
+    ((1, 96, 37, 8, 2), False),          # ragged channel tile, odd L
+])
+def test_selective_scan_matches_plain(card, dtype, tol, shape, time_major):
+    b, kd, length, ns, g = shape
+    rng = np.random.default_rng(kd)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s, np.float32)).to(card)
+    u = f(b, kd, length).to(dtype)
+    delta = (0.5 * f(b, length, kd)).transpose(1, 2) if time_major else 0.5 * f(b, kd, length)
+    bc = f(b, g, 2 * ns, length).to(dtype)
+    bm, cm = bc[:, :, :ns], bc[:, :, ns:]
+    a = -torch.exp(f(kd, ns))
+    d, bias = f(kd), f(kd) - 2.0
+    for kw in (dict(D=d, delta_bias=bias, delta_softplus=True),
+               dict(delta_softplus=True)):
+        before = selective_scan.launches
+        with torch.no_grad():
+            y, last = selective_scan(u, delta, a, bm, cm, return_last_state=True, **kw)
+        torch.cuda.synchronize()
+        assert selective_scan.launches == before + 1
+        y_p, last_p = selective_scan_reference(u, delta, a, bm, cm,
+                                               return_last_state=True, **kw)
+        assert y.dtype == dtype and torch.isfinite(y).all()
+        for got, want in ((y, y_p), (last, last_p)):
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= tol * want.float().abs().max().item(), (kw.keys(), err)
+
+
+@pytest.mark.cuda
+def test_selective_scan_is_forward_only_on_the_card(card):
+    u = torch.randn(1, 8, 5, device=card, requires_grad=True)
+    args = (torch.rand(1, 8, 5, device=card), -torch.ones(8, 4, device=card),
+            torch.randn(1, 1, 4, 5, device=card), torch.randn(1, 1, 4, 5, device=card))
+    before = selective_scan.launches
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        selective_scan(u, *args)
+    assert selective_scan.launches == before
+    with torch.no_grad():
+        selective_scan(u, *args)
+    assert selective_scan.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_tiny_vss_model_card_matches_cpu(card):
+    """A tiny float32 VSS model on the card (K5) and on the CPU (plain
+    scan), same seeded weights and input: 2 x 2 backbone scans and 2
+    layers x 2 directions x 2 frames of encoder scans."""
+    from unittest import mock
+
+    from class_query_vad_tpu_torch.config import get_cfg_custom
+    from class_query_vad_tpu_torch.models import videomamba
+
+    from torch_parity import TINY_VIDEOMAMBA, VSS_YAML, tiny_vss_cfg
+
+    with mock.patch.dict(videomamba.VIDEOMAMBA_SPECS, TINY_VIDEOMAMBA):
+        cfg = tiny_vss_cfg(get_cfg_custom(VSS_YAML))
+        m_cpu = build_model(cfg, device="cpu", input_hw=(64, 128),
+                            generator=torch.Generator().manual_seed(1))
+        m_gpu = build_model(cfg, device=card, input_hw=(64, 128))
+    randomize_constants(m_cpu, torch.Generator().manual_seed(2))
+    m_gpu.load_state_dict(m_cpu.state_dict(), strict=True)
+    rng = np.random.default_rng(0)
+    pixels = torch.from_numpy(rng.standard_normal((2, 8, 64, 128, 3), np.float32))
+    mask = torch.zeros((2, 64, 128), dtype=torch.bool)
+    mask[1, :, 96:] = True
+    before = selective_scan.launches
+    with torch.inference_mode():
+        out_g = m_gpu(pixels.to(card), mask.to(card))
+        out_c = m_cpu(pixels, mask)
+    assert selective_scan.launches == before + 2 * 2 + 2 * 2 * 2
     for k in ("pred_logits", "pred_boxes", "pred_logits_b"):
         g, r = out_g[k].cpu(), out_c[k]
         assert (g - r).abs().max().item() <= 1e-4 * max(1.0, r.abs().max().item()), k

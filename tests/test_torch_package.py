@@ -52,7 +52,7 @@ def test_port_imports_no_jax(path):
 
 
 @pytest.mark.parametrize("name", ["fast_deform_cuda.py", "cuda_build.py",
-                                  "blend2d.py"])
+                                  "blend2d.py", "selective_scan.py"])
 def test_kernel_path_has_no_try(name):
     """No ``try`` around the build or the launch: on the card the wrapper
     launches the kernel or raises."""
@@ -213,9 +213,61 @@ def test_unported_modes_raise():
 
 
 @pytest.mark.parametrize("yaml", ["AVA22_ViT-B_fast.yaml", "AVA22_ViT-B.yaml",
-                                  "UCF_ViT-B_fast.yaml"])
+                                  "UCF_ViT-B_fast.yaml",
+                                  "AVA22_train-mamba_VSS.yaml"])
 def test_config_copy_reads_yaml_like_the_jax_package(yaml):
     path = str(REPO / "configuration" / yaml)
     assert get_cfg_custom(path) == jax_get_cfg_custom(path)
     assert (dataclasses.asdict(spec_from_cfg(get_cfg_custom(path)))
             == dataclasses.asdict(jax_spec_from_cfg(jax_get_cfg_custom(path))))
+
+
+def _tiny_vss(**kw):
+    from unittest import mock
+
+    from class_query_vad_tpu_torch.models import videomamba
+
+    from torch_parity import TINY_VIDEOMAMBA, VSS_YAML, tiny_vss_cfg
+
+    with mock.patch.dict(videomamba.VIDEOMAMBA_SPECS, TINY_VIDEOMAMBA):
+        return build_model(tiny_vss_cfg(get_cfg_custom(VSS_YAML)),
+                           input_hw=(64, 128), **kw)
+
+
+def test_vss_build_model_needs_a_card_or_an_explicit_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _tiny_vss()
+    model = _tiny_vss(device="cpu")
+    assert all(p.device.type == "cpu" for p in model.parameters())
+
+
+def test_mamba_family_is_eval_only():
+    """Training the family (K5's backward, remat, train-mode FrozenBN) is a
+    later step: train() mode raises before any work; eval serves."""
+    model = _tiny_vss(device="cpu")
+    pixels = torch.zeros((1, 8, 64, 128, 3))
+    mask = torch.zeros((1, 64, 128), dtype=torch.bool)
+    with torch.no_grad():
+        out = model(pixels, mask)
+        with pytest.raises(NotImplementedError, match="step 19"):
+            model.train()(pixels, mask)
+    assert out["pred_boxes"].shape == (1, 4, 4)
+
+
+def test_videomamba_with_the_exact_encoder_raises():
+    """AVA22_ViT-B-train-mamba.yaml: VideoMamba with the exact deformable
+    encoder, which waits on ROADMAP step 12."""
+    cfg = get_cfg_custom(str(REPO / "configuration" /
+                             "AVA22_ViT-B-train-mamba.yaml"))
+    assert spec_from_cfg(cfg).is_mamba
+    assert spec_from_cfg(cfg).encoder_type == "attention"
+    with pytest.raises(NotImplementedError, match="step 12"):
+        build_model(cfg, device="cpu")
+
+
+def test_videomamba_rejects_another_clip_size():
+    model = _tiny_vss(device="cpu")
+    with pytest.raises(ValueError, match="input_hw"):
+        model(torch.zeros((1, 8, 64, 64, 3)),
+              torch.zeros((1, 64, 64), dtype=torch.bool))

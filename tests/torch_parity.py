@@ -3,10 +3,18 @@ move flax params into port modules and compare outputs as numpy."""
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import numpy as np
 import torch
 
 from class_query_vad_tpu_torch.utils.weights import params_from_jax
+
+# The suite runs under pytest-xdist, several workers sharing the cores: one
+# torch thread per worker.  torch's default pool (a thread per core in
+# every worker) oversubscribes them, and its threads spin while they wait:
+# the port's test files took twice the wall time that way.
+torch.set_num_threads(1)
 
 
 def random_params(apply_init, *args, seed: int = 0):
@@ -16,7 +24,9 @@ def random_params(apply_init, *args, seed: int = 0):
     N(0, 1/fan_in), LayerNorm scales 1 + N(0, 0.1), biases N(0, 0.1) and
     embeddings N(0, 1); the fast encoder's offset/weight heads, zero at
     init, get random kernels and offset biases of order 1 so that every
-    lane of the fused head matters."""
+    lane of the fused head matters.  Mamba-family leaves: FrozenBatchNorm
+    variances 0.5 + |N(0, 1)|, SS2D's x_proj / dt_projs weights N(0,
+    1/fan_in); the other raw params N(0, 1)."""
     import jax
 
     shapes = jax.eval_shape(apply_init, jax.random.PRNGKey(0), *args)
@@ -32,6 +42,10 @@ def random_params(apply_init, *args, seed: int = 0):
             z = 0.1 * z
         elif name.endswith("kernel"):
             z = z / np.sqrt(np.prod(shape[:-1]))
+        elif name == "running_var":
+            z = 0.5 + np.abs(z)
+        elif name in ("x_proj_weight", "dt_projs_weight"):
+            z = z / np.sqrt(shape[-1])
         return z.astype(np.float32)
 
     def walk(tree):
@@ -117,3 +131,26 @@ def train_batch(seed: int = 0):
         "labels": (rng.random((2, TRAIN_M, 12)) < 0.2).astype(np.float32),
         "n_boxes": np.array([3, 2], np.int32),
     }
+
+
+VSS_YAML = str(Path(__file__).resolve().parents[1] / "configuration"
+               / "AVA22_train-mamba_VSS.yaml")
+TINY_VIDEOMAMBA = {"videomamba_tiny": dict(embed_dim=32, depth=2)}
+
+
+def tiny_vss_cfg(cfg):
+    """AVA22_train-mamba_VSS.yaml cut to size, on a config tree of either
+    package: D_MODEL 32, 2 encoder and 2 decoder layers, d_ffn 64, 12
+    classes, 4 queries, 8 frames, mamba_proj width 48.  The VideoMamba
+    spec itself is patched to embed 32, depth 2 (``TINY_VIDEOMAMBA``)."""
+    c = cfg.CONFIG
+    c.DATA.NUM_CLASSES = 12
+    c.DATA.TEMP_LEN = 8
+    c.MODEL.TEMP_LEN = 8
+    c.MODEL.D_MODEL = 32
+    c.MODEL.DIM_FEEDFORWARD = 64
+    c.MODEL.ENC_LAYERS = 2
+    c.MODEL.DEC_LAYERS = 2
+    c.MODEL.QUERY_NUM = 4
+    c.MAMBA.OUT_CHANNELS.videomamba_tiny = 48
+    return cfg
