@@ -5,9 +5,9 @@ NVIDIA card.
     python3 chip_smoke.py            # needs one CUDA card and nvcc
 
 1. Device and build: the card's name and power limit (nvidia-smi), TF32
-   off for the parity phases, every CUDA kernel (K1-K5) built from
+   off for the parity phases, every CUDA kernel (K1-K5, K10, K11) built from
    ``csrc/`` (one nvcc per source, started together) with ptxas's register
-   report.
+   report; K10 and K11 share one source.
 2. Kernels against their plain PyTorch versions on the card, at the main
    path's four level shapes, in float32 and bf16, with kernel / plain
    timings and the card's lower bound for the same work: K1 (fused blend)
@@ -51,6 +51,22 @@ NVIDIA card.
    peak memory, device ms per stage, the profiler's busy share.
 9. The same VSS model in float32 on the card (K5) and on the CPU (plain
    scan), B=1: all three heads must agree.
+10. K10 and K11 (the native cross-level blend, 2d and 3d windows) against
+   their plain version on the card: the native mode's four query grids,
+   each over the four levels at their own resolution, at B=2 with T=2
+   (K10) and T=8 (K11), and an awkward 12x20 grid with a finer level, in
+   float32 and bf16; device times, the card's lower bound from this run's
+   data, and the time of the ``F.grid_sample`` composition of the same
+   function (the library yardstick; no path of the port calls it).
+11. ``AVA22_ViT-B_fast_native`` (native mode, 2d window, centre-frame
+   slice) at full width in bf16 serves 3 requests: 24 K10 launches per
+   forward and no K1 or K2; median ms/batch, stage events, busy share.
+12. The same native model in float32 on the card (K10) and on the CPU
+   (plain version), B=1: all three heads must agree.
+13. Its ``FAST_WINDOW: 3d`` variant (no slice: the encoder runs over all 8
+   backbone frames): 3 bf16 requests with 24 K11 launches per forward,
+   then the float32 card-vs-CPU check, at 2 encoder layers (the CPU's
+   plain 3d blend takes minutes at 6).
 
 Every phase raises on failure (exit code != 0).  The last two lines are a
 JSON object of per-kernel numbers and ``{"ok": true, "device": ...}``.
@@ -72,6 +88,8 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(REPO, "configuration", "AVA22_ViT-B_fast.yaml")
 VSS_CONFIG = os.path.join(REPO, "configuration", "AVA22_train-mamba_VSS.yaml")
+NATIVE_CONFIG = os.path.join(REPO, "configuration",
+                             "AVA22_ViT-B_fast_native.yaml")
 
 # Device memory bandwidth (bytes/s) and float32 CUDA-core peak (FLOP/s) by
 # card name (NVIDIA data sheets, dense); the bound of a kernel is the larger
@@ -439,10 +457,13 @@ def trace_holds(device_rows, expected: dict) -> str:
         f"/{n}" for k, n in expected.items())
 
 
-def stage_breakdown(model, pixels, mask, dev, wall_ms: float, iters: int = 5):
+def stage_breakdown(model, pixels, mask, dev, wall_ms: float, iters: int = 5,
+                    expected=None):
     """Mean device ms of the forward's stages (CUDA events from forward
     hooks), torch.profiler's top CUDA kernels over one forward, and the
-    device's busy share of ``wall_ms`` (the unprofiled median ms/batch)."""
+    device's busy share of ``wall_ms`` (the unprofiled median ms/batch);
+    ``expected``: the port's launches per forward, by kernel (K1's 24 by
+    default)."""
     stages = {"ViT body": model.backbone[0].body,
               "backbone (ViT + FPN + poses)": model.backbone[0],
               "encoder (6 layers)": model.transformer.encoder,
@@ -497,7 +518,7 @@ def stage_breakdown(model, pixels, mask, dev, wall_ms: float, iters: int = 5):
           f"'Activity Buffer Request' row is "
           f"{'in' if any(e.key == 'Activity Buffer Request' for e in device) else 'not in'}"
           f" the busy sum; the trace holds launches "
-          f"{trace_holds(device, {'fused_blend2d': 24})}")
+          f"{trace_holds(device, expected or {'fused_blend2d': 24})}")
 
 
 def phase_main_path(dev, counters):
@@ -555,13 +576,16 @@ def phase_main_path(dev, counters):
     return launches
 
 
-def phase_in_model(dev):
+def phase_in_model(dev, config: str = CONFIG, opts=(), tag: str = ""):
+    """The full-width model of ``config`` (with ``opts``) in float32, B=1:
+    the kernels on the card against the plain versions on the CPU."""
     from class_query_vad_tpu_torch.config import get_cfg_custom
     from class_query_vad_tpu_torch.models import build_model
     from class_query_vad_tpu_torch.models.detr import randomize_constants
 
-    cfg = get_cfg_custom(CONFIG, ["CONFIG.MODEL.FAST_DTYPE", "float32",
-                                  "CONFIG.MODEL.DECODER_DTYPE", "float32"])
+    cfg = get_cfg_custom(config, ["CONFIG.MODEL.FAST_DTYPE", "float32",
+                                  "CONFIG.MODEL.DECODER_DTYPE", "float32",
+                                  *opts])
     m_cpu = build_model(cfg, torch.float32, "cpu",
                         torch.Generator().manual_seed(7))
     # non-constant LayerNorms, biases and offset/weight kernels, so that the
@@ -575,17 +599,19 @@ def phase_in_model(dev):
     torch.set_num_threads(os.cpu_count() or 1)
     t0 = time.perf_counter()
     out_c, _ = serve(m_cpu, pixels, mask, "cpu")
-    print(f"CPU float32 forward (plain versions): "
-          f"{time.perf_counter() - t0:.1f} s")
+    cpu_s = time.perf_counter() - t0
+    print(f"{tag}CPU float32 forward (plain versions), "
+          f"{cfg.CONFIG.MODEL.ENC_LAYERS} encoder layers: {cpu_s:.1f} s")
     for k in ("pred_logits", "pred_boxes", "pred_logits_b"):
         g, c = out_g[k].float().cpu(), out_c[k].float()
         err = (g - c).abs().max().item()
         scale = c.abs().max().item()
         ok = bool(torch.isfinite(g).all()) and err <= MODEL_TOL * scale
-        print(f"in-model fp32 card vs CPU {k:14s}: max|err| {err:.3e} = "
+        print(f"{tag}in-model fp32 card vs CPU {k:14s}: max|err| {err:.3e} = "
               f"{err / scale:.2e} x max|ref| (tol {MODEL_TOL:.0e}) "
               f"{'ok' if ok else 'FAIL'}")
-        check(ok, f"card and CPU disagree on {k}")
+        check(ok, f"{tag}card and CPU disagree on {k}")
+    return cpu_s
 
 
 def train_batch(cfg, seed: int = 0, b: int = TRAIN_B):
@@ -785,9 +811,8 @@ def phase_components_route(dev, counters):
     launches = {c.__name__: c.launches for c in counters}
     print(f"components route, 2 full-width bf16 train steps: total "
           f"{metrics['total_loss'].item():.5f}; launches {launches}")
-    check(launches == {"fused_blend2d": 0, "blend2d": 48,
-                       "blend2d_bwd_dvol": 48, "blend2d_bwd_dcomps": 48,
-                       "selective_scan": 0},
+    check(launches == {**{k: 0 for k in launches}, "blend2d": 48,
+                       "blend2d_bwd_dvol": 48, "blend2d_bwd_dcomps": 48},
           f"components-route launches {launches}, expected 24 each of K2, "
           f"K3, K4 per step and no K1")
     del trainer, model
@@ -1144,6 +1169,297 @@ def phase_vss_card_vs_cpu(dev):
 VSS_MODEL_TOL = 2e-3
 
 
+# K10 / K11 at the native mode's shapes: four query grids per encoder layer,
+# each over the four FPN levels at their own resolution, B=2; the 2d window
+# runs on the centre-frame slice's 2 frames, the 3d window on all 8
+NATIVE_GRIDS = K1_LEVELS
+NATIVE_T = {"K10": 2, "K11": 8}
+# an awkward grid: 12x20 queries (not a multiple of 8), levels at ratios 1,
+# 2 and 4 and one finer level (24x40), T=3
+NATIVE_AWKWARD = ((12, 20), [(12, 20), (6, 10), (3, 5), (24, 40)], 3)
+# float32: the same taps summed in another order; bf16: both sides read the
+# same bf16 values and offsets and sum in float32 (no rounding of the
+# masses), so only the order differs there too, and a kernel that rounded
+# the masses to bf16 would fail
+NATIVE_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-5}
+# the grid_sample composition against the plain version (float32)
+LIBRARY_TOL = 1e-4
+
+
+def native_inputs(rng, b, t, grid, vshapes, nc, dtype, dev):
+    """Value levels as views of one flat token stream [B, N, C] (as the
+    encoder's ``split_levels`` hands them over: dense past the batch axis),
+    offsets dx, dy, (dt) in (-1, 1) with a fifth of them exactly on the tie
+    points -1, -0.5, 0, 0.5, 1 (tanh saturates at 1 in bf16), weights a in
+    [0, 0.3), each [B, J, T, H, W, 64]."""
+    jl, (h, w) = len(vshapes), grid
+    n = sum(t * hv * wv for hv, wv in vshapes)
+    flat = torch.from_numpy(rng.standard_normal(
+        (b, n, K1_C), np.float32)).to(dev, dtype)
+    values, start = [], 0
+    for hv, wv in vshapes:
+        values.append(flat[:, start:start + t * hv * wv].reshape(
+            b, t, hv, wv, K1_C))
+        start += t * hv * wv
+    shape = (b, jl, t, h, w, K1_KP)
+    comps = []
+    for _ in range(nc):
+        x = rng.uniform(-1.0, 1.0, shape).astype(np.float32)
+        pick = rng.random(shape) < 0.2
+        x[pick] = rng.choice([-1.0, -0.5, 0.0, 0.5, 1.0], shape)[pick]
+        comps.append(x)
+    comps.append(rng.uniform(0.0, 0.3, shape).astype(np.float32))
+    return values, [torch.from_numpy(x).to(dev, dtype) for x in comps]
+
+
+def native_work(values, comps, itemsize: int, nh: int = 8):
+    """(bytes, operations) one launch of K10 / K11 must spend on these
+    inputs: every value level, the components and the tables read once,
+    the float32 output written once; per (query, level, head, point) the
+    hats and the tap masses (3 ops a hat, 2 a mass term), and per (query,
+    level, head) tap that is in range and carries mass in that head, C/nh
+    multiply-adds.  The taps are counted from this run's data."""
+    from class_query_vad_tpu_torch.ops.blend2d import hat
+    from class_query_vad_tpu_torch.ops.fast_deform import native_tables_on
+
+    dx, dy, a = comps[0], comps[1], comps[-1]
+    dt = comps[2] if len(comps) == 4 else None
+    b, jl, t, h, w, kp = dx.shape
+    tt = 1 if dt is None else 3
+    base, phi = native_tables_on(h, w, tuple(v.shape[2:4] for v in values),
+                                 dx.device)
+    s4 = torch.arange(-1, 3, device=dx.device, dtype=torch.float32)
+    s3 = torch.arange(-1, 2, device=dx.device, dtype=torch.float32)
+    head_taps = 0
+    for j, v in enumerate(values):
+        hv, wv = v.shape[2:4]
+        by, bx = base[j, 2:2 + h].long(), base[j, 2 + h:].long()
+        u = dx[:, j].float() + phi[j, h:][None, None, None, :, None]
+        vv = dy[:, j].float() + phi[j, :h][None, None, :, None, None]
+        hx = hat(u[..., None] - s4)                         # [.., kp, 4]
+        hy = hat(vv[..., None] - s4)
+        at = a[:, j].float()[..., None]                     # [.., kp, 1]
+        if dt is not None:
+            at = at * hat(dt[:, j].float()[..., None] - s3)  # [.., kp, 3]
+        m = (at[..., :, None, None] * hy[..., None, :, None]
+             * hx[..., None, None, :])                     # [.., kp, tt, 4, 4]
+        live = (m.reshape(b, t, h, w, nh, kp // nh, tt, 4, 4).sum(5)
+                != 0)                                      # [b,t,h,w,nh,tt,4,4]
+        ok_y = ((by[:, None] + s4.long() >= 0)
+                & (by[:, None] + s4.long() < hv))           # [h, 4]
+        ok_x = ((bx[:, None] + s4.long() >= 0)
+                & (bx[:, None] + s4.long() < wv))           # [w, 4]
+        tq = torch.arange(t, device=dx.device)[:, None] + (
+            s3.long() if dt is not None else torch.zeros(1, dtype=torch.long,
+                                                         device=dx.device))
+        ok_t = (tq >= 0) & (tq < t)                         # [t, tt]
+        ok = (ok_t[None, :, None, None, None, :, None, None]
+              & ok_y[None, None, :, None, None, None, :, None]
+              & ok_x[None, None, None, :, None, None, None, :])
+        head_taps += int((live & ok).sum())
+    nbytes = (sum(v.numel() for v in values) * itemsize
+              + sum(x.numel() for x in comps) * itemsize
+              + base.numel() * 4 + phi.numel() * 4 + b * t * h * w * K1_C * 4)
+    ops = head_taps * (K1_C // nh) * 2 + b * jl * t * h * w * kp * (
+        3 * (8 + (3 if dt is not None else 0)) + 2 * 16 * tt)
+    return nbytes, ops
+
+
+def native_grid_sample(values, dx, dy, a, nh: int = 8, dt=None):
+    """The same function as K10 / K11 composed from ``F.grid_sample``
+    (bilinear, or trilinear with ``dt``; align_corners=False; zero padding)
+    per level and a weighted sum over the points, in float32: the library
+    yardstick.  No path of the port calls it."""
+    import torch.nn.functional as F
+
+    from class_query_vad_tpu_torch.ops.fast_deform import native_tables_on
+
+    b, jl, t, h, w, kp = dx.shape
+    p = kp // nh
+    out = 0
+    for j, v in enumerate(values):
+        hv, wv, c = v.shape[2], v.shape[3], v.shape[4]
+        d = c // nh
+        base, phi = native_tables_on(h, w, ((hv, wv),), dx.device)
+        py = base[0, 2:2 + h].float() + phi[0, :h]
+        px = base[0, 2 + h:].float() + phi[0, h:]
+        gx = (2 * (dx[:, j].float() + px[None, None, None, :, None]) + 1) / wv - 1
+        gy = (2 * (dy[:, j].float() + py[None, None, :, None, None]) + 1) / hv - 1
+        wgt = a[:, j].float().reshape(b, t, h, w, nh, p)
+        if dt is None:
+            inp = v.float().reshape(b * t, hv, wv, nh, d).permute(
+                0, 3, 4, 1, 2).reshape(b * t * nh, d, hv, wv)
+            grid = torch.stack([gx, gy], -1).reshape(b, t, h, w, nh, p, 2
+                                                     ).permute(0, 1, 4, 2, 3, 5, 6)
+            s = F.grid_sample(inp, grid.reshape(b * t * nh, h * w, p, 2),
+                              mode="bilinear", padding_mode="zeros",
+                              align_corners=False)       # [b*t*nh, d, h*w, p]
+            wg = wgt.permute(0, 1, 4, 2, 3, 5).reshape(b * t * nh, 1, h * w, p)
+            o = (s * wg).sum(-1).reshape(b, t, nh, d, h, w)
+            out = out + o.permute(0, 1, 4, 5, 2, 3).reshape(b, t, h, w, c)
+        else:
+            tq = torch.arange(t, device=dx.device, dtype=torch.float32)
+            gt = (2 * (dt[:, j].float() + tq[None, :, None, None, None]) + 1) / t - 1
+            inp = v.float().reshape(b, t, hv, wv, nh, d).permute(
+                0, 4, 5, 1, 2, 3).reshape(b * nh, d, t, hv, wv)
+            grid = torch.stack([gx, gy, gt], -1).reshape(
+                b, t, h, w, nh, p, 3).permute(0, 4, 1, 2, 3, 5, 6)
+            s = F.grid_sample(inp, grid.reshape(b * nh, t, h * w, p, 3),
+                              mode="bilinear", padding_mode="zeros",
+                              align_corners=False)    # [b*nh, d, t, h*w, p]
+            wg = wgt.permute(0, 4, 1, 2, 3, 5).reshape(b * nh, 1, t, h * w, p)
+            o = (s * wg).sum(-1).reshape(b, nh, d, t, h, w)
+            out = out + o.permute(0, 3, 4, 5, 1, 2).reshape(b, t, h, w, c)
+    return out
+
+
+def phase_native_kernels(dev, bw, peak):
+    """K10 and K11 against their plain version at the native mode's shapes
+    and an awkward one; per-layer times (bf16) beside the bound and the
+    grid_sample composition."""
+    from class_query_vad_tpu_torch.ops.native_blend import (
+        native_blend2d, native_blend3d, native_blend_reference)
+
+    rng = np.random.default_rng(13)
+    vshapes = list(NATIVE_GRIDS)
+    entries = []
+    for k, fn, src_line in (("K10", native_blend2d, 274),
+                            ("K11", native_blend3d, 342)):
+        nc = 2 if k == "K10" else 3
+        cases = [(g, vshapes, NATIVE_T[k]) for g in NATIVE_GRIDS]
+        cases.append(NATIVE_AWKWARD)
+        num = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+               "bound_by": {"bytes": 0.0, "operations": 0.0}}
+        max_err = 0.0
+        for dtype in (torch.float32, torch.bfloat16):
+            for grid, vs, t in cases:
+                values, comps = native_inputs(rng, 2, t, grid, vs, nc, dtype,
+                                              dev)
+                dx, dy, a = comps[0], comps[1], comps[-1]
+                dt = comps[2] if nc == 3 else None
+                kern = lambda: fn(values, *comps)
+                plain = lambda: native_blend_reference(values, dx, dy, a, 8, dt)
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+                      f"{k} output {tuple(got.shape)} not finite or misshaped")
+                err, rel = rel_err(got, want)
+                ok = rel <= NATIVE_TOL[dtype]
+                what = (f"{k} {str(dtype)[6:]:8s} B=2 T={t} {grid[0]:3d}x"
+                        f"{grid[1]:<3d} over {len(vs)} native levels "
+                        f"{'x'.join(f'{hv}x{wv}' for hv, wv in vs)}")
+                print(f"{what}: max|err| {err:.3e} = {rel:.2e} x max|ref| "
+                      f"(tol {NATIVE_TOL[dtype]:.0e}) {'ok' if ok else 'FAIL'}")
+                check(ok, f"{k} disagrees with its plain version: {what}")
+                max_err = max(max_err, err)
+                if dtype != torch.bfloat16 or grid not in NATIVE_GRIDS:
+                    continue
+                lib = lambda: native_grid_sample(values, dx, dy, a, 8, dt)
+                _, rel_lib = rel_err(lib(), want)
+                check(rel_lib <= LIBRARY_TOL,
+                      f"the grid_sample composition disagrees: {rel_lib:.2e}")
+                t_k = kernel_device_ms(kern)
+                t_p = cuda_ms(plain, 2, 1)
+                t_l = cuda_ms(lib, 5, 1)
+                nbytes, ops = native_work(values, comps, 2)
+                t_b = max(nbytes / bw, ops / peak) * 1e3
+                num["bound_by"]["bytes" if nbytes / bw >= ops / peak
+                                else "operations"] += t_b
+                for key, x in (("ms", t_k), ("plain_ms", t_p),
+                               ("bound_ms", t_b), ("library_ms", t_l)):
+                    num[key] += x
+                print(f"{k} bf16     B=2 T={t} {grid[0]:3d}x{grid[1]:<3d}: kernel "
+                      f"{t_k:.4f} ms (device, queued), plain {t_p:.3f} ms, "
+                      f"grid_sample composition {t_l:.3f} ms (matches the "
+                      f"plain version to {rel_lib:.1e}), bound {t_b:.4f} ms "
+                      f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP) -> "
+                      f"{nbytes / t_k / 1e6:.0f} GB/s, "
+                      f"{t_b / t_k:.1%} of the bound's speed")
+        print(f"{k} per encoder layer (4 launches, bf16, B=2, T="
+              f"{NATIVE_T[k]}): kernel {num['ms']:.4f} ms, plain "
+              f"{num['plain_ms']:.3f} ms, grid_sample composition "
+              f"{num['library_ms']:.3f} ms, bound {num['bound_ms']:.4f} ms "
+              f"({num['bound_ms'] / num['ms']:.1%} of the bound's speed)")
+        entries.append({
+            "name": fn.__name__, "route": "cuda",
+            "source": "class_query_vad_tpu_torch/csrc/native_blend.cu",
+            "replaces": f"class_query_vad_tpu/ops/fast_deform_pallas.py:{src_line}",
+            "launches": None, "max_abs_err": max_err, "ms": num["ms"],
+            "plain_ms": num["plain_ms"], "bound_ms": num["bound_ms"],
+            "bound_by": max(num["bound_by"], key=num["bound_by"].get),
+            "library_ms": num["library_ms"],
+        })
+    return entries
+
+
+def phase_native_path(dev, counters, window: str):
+    """``AVA22_ViT-B_fast_native`` (``window`` "2d" as written, or its
+    "3d" variant) at full width in bf16: 3 requests, 24 launches per
+    forward of K10 (2d) or K11 (3d) and of no other kernel, timings."""
+    from class_query_vad_tpu_torch.config import get_cfg_custom
+    from class_query_vad_tpu_torch.models import build_model
+    from class_query_vad_tpu_torch.models.detr import randomize_constants
+
+    kernel = "native_blend2d" if window == "2d" else "native_blend3d"
+    tag = f"native-{window}"
+    cfg = get_cfg_custom(NATIVE_CONFIG, ["CONFIG.MODEL.FAST_WINDOW", window])
+    model = build_model(cfg, dtype=torch.bfloat16)
+    # random offset / weight kernels: every query samples its own window
+    randomize_constants(model, torch.Generator().manual_seed(14))
+    attn = model.transformer.encoder.layers[0].self_attn
+    print(f"--- {tag}: cross level {cfg.CONFIG.MODEL.FAST_CROSS_LEVEL}, "
+          f"window {window}, {attn.nc} offset components, fused K1 route "
+          f"{attn.fused_route}, centre-frame slice "
+          f"{'on' if window == '2d' else 'off'}")
+    requests = [make_request(seed) for seed in (21, 22, 23)]
+    for c in counters:
+        c.launches = 0
+    for i, (pixels, mask) in enumerate(requests):
+        out, (scores, boxes, actor) = serve(model, pixels, mask, dev)
+        torch.cuda.synchronize()
+        for name, x, shape in (("scores", scores, (2, 15, 80)),
+                               ("boxes", boxes, (2, 15, 4)),
+                               ("actorness", actor, (2, 15, 1))):
+            check(tuple(x.shape) == shape, f"{tag} {name} shape {tuple(x.shape)}")
+            check(bool(torch.isfinite(x).all()), f"{tag} {name} not finite")
+        print(f"{tag} request {i}: scores {tuple(scores.shape)}, finite; top "
+              f"score {scores.max().item():.4f}")
+    launches = {c.__name__: c.launches for c in counters}
+    print(f"{tag} kernel launches over {len(requests)} requests: {launches}")
+    check(launches == {**{k: 0 for k in launches}, kernel: 24 * len(requests)},
+          f"{tag} eval launches {launches}, expected {kernel} alone, 24 per "
+          f"forward")
+
+    pixels, mask = requests[0]
+    for _ in range(2):
+        serve(model, pixels, mask, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        serve(model, pixels, mask, dev)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    med = statistics.median(times)
+    print(f"full-width eval {tag} ({os.path.basename(NATIVE_CONFIG)}, "
+          f"FAST_WINDOW {window}), B=2 bf16, forward + postprocess, "
+          f"host->device copy included: median {med:.2f} ms/batch "
+          f"({2e3 / med:.2f} clips/s) over {len(times)} iterations; min "
+          f"{min(times):.2f}, max {max(times):.2f}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    stage_breakdown(model, pixels, mask, dev, med, expected={kernel: 24})
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+# phase 13's card-vs-CPU check runs at 2 of the YAML's 6 encoder layers:
+# on the CPU the plain 3d blend over 8 frames is the slow part (the CPU
+# forward took 113.7 s at 6 layers on the 8 host cores beside an H100)
+NATIVE_3D_CPU_LAYERS = 2
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1156,10 +1472,14 @@ def main() -> int:
         blend2d_bwd_dvol,
     )
     from class_query_vad_tpu_torch.ops.fast_deform_cuda import fused_blend2d
+    from class_query_vad_tpu_torch.ops.native_blend import (
+        native_blend2d,
+        native_blend3d,
+    )
     from class_query_vad_tpu_torch.ops.selective_scan import selective_scan
 
     counters = [fused_blend2d, blend2d, blend2d_bwd_dvol, blend2d_bwd_dcomps,
-                selective_scan]
+                selective_scan, native_blend2d, native_blend3d]
     dev = torch.device("cuda", 0)
     card = card_info()
     name = torch.cuda.get_device_name(0)
@@ -1196,6 +1516,20 @@ def main() -> int:
     vss = phase_vss_main_path(dev, counters)
     kernels[-1]["launches"] = vss["selective_scan"]
     phase_vss_card_vs_cpu(dev)
+    native = phase_native_kernels(dev, bw, peak)
+    n2d = phase_native_path(dev, counters, "2d")
+    phase_in_model(dev, NATIVE_CONFIG, tag="native-2d ")
+    n3d = phase_native_path(dev, counters, "3d")
+    cpu_s = phase_in_model(
+        dev, NATIVE_CONFIG, ["CONFIG.MODEL.FAST_WINDOW", "3d",
+                             "CONFIG.MODEL.ENC_LAYERS", NATIVE_3D_CPU_LAYERS],
+        tag="native-3d ")
+    print(f"native-3d card-vs-CPU check at {NATIVE_3D_CPU_LAYERS} encoder "
+          f"layers, cut from the YAML's 6 for the CPU's time (tol "
+          f"{MODEL_TOL:.0e} x max|ref|); its CPU forward {cpu_s:.1f} s")
+    native[0]["launches"] = n2d["native_blend2d"]
+    native[1]["launches"] = n3d["native_blend3d"]
+    kernels += native
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

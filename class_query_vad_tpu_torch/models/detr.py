@@ -23,7 +23,10 @@ from typing import Dict
 import torch
 import torch.nn as nn
 
-from ..ops.deform_attn import directional_offset_init_l2hp
+from ..ops.deform_attn import (
+    directional_offset_init_l2hp,
+    directional_offset_init_l3hp,
+)
 from .backbone import ViTBackboneFPN
 from .common import Linear
 from .mamba_block import a_log_init, dt_proj_init_
@@ -161,7 +164,8 @@ def init_weights(model: DETR, generator: torch.Generator) -> None:
     on every device): Dense/Conv kernels lecun-normal with zero bias, the
     ViT qkv xavier-uniform, LayerNorm ones/zeros, the embeddings N(0, 1),
     the fast encoder's offset/weight kernels zero with the directional
-    offset bias; in the Mamba family the dt projections as mamba_simple's
+    offset bias (its x, y components, or x, y, t under the 3d window); in
+    the Mamba family the dt projections as mamba_simple's
     (``dt_proj_init_``), A_log = log(1..N), D = 1, VideoMamba's position
     tables N(0, 0.02) and cls token 0, SS2D's x_proj_weight lecun-normal,
     dt_projs N(0, 1), A_logs 0, Ds 1, FrozenBatchNorm as identity."""
@@ -188,8 +192,10 @@ def init_weights(model: DETR, generator: torch.Generator) -> None:
             mod.cls_token.zero_()
         elif name.endswith("self_attn.window_offsets"):
             mod.weight.zero_()
-            mod.bias.copy_(directional_offset_init_l2hp(
-                s.nhead, s.num_feature_levels, s.enc_n_points))
+            init = (directional_offset_init_l3hp if s.fast_window == "3d"
+                    else directional_offset_init_l2hp)
+            mod.bias.copy_(init(s.nhead, s.num_feature_levels,
+                                s.enc_n_points))
         elif name.endswith("self_attn.window_weights"):
             mod.weight.zero_()
             mod.bias.zero_()

@@ -1,20 +1,30 @@
 """Fast deformable encoder — windowed multi-scale attention over level grids
 (counterpart of ``class_query_vad_tpu/models/fast_encoder.py``).
 
-Only ``FAST_CROSS_LEVEL: resample``, ``FAST_WINDOW: 2d`` and
-``FAST_RADIUS: 1`` are ported, with both of the JAX package's routes:
+``FastDeformAttn3D`` takes the JAX package's routes (fast_encoder.py:
+172-284) for radius 1:
 
-* fused (nh=8, C a multiple of 256, points a multiple of 8 — the
-  ``AVA22_ViT-B_fast`` main path; fast_encoder.py:175-194): every value
-  level is aligned onto each query grid, and one K1 launch per query grid
-  (``ops.fast_deform_cuda.fused_blend2d``) computes the tanh offsets, the
-  per-head softmax and the 9-tap blend over all levels;
-* components (any other shape; fast_encoder.py:196-263 with ``dt=None``):
-  tanh and the softmax in torch (``fused_components``, K1's plain front
-  end), the per-level dx, dy, a stacks, and the blend through K2
-  (``ops.blend2d.blend2d``).
+* fused (``FAST_CROSS_LEVEL: resample``, ``FAST_WINDOW: 2d``, nh=8, C a
+  multiple of 256, points a multiple of 8 — the ``AVA22_ViT-B_fast`` main
+  path; :175-194): every value level is aligned onto each query grid, and
+  one K1 launch per query grid (``ops.fast_deform_cuda.fused_blend2d``)
+  computes the tanh offsets, the per-head softmax and the 9-tap blend over
+  all levels;
+* components, resample (2d window, any other shape; :196-263 with
+  ``dt=None``): tanh and the softmax in torch (``fused_components``, K1's
+  plain front end), the per-level dx, dy, a stacks, and the blend of the
+  aligned levels through K2 (``ops.blend2d.blend2d``);
+* native (``FAST_CROSS_LEVEL: native``, 2d or 3d window; :196-257): the
+  same components (dx, dy, dt, a with the 3d window), no alignment, and
+  one launch per query grid of K10 (2d) or K11 (3d) over every level at
+  its own resolution (``ops.native_blend.native_blend``).
 
-Both are differentiable; their backward runs K3 and K4.
+All are differentiable: the resample routes' backward runs K3 and K4, the
+native route's is the VJP of its plain version, as in the JAX package.
+Not ported yet, and raising ``NotImplementedError``: the resample mode
+with the 3d window (K6-K9, ROADMAP.md Queue 1 step 16b) and with radius
+> 1 (step 16c).  As in JAX, the native mode raises ``ValueError`` for
+radius != 1 and for levels of unequal T.
 
 The encoder carries ONE flattened token stream [B, sum(t*h*w), C] across
 layers; post-norm residual layers as in the reference's deformable
@@ -22,11 +32,11 @@ encoder layer, with the JAX package's three dropouts (active in
 ``train()`` mode).
 
 Lane layouts of the fused offset+weight head (fast_encoder.py:112-119):
-offsets in (level, component x/y, head, point) order in lanes
-[0, nl*2*kp), weight logits in (level, head, point) order after them.
-``window_offsets``/``window_weights`` hold those two heads; the
-reference has no counterpart (its unconstrained sampler's heads have
-another layout and width).
+offsets in (level, component x/y[/t], head, point) order in lanes
+[0, nl*nc*kp) (nc = 2, or 3 with the 3d window), weight logits in (level,
+head, point) order after them.  ``window_offsets``/``window_weights`` hold
+those two heads; the reference has no counterpart (its unconstrained
+sampler's heads have another layout and width).
 """
 
 from __future__ import annotations
@@ -40,6 +50,7 @@ import torch.nn.functional as F
 from ..ops.blend2d import blend2d
 from ..ops.fast_deform import align_all_levels
 from ..ops.fast_deform_cuda import fused_blend2d, fused_components
+from ..ops.native_blend import native_blend
 from .common import LayerNorm, Linear
 
 Shapes = Tuple[Tuple[int, int, int], ...]     # per level (T, H, W)
@@ -56,43 +67,52 @@ def split_levels(flat: torch.Tensor, shapes: Shapes) -> List[torch.Tensor]:
     return out
 
 
-class FastDeformAttn2D(nn.Module):
-    """Windowed multi-scale deformable self-attention, 2d window."""
+class FastDeformAttn3D(nn.Module):
+    """Windowed multi-scale deformable self-attention over level grids
+    (``window`` "2d": (x, y) taps; "3d": (x, y, t) taps)."""
 
     def __init__(self, d_model: int = 256, n_levels: int = 4,
                  n_heads: int = 8, n_points: int = 8, radius: int = 1,
                  window: str = "2d", cross_level: str = "resample"):
         super().__init__()
-        if window != "2d":
+        if window not in ("2d", "3d") or cross_level not in ("resample",
+                                                             "native"):
+            raise ValueError(f"unknown FAST_WINDOW {window!r} or "
+                             f"FAST_CROSS_LEVEL {cross_level!r}")
+        self.native = cross_level == "native"
+        if self.native and radius != 1:
+            raise ValueError("cross_level='native' supports radius=1 only")
+        if not self.native and window == "3d":
             raise NotImplementedError(
-                "FAST_WINDOW: 3d is not ported yet (ROADMAP.md Queue 1, "
-                "'Other fast-encoder modes')")
-        if cross_level != "resample":
-            raise NotImplementedError(
-                "FAST_CROSS_LEVEL: native is not ported yet (ROADMAP.md "
-                "Queue 1, 'Other fast-encoder modes')")
+                "FAST_WINDOW: 3d with FAST_CROSS_LEVEL: resample is not "
+                "ported yet (ROADMAP.md Queue 1 step 16b: K6-K9)")
         if radius != 1:
             raise NotImplementedError(
                 "FAST_RADIUS other than 1 is not ported yet (ROADMAP.md "
-                "Queue 1, 'Other fast-encoder modes')")
+                "Queue 1 step 16c)")
         self.d_model, self.n_levels = d_model, n_levels
         self.n_heads, self.n_points, self.radius = n_heads, n_points, radius
+        self.nc = 3 if window == "3d" else 2
         # the JAX package's fused-route conditions (fast_encoder.py:175-176)
-        self.fused_route = (n_heads == 8 and d_model % 256 == 0
-                            and n_points % 8 == 0)
+        self.fused_route = (not self.native and self.nc == 2 and n_heads == 8
+                            and d_model % 256 == 0 and n_points % 8 == 0)
         kp = n_heads * n_points
         self.value_proj = Linear(d_model, d_model)
-        self.window_offsets = Linear(d_model, n_levels * 2 * kp)
+        self.window_offsets = Linear(d_model, n_levels * self.nc * kp)
         self.window_weights = Linear(d_model, n_levels * kp)
         self.output_proj = Linear(d_model, d_model)
 
     def forward(self, src: torch.Tensor, pos: torch.Tensor, shapes: Shapes,
                 mask: torch.Tensor | None) -> torch.Tensor:
-        nh, nl, np_ = self.n_heads, self.n_levels, self.n_points
+        nh, nl, np_, nc = self.n_heads, self.n_levels, self.n_points, self.nc
         kp = nh * np_
-        n_off = nl * 2 * kp
+        n_off = nl * nc * kp
         b = src.shape[0]
         dt = self.value_proj.weight.dtype
+        if self.native and len({t for t, _, _ in shapes}) != 1:
+            # the native sampler reads each level at the query's own frame
+            raise ValueError(f"cross_level='native' needs equal T on all "
+                             f"levels, got {shapes}")
 
         values = self.value_proj(src)
         if mask is not None:
@@ -115,10 +135,20 @@ class FastDeformAttn2D(nn.Module):
         fused = torch.cat(
             [fused[..., :n_off], lg.reshape(*fused.shape[:-1], nl * kp).to(dt)],
             dim=-1)
+        fused_levels = split_levels(fused, shapes)
+
+        if self.native:
+            outs = []
+            for i, (t, h, w) in enumerate(shapes):
+                comps = fused_components(fused_levels[i].contiguous(), nl, nh,
+                                         float(self.radius), nc)
+                out = native_blend(values, comps[0], comps[1], comps[-1], nh,
+                                   dt=comps[2] if nc == 3 else None)
+                outs.append(out.to(dt).reshape(b, t * h * w, self.d_model))
+            return self.output_proj(torch.cat(outs, dim=1))
 
         grids = [(h, w) for _, h, w in shapes]
         aligned_all = align_all_levels(values, grids)
-        fused_levels = split_levels(fused, shapes)
         outs = []
         for i, (t, h, w) in enumerate(shapes):
             vol = torch.stack(aligned_all[i], dim=1)        # [B, J, T, H, W, C]
@@ -142,7 +172,7 @@ class FastEncoderLayer(nn.Module):
                  radius: int = 1, window: str = "2d",
                  cross_level: str = "resample", dropout: float = 0.1):
         super().__init__()
-        self.self_attn = FastDeformAttn2D(d_model, n_levels, n_heads,
+        self.self_attn = FastDeformAttn3D(d_model, n_levels, n_heads,
                                           n_points, radius, window,
                                           cross_level)
         self.dropout1 = nn.Dropout(dropout)

@@ -1,9 +1,10 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each ``csrc/<name>.cu`` exposes a plain C launcher and is compiled by
-``nvcc`` for ``sm_90a`` into ``_build/lib<name>-<hash>.so`` (the hash covers
-the source, the shared headers ``csrc/*.cuh`` and the flags, so an edited
-source rebuilds), then loaded with ``ctypes``.  No PyTorch headers are compiled: a build takes seconds.
+Each ``csrc/<source>.cu`` exposes one plain C launcher per kernel (K10 and
+K11 share ``native_blend.cu``) and is compiled by ``nvcc`` for ``sm_90a``
+into ``_build/lib<source>-<hash>.so`` (the hash covers the source, the
+shared headers ``csrc/*.cuh`` and the flags, so an edited source
+rebuilds), then loaded with ``ctypes``.  No PyTorch headers are compiled: a build takes seconds.
 Nothing here runs at import time — the CPU tests import every module on a
 machine without ``nvcc``.  The wrappers' two shared rules live here too:
 ``device_of`` (CPU tensors go to the plain version, CUDA tensors on one
@@ -29,7 +30,7 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 
 # kernel name -> (source under csrc/, C launcher, its ctypes argtypes)
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 KERNELS = {
     "fused_blend2d": (
         "fused_blend2d.cu", "fused_blend2d_launch",
@@ -51,6 +52,16 @@ KERNELS = {
         "selective_scan.cu", "selective_scan_launch",
         [_P] * 10 + [_I] * 7 + [_P],
     ),
+    # values v0..v3, their batch strides, dx, dy, a, tables, out, ints
+    "native_blend2d": (
+        "native_blend.cu", "native_blend2d_launch",
+        [_P] * 4 + [_L] * 4 + [_P] * 6 + [_I] * 7 + [_P],
+    ),
+    # as K10, with dt after dy
+    "native_blend3d": (
+        "native_blend.cu", "native_blend3d_launch",
+        [_P] * 4 + [_L] * 4 + [_P] * 7 + [_I] * 7 + [_P],
+    ),
 }
 
 NVCC_FLAGS = [
@@ -59,7 +70,7 @@ NVCC_FLAGS = [
 ]
 
 _launchers: Dict[str, ctypes._CFuncPtr] = {}
-build_logs: Dict[str, str] = {}      # name -> nvcc/ptxas output of this process
+build_logs: Dict[str, str] = {}      # source -> nvcc/ptxas output of this process
 
 
 def _nvcc() -> str:
@@ -75,39 +86,42 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    h = hashlib.sha256((CSRC / KERNELS[name][0]).read_bytes())
+    """The library built from kernel ``name``'s source."""
+    source = KERNELS[name][0]
+    h = hashlib.sha256((CSRC / source).read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     digest = h.hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    return BUILD_DIR / f"lib{Path(source).stem}-{digest}.so"
 
 
 def build(names: Iterable[str] | None = None) -> Dict[str, float]:
-    """Compile every named kernel library that is not built yet — one nvcc
-    process per source, all started together.  Returns seconds per kernel
-    compiled by this call; raises with nvcc's output on failure."""
+    """Compile the sources of every named kernel that are not built yet —
+    one nvcc process per source, all started together.  Returns seconds per
+    source compiled by this call; raises with nvcc's output on failure."""
     names = list(KERNELS if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     running = {}
     for name in names:
+        source = KERNELS[name][0]
         out = library_path(name)
-        if out.exists():
+        if out.exists() or source in running:
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / KERNELS[name][0])]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
-        running[name] = (proc, tmp, out, time.perf_counter())
+        running[source] = (proc, tmp, out, time.perf_counter())
     seconds = {}
-    for name, (proc, tmp, out, t0) in running.items():
+    for source, (proc, tmp, out, t0) in running.items():
         log, _ = proc.communicate()
-        build_logs[name] = log
+        build_logs[source] = log
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+            raise RuntimeError(f"nvcc failed for {source}:\n{log}")
         os.replace(tmp, out)
-        seconds[name] = time.perf_counter() - t0
+        seconds[source] = time.perf_counter() - t0
     return seconds
 
 

@@ -30,6 +30,15 @@ def directional_offset_init(n_heads: int, n_levels: int,
     return grid.reshape(-1)
 
 
+def directional_offset_init_l3hp(n_heads: int, n_levels: int,
+                                 n_points: int) -> torch.Tensor:
+    """:func:`directional_offset_init` in the fast encoder's (level,
+    component x/y/t, head, point) lane order (3d window)."""
+    g = directional_offset_init(n_heads, n_levels, n_points)
+    g = g.reshape(n_heads, n_levels, n_points, 3)
+    return g.permute(1, 3, 0, 2).reshape(-1)
+
+
 def directional_offset_init_l2hp(n_heads: int, n_levels: int,
                                  n_points: int) -> torch.Tensor:
     """The (x, y) components of :func:`directional_offset_init` in the fast

@@ -1,9 +1,15 @@
-"""Cross-level value alignment for the windowed (fast) encoder (counterpart
-of the alignment half of ``class_query_vad_tpu/ops/fast_deform.py``).
+"""Cross-level value access for the windowed (fast) encoder (counterpart
+of ``class_query_vad_tpu/ops/fast_deform.py``: the alignment and the
+native-resolution blend).
 
-Every value level is resampled onto each query grid with the dyadic
-half-pixel bilinear up / pairwise-mean down cascade, composed into ONE
-[n_out, n_in] matrix per axis and applied as a plain matmul.
+``FAST_CROSS_LEVEL: resample``: every value level is resampled onto each
+query grid with the dyadic half-pixel bilinear up / pairwise-mean down
+cascade, composed into ONE [n_out, n_in] matrix per axis and applied as a
+plain matmul.
+
+``FAST_CROSS_LEVEL: native``: every level is sampled at its own resolution
+(``native_blend_level``, the plain version of kernels K10 and K11, whose
+wrapper is ``ops.native_blend``).
 """
 
 from __future__ import annotations
@@ -13,6 +19,9 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+from .blend2d import hat, hat_grad
 
 
 def _resize_matrix(n_in: int, n_out: int) -> np.ndarray:
@@ -82,3 +91,97 @@ def align_all_levels(
 ) -> List[List[torch.Tensor]]:
     """aligned[i][j] = value level j resampled onto query grid i."""
     return [[align_level(v, tuple(hw)) for v in values] for hw in grids]
+
+
+def native_phase(n_q: int, n_v: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Base cell and fractional phase mapping query index q of an n_q grid
+    onto an n_v value grid, p0(q) = (q + 0.5) * (n_v / n_q) - 0.5 (the
+    reference sampler's align_corners=False map): (base [n_q] int64, phi
+    [n_q] float32) with p0 = base + phi, phi in [0, 1).  Built in float64,
+    phi stored float32, as the JAX package does."""
+    p0 = (np.arange(n_q) + 0.5) * (n_v / n_q) - 0.5
+    base = np.floor(p0).astype(np.int64)
+    return base, (p0 - base).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def native_tables_on(hq: int, wq: int, vshapes: Tuple[Tuple[int, int], ...],
+                     device: torch.device):
+    """``native_phase`` for a (hq, wq) query grid over value levels of
+    (Hv, Wv) ``vshapes``, copied to ``device`` once (as
+    ``_resize_matrix_on``): base int32 [J, 2 + hq + wq], each row (Hv, Wv,
+    base_y..., base_x...), and phi float32 [J, hq + wq], each row
+    (phi_y..., phi_x...).  The plain version and the kernels read the same
+    tables."""
+    bases, phis = [], []
+    for hv, wv in vshapes:
+        by, py = native_phase(hq, hv)
+        bx, px = native_phase(wq, wv)
+        bases.append(np.concatenate([[hv, wv], by, bx]).astype(np.int32))
+        phis.append(np.concatenate([py, px]))
+    with torch.inference_mode(False):
+        return (torch.from_numpy(np.stack(bases)).to(device),
+                torch.from_numpy(np.stack(phis)).to(device))
+
+
+class _Hat(torch.autograd.Function):
+    """``hat`` differentiated by XLA's rules (``blend2d.hat_grad``), so that
+    autograd through the plain native blend gives the JAX package's
+    gradient at the ties (offsets on 0 or +-1), which bf16 hits often."""
+
+    @staticmethod
+    def forward(ctx, u):
+        ctx.save_for_backward(u)
+        return hat(u)
+
+    @staticmethod
+    def backward(ctx, g):
+        (u,) = ctx.saved_tensors
+        return g * hat_grad(u)
+
+
+def native_blend_level(vol: torch.Tensor, dx: torch.Tensor, dy: torch.Tensor,
+                       a: torch.Tensor, nh: int,
+                       dt: torch.Tensor | None = None) -> torch.Tensor:
+    """Cross-resolution windowed blend of one value level (the JAX
+    package's ``native_blend_level``, fast_deform.py:245): every query of
+    the (Hq, Wq) grid samples ``vol`` [B, T, Hv, Wv, C] at its mapped
+    position (``native_phase``) plus the offsets dx, dy [B, T, Hq, Wq,
+    nh*P] in native pixels (|d| < 1), weighted by a, with zeros outside the
+    level: 4 taps per axis at base + {-1, 0, 1, 2}.  ``dt`` (frames, |dt| <
+    1) adds 3 temporal taps {-1, 0, +1} over zero frames outside [0, T),
+    with temporal phase 0 (the levels share the query's T); without it each
+    query reads its own frame.  Accumulates in float32 and returns float32
+    [B, T, Hq, Wq, C].  Any device."""
+    b, t, hv, wv, c = vol.shape
+    hq, wq = dx.shape[2], dx.shape[3]
+    d = c // nh
+    base, phi = native_tables_on(hq, wq, ((hv, wv),), vol.device)
+    base_y, base_x = base[0, 2:2 + hq], base[0, 2 + hq:]
+    phi_y, phi_x = phi[0, :hq], phi[0, hq:]
+
+    vp = F.pad(vol, (0, 0, 2, 2, 2, 2)).float()
+    dxf = dx.float() + phi_x[None, None, None, :, None]
+    dyf = dy.float() + phi_y[None, None, :, None, None]
+    af = a.float()
+    if dt is None:
+        t_taps = [(None, None)]
+    else:
+        vp_t = F.pad(vp, (0, 0, 0, 0, 0, 0, 1, 1))
+        dtf = dt.float()
+        t_taps = [(st, _Hat.apply(dtf - st)) for st in (-1, 0, 1)]
+
+    out = torch.zeros((b, t, hq, wq, nh, d), dtype=torch.float32,
+                      device=vol.device)
+    for st, ht in t_taps:
+        vt = vp if st is None else vp_t[:, st + 1:st + 1 + t]
+        at = af if st is None else af * ht
+        for sy in range(-1, 3):
+            vy = vt.index_select(2, base_y + (sy + 2))
+            ay = at * _Hat.apply(dyf - sy)
+            for sx in range(-1, 3):
+                vxy = vy.index_select(3, base_x + (sx + 2))
+                m = (ay * _Hat.apply(dxf - sx)).reshape(
+                    b, t, hq, wq, nh, -1).sum(-1)
+                out = out + m[..., None] * vxy.reshape(b, t, hq, wq, nh, d)
+    return out.reshape(b, t, hq, wq, c)

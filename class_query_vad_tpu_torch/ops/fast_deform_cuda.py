@@ -48,28 +48,30 @@ def _shapes(vol: torch.Tensor, fused: torch.Tensor, nh: int):
 
 
 def fused_components(fused: torch.Tensor, jl: int, nh: int = 8,
-                     radius: float = 1.0):
-    """The offsets and weights K1 computes from the raw head lanes, as the
-    JAX package's ``_fused2d_composite`` (:1517-1531) does: offsets
-    ``radius * tanh`` in ``fused``'s dtype; the softmax over (level, point)
-    per head in float32, after subtracting the max over all weight lanes
-    with no gradient, cast to ``fused``'s dtype.  fused [B, T, H, W,
-    3*J*kp] -> dx, dy, a [B, J, T, H, W, kp]."""
-    kp = fused.shape[-1] // (3 * jl)
-    nw0 = 2 * jl * kp
-    raw = radius * torch.tanh(fused[..., :nw0])
-    logits = fused[..., nw0:].float()
+                     radius: float = 1.0, nc: int = 2):
+    """The offsets and weights of the fused head's lanes, as the JAX
+    package's fast encoder computes them (fast_encoder.py:196-250; K1's
+    front end, ``_fused2d_composite`` :1517-1531, for nc=2).  ``fused``
+    [B, T, H, W, (nc+1)*J*kp] holds nc offset components in (level,
+    component x/y[/t], head, point) lane order, then the weight logits in
+    (level, head, point) order.  Offsets are ``radius * tanh`` in
+    ``fused``'s dtype; the weights the softmax over (level, point) per head
+    in float32, after subtracting the max over all weight lanes with no
+    gradient, cast to ``fused``'s dtype.  Returns dx, dy, a (nc=2) or dx,
+    dy, dt, a (nc=3), each [B, J, T, H, W, kp]."""
+    kp = fused.shape[-1] // ((nc + 1) * jl)
+    n_off = nc * jl * kp
+    raw = radius * torch.tanh(fused[..., :n_off])
+    logits = fused[..., n_off:].float()
     e = torch.exp(logits - logits.amax(dim=-1, keepdim=True).detach())
     lanes = e.shape[:-1]
     e = e.reshape(*lanes, jl, nh, kp // nh)
     a = (e / e.sum(dim=(-3, -1), keepdim=True)).reshape(*lanes, jl * kp)
     a = a.to(fused.dtype)
-    dx = torch.stack([raw[..., 2 * j * kp:(2 * j + 1) * kp]
-                      for j in range(jl)], dim=1)
-    dy = torch.stack([raw[..., (2 * j + 1) * kp:(2 * j + 2) * kp]
-                      for j in range(jl)], dim=1)
+    offsets = [torch.stack([raw[..., (nc * j + k) * kp:(nc * j + k + 1) * kp]
+                            for j in range(jl)], dim=1) for k in range(nc)]
     a = torch.stack([a[..., j * kp:(j + 1) * kp] for j in range(jl)], dim=1)
-    return dx, dy, a
+    return (*offsets, a)
 
 
 def fused_blend2d_reference(vol: torch.Tensor, fused: torch.Tensor,

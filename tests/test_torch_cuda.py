@@ -28,6 +28,12 @@ from class_query_vad_tpu_torch.ops.fast_deform_cuda import (
     fused_blend2d_reference,
     fused_components,
 )
+from class_query_vad_tpu_torch.ops.native_blend import (
+    native_blend,
+    native_blend2d,
+    native_blend3d,
+    native_blend_reference,
+)
 from class_query_vad_tpu_torch.ops.selective_scan import (
     selective_scan,
     selective_scan_reference,
@@ -312,6 +318,126 @@ def test_tiny_vss_model_card_matches_cpu(card):
         out_g = m_gpu(pixels.to(card), mask.to(card))
         out_c = m_cpu(pixels, mask)
     assert selective_scan.launches == before + 2 * 2 + 2 * 2 * 2
+    for k in ("pred_logits", "pred_boxes", "pred_logits_b"):
+        g, r = out_g[k].cpu(), out_c[k]
+        assert (g - r).abs().max().item() <= 1e-4 * max(1.0, r.abs().max().item()), k
+
+
+def _native_inputs(card, dtype, b, t, grid, vshapes, nc, seed):
+    """Value levels as views of one flat stream (dense past the batch
+    axis, as the encoder hands them over), offsets in (-1, 1) with a fifth
+    on the ties -1, -0.5, 0, 0.5, 1, weights in [0, 0.3)."""
+    g = torch.Generator().manual_seed(seed)
+    n = sum(t * hv * wv for hv, wv in vshapes)
+    flat = torch.randn((b, n, 256), generator=g)
+    values, start = [], 0
+    for hv, wv in vshapes:
+        values.append(flat[:, start:start + t * hv * wv].reshape(b, t, hv, wv, 256))
+        start += t * hv * wv
+    shape = (b, len(vshapes), t) + grid + (64,)
+    comps = []
+    for _ in range(nc):
+        x = torch.rand(shape, generator=g) * 2 - 1
+        pick = torch.rand(shape, generator=g) < 0.2
+        ties = torch.tensor([-1.0, -0.5, 0.0, 0.5, 1.0])
+        x[pick] = ties[torch.randint(0, 5, shape, generator=g)][pick]
+        comps.append(x)
+    comps.append(torch.rand(shape, generator=g) * 0.3)
+    return ([v.to(card, dtype) for v in values],
+            [x.to(card, dtype) for x in comps])
+
+
+NATIVE_PYRAMID = [(64, 80), (32, 40), (16, 20), (8, 10)]
+
+
+# K10 / K11: both sides read the same values and offsets and sum in float32
+# (no rounding of the masses), so only the summation order differs, in bf16
+# as in float32: a kernel that rounded the masses to bf16 would fail
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-5)])
+@pytest.mark.parametrize("window", ["2d", "3d"])
+@pytest.mark.parametrize("grid,vshapes,t", [
+    ((12, 20), [(12, 20), (6, 10), (3, 5), (24, 40)], 3),
+    ((16, 20), NATIVE_PYRAMID, 2),
+    ((8, 10), NATIVE_PYRAMID[1:], 1),
+    ((7, 5), [(14, 10)], 2)])
+def test_native_blend_kernels_match_plain(card, dtype, tol, window, grid,
+                                          vshapes, t):
+    nc = 3 if window == "3d" else 2
+    values, comps = _native_inputs(card, dtype, 2, t, grid, vshapes, nc, 5)
+    dx, dy, a = comps[0], comps[1], comps[-1]
+    dt = comps[2] if nc == 3 else None
+    counter = native_blend3d if dt is not None else native_blend2d
+    before = counter.launches
+    out = native_blend(values, dx, dy, a, 8, dt=dt)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert out.dtype == torch.float32
+    _close(out, native_blend_reference(values, dx, dy, a, 8, dt), tol,
+           f"native {window}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", ["2d", "3d"])
+def test_native_blend_gradient_on_the_card(card, window):
+    """The card's forward runs the kernel; its backward (the plain
+    version's VJP, recomputed) equals autograd through the plain sum."""
+    nc = 3 if window == "3d" else 2
+    values, comps = _native_inputs(card, torch.float32, 1, 2, (8, 10),
+                                   [(8, 10), (4, 5), (16, 20)], nc, 6)
+    g = torch.randn((1, 2, 8, 10, 256), device=card)
+    grads = []
+    for fn in (native_blend, native_blend_reference):
+        xs = [x.detach().clone().requires_grad_() for x in (*values, *comps)]
+        vs, cs = xs[:3], xs[3:]
+        dt = cs[2] if nc == 3 else None
+        fn(vs, cs[0], cs[1], cs[-1], 8, dt=dt).backward(g)
+        grads.append([x.grad for x in xs])
+    for x, y in zip(*grads):
+        _close(x, y, 1e-5, f"native {window} gradient")
+
+
+@pytest.mark.cuda
+def test_native_blend_kernel_rejects_what_it_does_not_take(card):
+    values, comps = _native_inputs(card, torch.float32, 1, 1, (4, 5),
+                                   [(4, 5)], 2, 7)
+    with pytest.raises(ValueError):                     # kp = 32
+        native_blend(values, *(x[..., :32].contiguous() for x in comps), 8)
+    with pytest.raises(ValueError):                     # mixed dtypes
+        native_blend([values[0].bfloat16()], *comps, 8)
+    with pytest.raises(ValueError):                     # one CPU tensor
+        native_blend([values[0].cpu()], *comps, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", ["2d", "3d"])
+def test_tiny_native_model_card_matches_cpu(card, window):
+    """A tiny float32 native model on the card (K10 / K11) and on the CPU
+    (plain version), same seeded weights and input."""
+    cfg = get_cfg_defaults()
+    c = cfg.CONFIG
+    c.DATA.NUM_CLASSES, c.DATA.TEMP_LEN, c.MODEL.TEMP_LEN = 12, 8, 8
+    c.MODEL.SINGLE_FRAME = True
+    c.MODEL.ENCODER_TYPE, c.MODEL.FAST_WINDOW = "fast_attention", window
+    c.MODEL.FAST_CROSS_LEVEL = "native"
+    c.MODEL.ENC_LAYERS, c.MODEL.DEC_LAYERS = 2, 1
+    c.MODEL.DIM_FEEDFORWARD, c.MODEL.QUERY_NUM, c.ViT.DEPTH = 64, 4, 1
+    m_cpu = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
+    randomize_constants(m_cpu, torch.Generator().manual_seed(2))
+    m_gpu = build_model(cfg, device=card)
+    m_gpu.load_state_dict(m_cpu.state_dict(), strict=True)
+    rng = np.random.default_rng(0)
+    pixels = torch.from_numpy(rng.standard_normal((2, 8, 64, 64, 3), np.float32))
+    mask = torch.zeros((2, 64, 64), dtype=torch.bool)
+    mask[1, :, 48:] = True
+    counter = native_blend3d if window == "3d" else native_blend2d
+    before = (counter.launches, fused_blend2d.launches)
+    with torch.inference_mode():
+        out_g = m_gpu(pixels.to(card), mask.to(card))
+        out_c = m_cpu(pixels, mask)
+    assert (counter.launches, fused_blend2d.launches) == (
+        before[0] + 2 * 4, before[1])                      # layers x grids
     for k in ("pred_logits", "pred_boxes", "pred_logits_b"):
         g, r = out_g[k].cpu(), out_c[k]
         assert (g - r).abs().max().item() <= 1e-4 * max(1.0, r.abs().max().item()), k

@@ -17,7 +17,7 @@ from class_query_vad_tpu_torch.engine import Trainer
 from class_query_vad_tpu_torch.losses import build_criterion_and_postprocessor, build_matcher
 from class_query_vad_tpu_torch.models import build_model
 from class_query_vad_tpu_torch.models.detr import randomize_constants
-from class_query_vad_tpu_torch.models.fast_encoder import FastDeformAttn2D
+from class_query_vad_tpu_torch.models.fast_encoder import FastDeformAttn3D
 from class_query_vad_tpu_torch.models.spec import spec_from_cfg
 from class_query_vad_tpu_torch.ops.blend2d import (
     blend2d,
@@ -52,7 +52,8 @@ def test_port_imports_no_jax(path):
 
 
 @pytest.mark.parametrize("name", ["fast_deform_cuda.py", "cuda_build.py",
-                                  "blend2d.py", "selective_scan.py"])
+                                  "blend2d.py", "selective_scan.py",
+                                  "native_blend.py"])
 def test_kernel_path_has_no_try(name):
     """No ``try`` around the build or the launch: on the card the wrapper
     launches the kernel or raises."""
@@ -203,16 +204,29 @@ def test_randomize_constants_gives_nonzero_class_logits():
 
 def test_unported_modes_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FastDeformAttn2D(window="3d")
+        FastDeformAttn3D(window="3d", cross_level="resample")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FastDeformAttn2D(cross_level="native")
+        FastDeformAttn3D(radius=2, window="2d", cross_level="resample")
     cfg = _tiny_cfg()
     cfg.CONFIG.MODEL.ENCODER_TYPE = "attention"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(cfg, device="cpu")
 
 
+@pytest.mark.parametrize("window", ["2d", "3d"])
+def test_native_mode_guards_raise_value_error_as_jax(window):
+    """The JAX package raises ValueError for the native mode with radius
+    != 1 (fast_encoder.py:217-218) and for levels of unequal T (:219-226)."""
+    with pytest.raises(ValueError, match="radius=1"):
+        FastDeformAttn3D(radius=2, window=window, cross_level="native")
+    attn = FastDeformAttn3D(256, 2, 8, 8, window=window, cross_level="native")
+    src = torch.zeros((1, 2 * 4 * 6 + 1 * 2 * 3, 256))
+    with pytest.raises(ValueError, match="equal T"):
+        attn(src, src, ((2, 4, 6), (1, 2, 3)), None)
+
+
 @pytest.mark.parametrize("yaml", ["AVA22_ViT-B_fast.yaml", "AVA22_ViT-B.yaml",
+                                  "AVA22_ViT-B_fast_native.yaml",
                                   "UCF_ViT-B_fast.yaml",
                                   "AVA22_train-mamba_VSS.yaml"])
 def test_config_copy_reads_yaml_like_the_jax_package(yaml):

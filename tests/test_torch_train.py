@@ -30,7 +30,7 @@ from class_query_vad_tpu_torch.engine import make_optimizer
 from class_query_vad_tpu_torch.losses import criterion_ava, match_ava
 from class_query_vad_tpu_torch.models import build_model
 from class_query_vad_tpu_torch.models.common import DropPath
-from class_query_vad_tpu_torch.models.fast_encoder import FastDeformAttn2D
+from class_query_vad_tpu_torch.models.fast_encoder import FastDeformAttn3D
 from class_query_vad_tpu_torch.models.spec import ViTSpec
 from class_query_vad_tpu_torch.models.vit import ViT
 from class_query_vad_tpu_torch.ops.lsap import linear_sum_assignment
@@ -331,9 +331,9 @@ def test_components_route_equals_fused_route():
     components route (tanh, softmax and stacks in torch, the blend through
     K2's ``blend2d``); at 8 points both routes compute the same function,
     values and gradients."""
-    assert not FastDeformAttn2D(n_points=4).fused_route
+    assert not FastDeformAttn3D(n_points=4).fused_route
     rng = np.random.default_rng(9)
-    attn = FastDeformAttn2D(256, 2, 8, 8)
+    attn = FastDeformAttn3D(256, 2, 8, 8)
     with torch.no_grad():
         for p in attn.parameters():
             p.copy_(t(rng.normal(size=p.shape).astype(np.float32)) * 0.1)
