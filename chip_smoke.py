@@ -5,16 +5,19 @@ NVIDIA card.
     python3 chip_smoke.py            # needs one CUDA card and nvcc
 
 1. Device and build: the card's name and power limit (nvidia-smi), TF32
-   off for the parity phases, every CUDA kernel (K1-K5, K10, K11) built from
+   off for the parity phases, every CUDA kernel (K1-K6, K8-K11) built from
    ``csrc/`` (one nvcc per source, started together) with ptxas's register
-   report; K10 and K11 share one source.
+   report; K10 and K11 share one source, and K6's serves K7.
 2. Kernels against their plain PyTorch versions on the card, at the main
    path's four level shapes, in float32 and bf16, with kernel / plain
    timings and the card's lower bound for the same work: K1 (fused blend)
    at the eval batch B=2; K2 (blend from components), K3 (its dvol) and K4
    (its d components) at B=1 and B=2 with offsets on exact ties, and K1's
    autograd (grads of vol and the head lanes) against autograd through the
-   plain composite; timings at the train batch B=1.
+   plain composite; timings at the train batch B=1.  Beside each, the time
+   of the ``F.grid_sample`` composition of the same function (K1: after
+   the torch front end; K3 / K4: its autograd with respect to vol / the
+   components), the library yardstick no path of the port calls.
 3. The eval path at full width: ``AVA22_ViT-B_fast`` (ViT-B, 6+6 layers,
    D=256, 80 classes, 15 queries) in bf16 with seeded random weights
    serves 3 requests of [2, 16, 256, 320, 3] clips through forward +
@@ -67,6 +70,25 @@ NVIDIA card.
    backbone frames): 3 bf16 requests with 24 K11 launches per forward,
    then the float32 card-vs-CPU check, at 2 encoder layers (the CPU's
    plain 3d blend takes minutes at 6).
+14. K6 (the 27-tap (x, y, t) blend of the resample mode's 3d window; the
+   same CUDA kernel serves the TPU's K7), K8 (its d vol) and K9 (its d
+   components) against their plain versions, offsets on exact ties
+   included: K6 at the four query grids over the four aligned levels, B=2,
+   T=8, and at a 128x160 grid in K7's regime; K8 / K9 at B=1; float32 and
+   bf16; device times, the bound from this run's data, the plain version
+   and the grid_sample composition (trilinear; its autograd for K8 / K9).
+15. ``AVA22_ViT-B_fast`` with ``FAST_WINDOW: 3d`` (the resample mode's 3d
+   window: no slice, all 8 backbone frames, the common-grid decode) at full
+   width in bf16 serves 3 requests: 24 K6 launches per forward and no K1
+   or K2; median ms/batch, peak memory, stage events, busy share.
+16. The same 3d model in float32 on the card (K6) and on the CPU (plain
+   version), B=1, at full depth: all three heads must agree.
+17. Its train path: 1 + 4 full-width bf16 B=1 steps through ``Trainer``,
+   24 launches each of K6, K8 and K9 per step and of no other kernel;
+   median ms/step, peak memory, stage shares, busy share.
+18. One float32 train step of the full-width 3d model on the card (24
+   launches each of K6, K8, K9) and on the CPU: the same assignment, loss
+   and gradients, as in phase 6.
 
 Every phase raises on failure (exit code != 0).  The last two lines are a
 JSON object of per-kernel numbers and ``{"ok": true, "device": ...}``.
@@ -195,11 +217,11 @@ def k1_work(h: int, w: int, itemsize: int):
 
 def phase_kernels(dev, bw, peak):
     from class_query_vad_tpu_torch.ops.fast_deform_cuda import (
-        fused_blend2d, fused_blend2d_reference)
+        fused_blend2d, fused_blend2d_reference, fused_components)
 
     rng = np.random.default_rng(0)
     max_err = 0.0
-    ms = plain_ms = bound_ms = 0.0
+    ms = plain_ms = bound_ms = library_ms = 0.0
     bound_by = {"bytes": 0.0, "operations": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         for h, w in K1_LEVELS:
@@ -227,26 +249,35 @@ def phase_kernels(dev, bw, peak):
                 t_call = cuda_ms(call, 50)
                 t_p = cuda_ms(
                     lambda: fused_blend2d_reference(vol, fused, 8, 1.0), 5, 1)
+                # the library yardstick: the torch front end, then the
+                # grid_sample composition of the blend
+                lib = lambda: blend_grid_sample(
+                    vol, *fused_components(fused, K1_J), 8)
+                check_library(lib(), out_p, "K1")
+                t_l = cuda_ms(lib, 5, 1)
                 nbytes, ops = k1_work(h, w, 2)
                 t_b = max(nbytes / bw, ops / peak) * 1e3
                 bound_by["bytes" if nbytes / bw >= ops / peak
                          else "operations"] += t_b
                 print(f"K1 bf16     {h:3d}x{w:<3d}: kernel {t_k:.4f} ms "
                       f"(device, queued; {t_call:.4f} ms per back-to-back call with "
-                      f"the wrapper), plain {t_p:.4f} ms, bound {t_b:.4f} ms "
+                      f"the wrapper), plain {t_p:.4f} ms, library "
+                      f"{t_l:.4f} ms, bound {t_b:.4f} ms "
                       f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP) -> "
                       f"{nbytes / t_k / 1e6:.0f} GB/s")
                 ms, plain_ms, bound_ms = ms + t_k, plain_ms + t_p, bound_ms + t_b
+                library_ms += t_l
     print(f"K1 per encoder layer (4 launches, bf16): kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms (the kernel "
-          f"runs at {bound_ms / ms:.1%} of the bound's speed)")
+          f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms (the kernel runs at {bound_ms / ms:.1%} of the "
+          f"bound's speed)")
     return {
         "name": "fused_blend2d", "route": "cuda",
         "source": "class_query_vad_tpu_torch/csrc/fused_blend2d.cu",
         "replaces": "class_query_vad_tpu/ops/fast_deform_pallas.py:1413",
         "launches": None, "max_abs_err": max_err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": max(bound_by, key=bound_by.get), "library_ms": None,
+        "bound_by": max(bound_by, key=bound_by.get), "library_ms": library_ms,
     }
 
 
@@ -259,19 +290,20 @@ BLEND_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 K1_GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
-def blend_inputs(rng, b, h, w, dtype, dev):
-    """vol, dx, dy, a at one level shape; a third of the offsets exactly
-    on -1, 0 or 1 (the tie points of hat'); G float32."""
-    shape = (b, K1_J, K1_T, h, w, K1_KP)
-    vol = rng.standard_normal((b, K1_J, K1_T, h, w, K1_C), np.float32)
+def blend_inputs(rng, b, h, w, dtype, dev, nc: int = 2, t: int = K1_T):
+    """vol, dx, dy, (dt,) a at one level shape (``nc`` offset components,
+    ``t`` frames); a third of the offsets exactly on -1, 0 or 1 (the tie
+    points of hat'); G float32."""
+    shape = (b, K1_J, t, h, w, K1_KP)
+    vol = rng.standard_normal((b, K1_J, t, h, w, K1_C), np.float32)
     offs = []
-    for _ in range(2):
+    for _ in range(nc):
         x = rng.uniform(-1.0, 1.0, shape).astype(np.float32)
         pick = rng.random(shape) < 1 / 3
         x[pick] = rng.integers(-1, 2, shape)[pick]
         offs.append(x)
     a = rng.uniform(0.0, 0.3, shape).astype(np.float32)
-    g = rng.standard_normal((b, K1_T, h, w, K1_C), np.float32)
+    g = rng.standard_normal((b, t, h, w, K1_C), np.float32)
     comps = [torch.from_numpy(x).to(dev, dtype) for x in (vol, *offs, a)]
     return comps, torch.from_numpy(g).to(dev)
 
@@ -298,6 +330,35 @@ def rel_err(got, want):
     return err, err / max(want.float().abs().max().item(), 1e-30)
 
 
+def blend_grid_sample(vol, dx, dy, a, nh: int = 8, dt=None):
+    """The same function as K2 (K6 with ``dt``) composed from
+    ``F.grid_sample``: the hat-weighted radius-1 window at offsets |d| <= 1
+    with zero borders is bilinear (trilinear) sampling at q + d with zero
+    padding, and on an aligned level the native mode's map is the identity
+    (base q, phase 0), so this is ``native_grid_sample`` over vol's levels.
+    Float32; the library yardstick of K1-K4 and K6-K9 (the backward
+    kernels' is its autograd).  No path of the port calls it."""
+    return native_grid_sample(list(vol.unbind(1)), dx, dy, a, nh, dt)
+
+
+def check_library(got, want, what: str) -> float:
+    """The grid_sample composition agrees with the plain version."""
+    rel = rel_err(got, want)[1]
+    check(rel <= LIBRARY_TOL, f"the grid_sample composition of {what} "
+                              f"disagrees with the plain version: {rel:.2e}")
+    return rel
+
+
+def library_grad(fn, leaves, wrt, g):
+    """A call computing the gradient of ``fn(*leaves)`` for the cotangent g
+    with respect to the leaves at ``wrt`` only, through autograd (the
+    forward taken once, outside the timed call)."""
+    xs = [x.detach().requires_grad_(i in wrt) for i, x in enumerate(leaves)]
+    out = fn(*xs)
+    return lambda: torch.autograd.grad(out, [xs[i] for i in wrt], g,
+                                       retain_graph=True)
+
+
 def phase_blend_kernels(dev, bw, peak):
     """K2, K3, K4 and K1's autograd against their plain versions; timings
     of the bf16 train shapes (B=1, one encoder layer = 4 levels)."""
@@ -316,7 +377,7 @@ def phase_blend_kernels(dev, bw, peak):
 
     rng = np.random.default_rng(1)
     err = {k: 0.0 for k in ("K2", "K3", "K4")}
-    num = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+    num = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
                "bound_by": {"bytes": 0.0, "operations": 0.0}} for k in err}
     k1_bwd_ms = 0.0
     for dtype in (torch.float32, torch.bfloat16):
@@ -333,6 +394,25 @@ def phase_blend_kernels(dev, bw, peak):
                            lambda: blend2d_bwd_dcomps_reference(vol, dx, dy,
                                                                 a, g, 8)),
                 }
+                if dtype == torch.bfloat16 and b == TRAIN_B:
+                    # the grid_sample composition (K2) and its autograd
+                    # with respect to vol (K3) or the components (K4);
+                    # the forward and d vol checked against the plain
+                    # versions (d components not: grid_sample's
+                    # subgradients at the ties are not XLA's)
+                    lib2 = lambda: blend_grid_sample(vol, dx, dy, a, 8)
+                    check_library(lib2(), calls["K2"][1](), "K2")
+                    library = {
+                        "K2": lib2,
+                        "K3": library_grad(blend_grid_sample,
+                                           (vol, dx, dy, a), (0,), g),
+                        "K4": library_grad(blend_grid_sample,
+                                           (vol, dx, dy, a), (1, 2, 3), g),
+                    }
+                    e3 = rel_err(library["K3"]()[0], calls["K3"][1]())[1]
+                    check(e3 <= BLEND_TOL[dtype], f"the grid_sample "
+                          f"composition's d vol disagrees with K3's plain "
+                          f"version: {e3:.2e}")
                 for k, (kern, plain) in calls.items():
                     got, want = kern(), plain()
                     torch.cuda.synchronize()
@@ -353,6 +433,7 @@ def phase_blend_kernels(dev, bw, peak):
                     if dtype == torch.bfloat16 and b == TRAIN_B:
                         t_k = kernel_device_ms(kern)
                         t_p = cuda_ms(plain, 3, 1)
+                        t_l = cuda_ms(library[k], 5, 1)
                         nbytes, ops = blend_work(k, b, h, w, 2)
                         t_b = max(nbytes / bw, ops / peak) * 1e3
                         n = num[k]
@@ -361,9 +442,10 @@ def phase_blend_kernels(dev, bw, peak):
                         n["ms"] += t_k
                         n["plain_ms"] += t_p
                         n["bound_ms"] += t_b
+                        n["library_ms"] += t_l
                         print(f"{k} bf16     B={b} {h:3d}x{w:<3d}: kernel "
                               f"{t_k:.4f} ms (device, queued), plain "
-                              f"{t_p:.4f} ms, "
+                              f"{t_p:.4f} ms, library {t_l:.4f} ms, "
                               f"bound {t_b:.4f} ms ({nbytes / 1e6:.1f} MB) "
                               f"-> {nbytes / t_k / 1e6:.0f} GB/s")
 
@@ -410,7 +492,8 @@ def phase_blend_kernels(dev, bw, peak):
     for k, (name, src, line) in names.items():
         n = num[k]
         print(f"{k} per encoder layer (4 launches, bf16, B={TRAIN_B}): kernel "
-              f"{n['ms']:.4f} ms, plain {n['plain_ms']:.4f} ms, bound "
+              f"{n['ms']:.4f} ms, plain {n['plain_ms']:.4f} ms, library "
+              f"{n['library_ms']:.4f} ms, bound "
               f"{n['bound_ms']:.4f} ms ({n['bound_ms'] / n['ms']:.1%} of the "
               f"bound's speed)")
         entries.append({
@@ -420,7 +503,7 @@ def phase_blend_kernels(dev, bw, peak):
             "launches": None, "max_abs_err": err[k], "ms": n["ms"],
             "plain_ms": n["plain_ms"], "bound_ms": n["bound_ms"],
             "bound_by": max(n["bound_by"], key=n["bound_by"].get),
-            "library_ms": None,
+            "library_ms": n["library_ms"],
         })
     return entries, k1_bwd_ms
 
@@ -450,11 +533,15 @@ def serve(model, pixels, mask, dev):
 
 def trace_holds(device_rows, expected: dict) -> str:
     """How many of the port's kernel launches the profiler's device rows
-    hold, against how many ran: a trace that lost rows under-counts the
-    card's busy time."""
-    return ", ".join(
-        f"{k} {sum(e.count for e in device_rows if f'{k}_kernel' in e.key)}"
-        f"/{n}" for k, n in expected.items())
+    hold, against how many ran (by wrapper; wrapper ``x`` or ``x_fwd``
+    launches ``x_kernel``): a trace that lost rows under-counts the card's
+    busy time."""
+    held = []
+    for k, n in expected.items():
+        sym = k.removesuffix("_fwd") + "_kernel"
+        held.append(f"{k} {sum(e.count for e in device_rows if sym in e.key)}"
+                    f"/{n}")
+    return ", ".join(held)
 
 
 def stage_breakdown(model, pixels, mask, dev, wall_ms: float, iters: int = 5,
@@ -650,19 +737,31 @@ def check_train_step(trainer, metrics, before):
     return norm, moved
 
 
-def phase_train(dev, counters):
-    """Full-width bf16 train steps through build_model + Trainer."""
+# launches per train step of the main path (K1 forward, K3 + K4 backward)
+# and of its 3d resample window (K6 forward, K8 + K9 backward)
+TRAIN_KERNELS = {"2d": ("fused_blend2d", "blend2d_bwd_dvol",
+                        "blend2d_bwd_dcomps"),
+                 "3d": ("blend3d_fwd", "blend3d_bwd_dvol",
+                        "blend3d_bwd_dcomps")}
+
+
+def phase_train(dev, counters, window: str = "2d", steps: int = 7,
+                tag: str = ""):
+    """Full-width bf16 train steps of ``AVA22_ViT-B_fast.yaml`` (with
+    ``FAST_WINDOW: window``) through build_model + Trainer: 24 launches of
+    each of ``TRAIN_KERNELS[window]`` per step and of no other kernel; the
+    host LSAP's time on the main path."""
     from class_query_vad_tpu_torch.config import get_cfg_custom
     from class_query_vad_tpu_torch.engine import Trainer
     from class_query_vad_tpu_torch.losses.matcher import cost_matrix
     from class_query_vad_tpu_torch.models import build_model
     from class_query_vad_tpu_torch.ops.lsap import linear_sum_assignment
 
-    cfg = get_cfg_custom(CONFIG)
+    cfg = get_cfg_custom(CONFIG, ["CONFIG.MODEL.FAST_WINDOW", window])
     model = build_model(cfg, dtype=torch.bfloat16)
     trainer = Trainer(model, cfg)
     tc = cfg.CONFIG.TRAIN
-    print(f"trainer: LR {float(tc.LR)} ({tc.get('LR_POLICY', 'constant')}), "
+    print(f"{tag}trainer: LR {float(tc.LR)} ({tc.get('LR_POLICY', 'constant')}), "
           f"GRAD_ACCUM {tc.GRAD_ACCUM}, clip {tc.get('CLIP_GRAD_NORM', 1.0)}, "
           f"dropout {cfg.CONFIG.MODEL.DROPOUT}, drop path "
           f"{cfg.CONFIG.ViT.DROP_PATH_RATE}, ViT checkpointing "
@@ -671,7 +770,7 @@ def phase_train(dev, counters):
     times, per_step = [], []
     for c in counters:
         c.launches = 0
-    for i in range(7):
+    for i in range(steps):
         if i == 1:
             torch.cuda.reset_peak_memory_stats()
         before = [m.clone() for m in trainer.optimizer.masters]
@@ -687,7 +786,7 @@ def phase_train(dev, counters):
         per_step.append(step_launches)
         if i:
             times.append(ms)
-        print(f"train step {i}{' (warm-up)' if i == 0 else ''}: {ms:.2f} ms, "
+        print(f"{tag}train step {i}{' (warm-up)' if i == 0 else ''}: {ms:.2f} ms, "
               f"total {metrics['total_loss'].item():.5f} ("
               + ", ".join(f"{k} {metrics[k].item():.4f}"
                           for k in trainer.weight_dict)
@@ -695,18 +794,23 @@ def phase_train(dev, counters):
               f"launches {step_launches}")
         del before
     launches = {c.__name__: c.launches for c in counters}
-    check(all(d == {**{k: 0 for k in d}, "fused_blend2d": 24,
-                    "blend2d_bwd_dvol": 24, "blend2d_bwd_dcomps": 24}
+    kernels = TRAIN_KERNELS[window]
+    check(all(d == {**{k: 0 for k in d}, **{k: 24 for k in kernels}}
               for d in per_step),
-          f"train launches per step {per_step}, expected 24 each of K1, "
-          f"K3, K4 and no K2")
+          f"{tag}train launches per step {per_step}, expected 24 each of "
+          f"{', '.join(kernels)} and no other kernel")
     med = statistics.median(times)
-    print(f"full-width train, B={TRAIN_B} bf16, forward + matcher + criterion "
+    print(f"{tag}full-width train, B={TRAIN_B} bf16, forward + matcher + criterion "
           f"+ backward + clip + AdamW, host->device copy included: median "
           f"{med:.2f} ms/step ({1e3 * TRAIN_B / med:.2f} clips/s) over "
           f"{len(times)} steps; min {min(times):.2f}, max {max(times):.2f}; "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB; launches over the {len(per_step)} steps {launches}")
+    if window != "2d":
+        train_breakdown(trainer, batch, med, kernels)
+        del trainer, model
+        torch.cuda.empty_cache()
+        return launches
 
     # the host LSAP on this step's costs (6 decoder layers, one copy)
     x = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
@@ -730,15 +834,16 @@ def phase_train(dev, counters):
           f"per step for {host.shape[0]}x{host.shape[1]} costs of "
           f"{host.shape[2]}x{host.shape[3]} (median of 5); the device-to-host "
           f"copy {copy_ms:.2f} ms")
-    train_breakdown(trainer, batch, med)
+    train_breakdown(trainer, batch, med, kernels)
     del trainer, model, out
     torch.cuda.empty_cache()
     return launches
 
 
-def train_breakdown(trainer, batch, wall_ms: float):
+def train_breakdown(trainer, batch, wall_ms: float, kernels):
     """Device ms of one step's stages (CUDA events) and the card's busy
-    share of the median ms/step (torch.profiler's device rows)."""
+    share of the median ms/step (torch.profiler's device rows, which should
+    hold 24 launches of each of ``kernels``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -763,7 +868,8 @@ def train_breakdown(trainer, batch, wall_ms: float):
     host.append(time.perf_counter())
     torch.cuda.synchronize()
     names = ("forward (train mode, ViT checkpointed)",
-             "matcher + criterion (host LSAP)", "backward (K1 bwd: K3, K4)",
+             "matcher + criterion (host LSAP)",
+             f"backward ({', '.join(kernels[1:])})",
              "clip + AdamW + master copy")
     dev_ms = [marks[i].elapsed_time(marks[i + 1]) for i in range(4)]
     host_ms = [(b - a) * 1e3 for a, b in zip([t0] + host[:-1], host)]
@@ -780,8 +886,7 @@ def train_breakdown(trainer, batch, wall_ms: float):
                        max_name_column_width=60))
     device = [e for e in events if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in device) / 1e3
-    held = trace_holds(device, {k: 24 for k in (
-        "fused_blend2d", "blend2d_bwd_dvol", "blend2d_bwd_dcomps")})
+    held = trace_holds(device, {k: 24 for k in kernels})
     print(f"train step: device busy {busy:.2f} ms (profiled) = "
           f"{busy / wall_ms:.1%} of the median {wall_ms:.2f} ms/step; idle "
           f"share {1 - busy / wall_ms:.1%}; the trace holds launches {held}")
@@ -829,14 +934,19 @@ TRAIN_GRAD_FLOOR = 1e-5     # ... + this x the model's max|grad|: some
 # logits alike) and their noise has no scale of its own
 
 
-def phase_train_card_vs_cpu(dev):
+def phase_train_card_vs_cpu(dev, opts=(), tag: str = "", counters=(),
+                            expected=None):
+    """One float32 train step of ``AVA22_ViT-B_fast.yaml`` (with ``opts``)
+    on the card and on the CPU, same weights and batch, dropout off; on
+    the card the ``counters`` must move by ``expected`` launches."""
     from class_query_vad_tpu_torch.config import get_cfg_custom
     from class_query_vad_tpu_torch.engine import Trainer
     from class_query_vad_tpu_torch.models import build_model
     from class_query_vad_tpu_torch.models.detr import randomize_constants
 
     cfg = get_cfg_custom(CONFIG, ["CONFIG.MODEL.FAST_DTYPE", "float32",
-                                  "CONFIG.MODEL.DECODER_DTYPE", "float32"])
+                                  "CONFIG.MODEL.DECODER_DTYPE", "float32",
+                                  *opts])
     cfg.CONFIG.MODEL.DROPOUT = 0.0
     cfg.CONFIG.ViT.DROP_PATH_RATE = 0.0
     m_cpu = build_model(cfg, torch.float32, "cpu",
@@ -849,13 +959,19 @@ def phase_train_card_vs_cpu(dev):
     for name, model, d in (("card", m_gpu, dev), ("CPU", m_cpu, "cpu")):
         model.head_dropout.p = 0.0           # the class head's fixed 0.5
         trainer = Trainer(model, cfg, device=d)
+        counts = [c.launches for c in counters]
         t0 = time.perf_counter()
         total, losses, match = trainer.loss(
             {k: torch.as_tensor(v).to(d) for k, v in batch.items()})
         total.backward()
         if d != "cpu":
             torch.cuda.synchronize()
-        print(f"{name} float32 train step (loss + backward): "
+            moved = {c.__name__: c.launches - n
+                     for c, n in zip(counters, counts)}
+            check(expected is None or moved == expected,
+                  f"{tag}card train step launches {moved}, expected "
+                  f"{expected}")
+        print(f"{tag}{name} float32 train step (loss + backward): "
               f"{time.perf_counter() - t0:.1f} s")
         res[name] = (total.item(), {k: v.item() for k, v in losses.items()},
                      match, {k: p.grad.float().cpu()
@@ -864,16 +980,16 @@ def phase_train_card_vs_cpu(dev):
     ok = m_c.match_ok
     same = (torch.equal(ok, m_g.match_ok.cpu())
             and torch.equal(m_c.gt_idx[ok], m_g.gt_idx.cpu()[ok]))
-    print(f"matcher assignment (last layer; query -> gt slot, -1 = none): "
+    print(f"{tag}matcher assignment (last layer; query -> gt slot, -1 = none): "
           f"card {torch.where(m_g.match_ok, m_g.gt_idx, -1)[-1].tolist()}, "
           f"CPU {torch.where(ok, m_c.gt_idx, -1)[-1].tolist()} -> "
           f"{'same' if same else 'DIFFERENT'} over all "
           f"{m_c.gt_idx.shape[0]} layers")
-    check(same, "card and CPU matchers disagree")
+    check(same, f"{tag}card and CPU matchers disagree")
     e = abs(t_g - t_c) / abs(t_c)
-    print(f"train loss card {t_g:.7f} vs CPU {t_c:.7f}: rel err {e:.2e} "
+    print(f"{tag}train loss card {t_g:.7f} vs CPU {t_c:.7f}: rel err {e:.2e} "
           f"(tol {TRAIN_LOSS_TOL:.0e}); losses {l_g}")
-    check(e <= TRAIN_LOSS_TOL, "card and CPU train losses disagree")
+    check(e <= TRAIN_LOSS_TOL, f"{tag}card and CPU train losses disagree")
     floor = TRAIN_GRAD_FLOOR * max(g.abs().max().item() for g in g_c.values())
     worst, worst_k = 0.0, None
     for k, gc in g_c.items():
@@ -881,11 +997,11 @@ def phase_train_card_vs_cpu(dev):
         check(bool(torch.isfinite(gg).all()), f"card gradient of {k} not finite")
         lim = TRAIN_GRAD_TOL * gc.abs().max().item() + floor
         err = (gg - gc).abs().max().item()
-        check(err <= lim, f"card and CPU gradients of {k} disagree: "
+        check(err <= lim, f"{tag}card and CPU gradients of {k} disagree: "
                           f"max|err| {err:.3e} > {lim:.3e}")
         if err / lim > worst:
             worst, worst_k = err / lim, k
-    print(f"gradients of all {len(g_c)} parameter tensors agree (tol "
+    print(f"{tag}gradients of all {len(g_c)} parameter tensors agree (tol "
           f"{TRAIN_GRAD_TOL:.0e} x max|grad| + {TRAIN_GRAD_FLOOR:.0e} x the "
           f"model's max|grad|); closest to its limit: {worst_k} at "
           f"{worst:.1%} of it")
@@ -1392,26 +1508,246 @@ def phase_native_kernels(dev, bw, peak):
     return entries
 
 
-def phase_native_path(dev, counters, window: str):
-    """``AVA22_ViT-B_fast_native`` (``window`` "2d" as written, or its
-    "3d" variant) at full width in bf16: 3 requests, 24 launches per
-    forward of K10 (2d) or K11 (3d) and of no other kernel, timings."""
+# K6 (serving K7), K8 and K9 at the 3d resample window's shapes: the four
+# query grids of one encoder layer, each over the four aligned levels and
+# all 8 backbone frames; K6 at the eval batch B=2, K8 / K9 at the train
+# batch B=1.  K7's regime: a 128x160 grid at T=8, past K6's VMEM estimate
+# on the TPU (``v2_vmem_mb``), where the JAX package takes K7.
+B3_T = 8
+B3_K7_GRID = (128, 160)
+# K6: both sides sum the same values in float32, in bf16 too (the masses
+# are not rounded to bf16), so only the order differs; K8 / K9 write bf16
+# after sums in another order (one bf16 ulp, 2^-8)
+B3_TOL = {"K6": {torch.float32: 1e-5, torch.bfloat16: 1e-5},
+          "K8": BLEND_TOL, "K9": BLEND_TOL}
+
+
+def v2_vmem_mb(t, h, w, c, kp, vol_bytes=2, comp_bytes=2):
+    """The JAX package's ``_v2_vmem_mb`` (fast_deform_pallas.py:140): K6's
+    double-buffered VMEM working set per batch element on the TPU, in MB;
+    past 96 MB its ``_blend`` takes K7."""
+    vp = 3 * (h + 2) * (w + 2) * c * vol_bytes
+    comps = 4 * h * w * kp * comp_bytes
+    out = h * w * c * 4
+    return (2 * (vp + comps) + 2 * out) / 2 ** 20
+
+
+def blend3d_work(kernel: str, vol, comps, nh: int = 8):
+    """(bytes, operations) one launch of K6, K8 or K9 must spend on these
+    inputs: each input read once, each output written once (K6 writes a
+    float32 output, K8 dvol like vol, K9 four arrays like the components,
+    K8 / K9 read a float32 G); per (query, level, head) tap that is in
+    range and live in that head, C/nh multiply-adds (K6: the blend; K8:
+    its transpose; K9: the per-head dot), a tap being live where a point of
+    the head gives it mass (K6, K8) or where a point's hat or hat' there is
+    non-zero (K9); per (query, level, point) ~93 operations for the hats
+    and the 27 tap masses (K6, K8) or ~250 for the hats, hat's and the four
+    gradients over 27 taps (K9).  The taps are counted from this run's
+    data."""
+    from class_query_vad_tpu_torch.ops.blend2d import hat
+
+    dx, dy, dt, a = comps
+    b, jl, t, h, w, kp = dx.shape
+    dev = dx.device
+    s3 = torch.arange(-1, 2, device=dev, dtype=torch.float32)
+    pos = [torch.arange(n, device=dev)[:, None] + s3.long() for n in (t, h, w)]
+    ok_t, ok_y, ok_x = ((p >= 0) & (p < n) for p, n in zip(pos, (t, h, w)))
+    in_range = (ok_t[:, None, None, :, None, None]
+                & ok_y[None, :, None, None, :, None]
+                & ok_x[None, None, :, None, None, :]).reshape(t, h, w, 27)
+    live = 0
+    for j in range(jl):
+        def axis(u):
+            d = u[:, j].float()[..., None] - s3             # [.., kp, 3]
+            return hat(d) if kernel != "K9" else (d.abs() <= 1).float()
+        ht, hy, hx = axis(dt), axis(dy), axis(dx)
+        m = (a[:, j].float()[..., None, None, None] * ht[..., :, None, None]
+             * hy[..., None, :, None] * hx[..., None, None, :])
+        head = m.reshape(b, t, h, w, nh, kp // nh, 27).sum(5) != 0
+        live += int((head & in_range[None, :, :, :, None, :]).sum())
+    points = b * jl * t * h * w * kp
+    g32 = b * t * h * w * K1_C * 4
+    vbytes = vol.numel() * vol.element_size()
+    cbytes = sum(x.numel() * x.element_size() for x in comps)
+    nbytes = {"K6": vbytes + cbytes + g32,        # out is float32 like G
+              "K8": g32 + cbytes + vbytes,
+              "K9": g32 + vbytes + cbytes + cbytes}[kernel]
+    ops = live * (K1_C // nh) * 2 + points * (250 if kernel == "K9" else 93)
+    return nbytes, ops
+
+
+def phase_blend3d_kernels(dev, bw, peak):
+    """K6 (at the main path's four query grids and in K7's regime), K8 and
+    K9 against their plain versions, offsets on exact ties included; per
+    layer times (bf16) beside the bound, the plain version and the
+    grid_sample composition (its autograd for K8 / K9)."""
+    from class_query_vad_tpu_torch.ops.blend3d import (
+        blend3d_bwd_dcomps,
+        blend3d_bwd_dcomps_reference,
+        blend3d_bwd_dvol,
+        blend3d_bwd_dvol_reference,
+        blend3d_fwd,
+        blend3d_reference,
+    )
+
+    mb = v2_vmem_mb(B3_T, *B3_K7_GRID, K1_C, K1_KP)
+    check(mb > 96.0, f"{B3_K7_GRID} is not in K7's regime ({mb:.1f} MB)")
+    rng = np.random.default_rng(15)
+    keys = ("K6", "K8", "K9", "K7 regime")
+    err = {k: 0.0 for k in keys}
+    num = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+               "bound_by": {"bytes": 0.0, "operations": 0.0}} for k in keys}
+    cases = [("K6", 2, hw) for hw in K1_LEVELS]
+    cases += [("K8/K9", TRAIN_B, hw) for hw in K1_LEVELS]
+    cases.append(("K7 regime", 1, B3_K7_GRID))
+    for dtype in (torch.float32, torch.bfloat16):
+        for which, b, (h, w) in cases:
+            (vol, dx, dy, dt, a), g = blend_inputs(rng, b, h, w, dtype, dev,
+                                                   nc=3, t=B3_T)
+            comps = (dx, dy, dt, a)
+            calls = {}
+            if which != "K8/K9":
+                calls[which] = (lambda: blend3d_fwd(vol, *comps, 8),
+                                lambda: blend3d_reference(vol, *comps, 8))
+            else:
+                calls["K8"] = (
+                    lambda: blend3d_bwd_dvol(*comps, g, dtype, 8),
+                    lambda: blend3d_bwd_dvol_reference(*comps, g, dtype, 8))
+                calls["K9"] = (
+                    lambda: blend3d_bwd_dcomps(vol, *comps, g, 8),
+                    lambda: blend3d_bwd_dcomps_reference(vol, *comps, g, 8))
+            timed = dtype == torch.bfloat16
+            if timed:
+                # the grid_sample composition (K6) and its autograd with
+                # respect to vol (K8) or the components (K9); the forward
+                # and d vol checked against the plain versions
+                fwd_lib = lambda: blend_grid_sample(vol, dx, dy, a, 8, dt)
+                leaves = (vol, dx, dy, a, dt)
+                fn = lambda v, x, y, aa, tt: blend_grid_sample(v, x, y, aa, 8,
+                                                               tt)
+                library = {"K6": fwd_lib, "K7 regime": fwd_lib,
+                           "K8": library_grad(fn, leaves, (0,), g),
+                           "K9": library_grad(fn, leaves, (1, 2, 3, 4), g)}
+            for k, (kern, plain) in calls.items():
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                if k != "K9":
+                    got, want = (got,), (want,)
+                for x, y in zip(got, want):
+                    check(x.shape == y.shape and x.dtype == y.dtype
+                          and bool(torch.isfinite(x).all()),
+                          f"{k} output {tuple(x.shape)} {x.dtype} not finite "
+                          f"or misshaped")
+                e = max(rel_err(x, y)[1] for x, y in zip(got, want))
+                tol = B3_TOL.get(k, B3_TOL["K6"])[dtype]
+                ok = e <= tol
+                what = (f"{k} {str(dtype)[6:]:8s} B={b} T={B3_T} "
+                        f"{h:3d}x{w:<3d}")
+                print(f"{what}: max|err| = {e:.2e} x max|ref| (tol {tol:.0e}) "
+                      f"{'ok' if ok else 'FAIL'}")
+                check(ok, f"{k} disagrees with its plain version: {what}")
+                err[k] = max(err[k], max(rel_err(x, y)[0]
+                                         for x, y in zip(got, want)))
+                if not timed:
+                    continue
+                if k in ("K6", "K7 regime"):
+                    rel_lib = check_library(library[k](), want[0], k)
+                elif k == "K8":
+                    rel_lib = rel_err(library[k]()[0], want[0])[1]
+                    check(rel_lib <= BLEND_TOL[dtype], f"the grid_sample "
+                          f"composition's d vol disagrees with K8's plain "
+                          f"version: {rel_lib:.2e}")
+                else:
+                    rel_lib = None      # grid_sample's subgradients at ties
+                t_k = kernel_device_ms(kern)
+                t_p = cuda_ms(plain, 2, 1)
+                t_l = cuda_ms(library[k], 3, 1)
+                nbytes, ops = blend3d_work("K6" if k == "K7 regime" else k,
+                                           vol, comps)
+                t_b = max(nbytes / bw, ops / peak) * 1e3
+                n = num[k]
+                n["bound_by"]["bytes" if nbytes / bw >= ops / peak
+                              else "operations"] += t_b
+                for key, x in (("ms", t_k), ("plain_ms", t_p),
+                               ("bound_ms", t_b), ("library_ms", t_l)):
+                    n[key] += x
+                print(f"{k} bf16     B={b} T={B3_T} {h:3d}x{w:<3d}: kernel "
+                      f"{t_k:.4f} ms (device, queued), plain {t_p:.3f} ms, "
+                      f"grid_sample composition {t_l:.3f} ms ("
+                      + (f"vs the plain version {rel_lib:.1e}"
+                         if rel_lib is not None else "not compared: its "
+                         "subgradients at the ties are not XLA's")
+                      + f"), bound {t_b:.4f} ms "
+                      f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP) -> "
+                      f"{nbytes / t_k / 1e6:.0f} GB/s, {t_b / t_k:.1%} of "
+                      f"the bound's speed")
+            del vol, dx, dy, dt, a, g, comps, calls
+            if timed:
+                del library, fwd_lib, leaves
+            torch.cuda.empty_cache()
+    k7 = num["K7 regime"]
+    print(f"K7's regime ({B3_K7_GRID[0]}x{B3_K7_GRID[1]}, T={B3_T}, bf16: "
+          f"{v2_vmem_mb(B3_T, *B3_K7_GRID, K1_C, K1_KP):.1f} MB of VMEM for "
+          f"the TPU's K6 > 96 MB; at 64x80 "
+          f"{v2_vmem_mb(B3_T, 64, 80, K1_C, K1_KP):.1f} MB) through "
+          f"csrc/blend3d.cu: kernel {k7['ms']:.4f} ms, plain "
+          f"{k7['plain_ms']:.3f} ms, grid_sample composition "
+          f"{k7['library_ms']:.3f} ms, bound {k7['bound_ms']:.4f} ms")
+    names = {"K6": ("blend3d_fwd", "blend3d.cu", 96, 2),
+             "K8": ("blend3d_bwd_dvol", "blend3d_bwd_dvol.cu", 1118, TRAIN_B),
+             "K9": ("blend3d_bwd_dcomps", "blend3d_bwd_dcomps.cu", 1053,
+                    TRAIN_B)}
+    entries = []
+    for k, (name, src, line, b) in names.items():
+        n = num[k]
+        print(f"{k} per encoder layer (4 launches, bf16, B={b}, T={B3_T}): "
+              f"kernel {n['ms']:.4f} ms, plain {n['plain_ms']:.3f} ms, "
+              f"grid_sample composition {n['library_ms']:.3f} ms, bound "
+              f"{n['bound_ms']:.4f} ms ({n['bound_ms'] / n['ms']:.1%} of the "
+              f"bound's speed)")
+        entry = {
+            "name": name, "route": "cuda",
+            "source": f"class_query_vad_tpu_torch/csrc/{src}",
+            "replaces": f"class_query_vad_tpu/ops/fast_deform_pallas.py:{line}",
+            "launches": None, "max_abs_err": err[k], "ms": n["ms"],
+            "plain_ms": n["plain_ms"], "bound_ms": n["bound_ms"],
+            "bound_by": max(n["bound_by"], key=n["bound_by"].get),
+            "library_ms": n["library_ms"],
+        }
+        if k == "K6":
+            # the same kernel in K7's regime (the JAX package's
+            # fast_deform_pallas.py:54, past K6's VMEM estimate)
+            entry.update({
+                "k7_replaces": "class_query_vad_tpu/ops/fast_deform_pallas.py:54",
+                "k7_grid": list(B3_K7_GRID), "k7_max_abs_err": err["K7 regime"],
+                "k7_ms": k7["ms"], "k7_plain_ms": k7["plain_ms"],
+                "k7_bound_ms": k7["bound_ms"],
+                "k7_bound_by": max(k7["bound_by"], key=k7["bound_by"].get),
+                "k7_library_ms": k7["library_ms"]})
+        entries.append(entry)
+    return entries
+
+
+def phase_eval_variant(dev, counters, config: str, window: str, kernel: str,
+                       tag: str, seeds):
+    """``config`` with ``FAST_WINDOW: window`` at full width in bf16, with
+    random offset / weight kernels (every query samples its own window):
+    3 requests, 24 launches per forward of ``kernel`` and of no other
+    kernel, timings, stage events and the card's busy share."""
     from class_query_vad_tpu_torch.config import get_cfg_custom
     from class_query_vad_tpu_torch.models import build_model
     from class_query_vad_tpu_torch.models.detr import randomize_constants
 
-    kernel = "native_blend2d" if window == "2d" else "native_blend3d"
-    tag = f"native-{window}"
-    cfg = get_cfg_custom(NATIVE_CONFIG, ["CONFIG.MODEL.FAST_WINDOW", window])
+    cfg = get_cfg_custom(config, ["CONFIG.MODEL.FAST_WINDOW", window])
     model = build_model(cfg, dtype=torch.bfloat16)
-    # random offset / weight kernels: every query samples its own window
     randomize_constants(model, torch.Generator().manual_seed(14))
     attn = model.transformer.encoder.layers[0].self_attn
-    print(f"--- {tag}: cross level {cfg.CONFIG.MODEL.FAST_CROSS_LEVEL}, "
+    print(f"--- {tag}: {os.path.basename(config)}, cross level "
+          f"{cfg.CONFIG.MODEL.FAST_CROSS_LEVEL}, "
           f"window {window}, {attn.nc} offset components, fused K1 route "
           f"{attn.fused_route}, centre-frame slice "
           f"{'on' if window == '2d' else 'off'}")
-    requests = [make_request(seed) for seed in (21, 22, 23)]
+    requests = [make_request(seed) for seed in seeds]
     for c in counters:
         c.launches = 0
     for i, (pixels, mask) in enumerate(requests):
@@ -1442,7 +1778,7 @@ def phase_native_path(dev, counters, window: str):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     med = statistics.median(times)
-    print(f"full-width eval {tag} ({os.path.basename(NATIVE_CONFIG)}, "
+    print(f"full-width eval {tag} ({os.path.basename(config)}, "
           f"FAST_WINDOW {window}), B=2 bf16, forward + postprocess, "
           f"host->device copy included: median {med:.2f} ms/batch "
           f"({2e3 / med:.2f} clips/s) over {len(times)} iterations; min "
@@ -1460,6 +1796,10 @@ def phase_native_path(dev, counters, window: str):
 NATIVE_3D_CPU_LAYERS = 2
 
 
+# the 3d resample window's train path: 1 + 4 steps
+RESAMPLE_3D_TRAIN_STEPS = 5
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1471,6 +1811,11 @@ def main() -> int:
         blend2d_bwd_dcomps,
         blend2d_bwd_dvol,
     )
+    from class_query_vad_tpu_torch.ops.blend3d import (
+        blend3d_bwd_dcomps,
+        blend3d_bwd_dvol,
+        blend3d_fwd,
+    )
     from class_query_vad_tpu_torch.ops.fast_deform_cuda import fused_blend2d
     from class_query_vad_tpu_torch.ops.native_blend import (
         native_blend2d,
@@ -1479,7 +1824,8 @@ def main() -> int:
     from class_query_vad_tpu_torch.ops.selective_scan import selective_scan
 
     counters = [fused_blend2d, blend2d, blend2d_bwd_dvol, blend2d_bwd_dcomps,
-                selective_scan, native_blend2d, native_blend3d]
+                selective_scan, native_blend2d, native_blend3d, blend3d_fwd,
+                blend3d_bwd_dvol, blend3d_bwd_dcomps]
     dev = torch.device("cuda", 0)
     card = card_info()
     name = torch.cuda.get_device_name(0)
@@ -1517,9 +1863,13 @@ def main() -> int:
     kernels[-1]["launches"] = vss["selective_scan"]
     phase_vss_card_vs_cpu(dev)
     native = phase_native_kernels(dev, bw, peak)
-    n2d = phase_native_path(dev, counters, "2d")
+    # AVA22_ViT-B_fast_native as written (2d window: K10), then its 3d
+    # variant (K11)
+    n2d = phase_eval_variant(dev, counters, NATIVE_CONFIG, "2d",
+                             "native_blend2d", "native-2d", (21, 22, 23))
     phase_in_model(dev, NATIVE_CONFIG, tag="native-2d ")
-    n3d = phase_native_path(dev, counters, "3d")
+    n3d = phase_eval_variant(dev, counters, NATIVE_CONFIG, "3d",
+                             "native_blend3d", "native-3d", (21, 22, 23))
     cpu_s = phase_in_model(
         dev, NATIVE_CONFIG, ["CONFIG.MODEL.FAST_WINDOW", "3d",
                              "CONFIG.MODEL.ENC_LAYERS", NATIVE_3D_CPU_LAYERS],
@@ -1530,6 +1880,22 @@ def main() -> int:
     native[0]["launches"] = n2d["native_blend2d"]
     native[1]["launches"] = n3d["native_blend3d"]
     kernels += native
+    # the 3d resample window: K6 (serving K7), K8, K9
+    blend3d = phase_blend3d_kernels(dev, bw, peak)
+    phase_eval_variant(dev, counters, CONFIG, "3d", "blend3d_fwd",
+                       "resample-3d", (31, 32, 33))
+    # card vs CPU at the YAML's full depth (6 encoder layers)
+    phase_in_model(dev, CONFIG, ["CONFIG.MODEL.FAST_WINDOW", "3d"],
+                   tag="resample-3d ")
+    t3d = phase_train(dev, counters, "3d", RESAMPLE_3D_TRAIN_STEPS,
+                      "resample-3d ")
+    for k in blend3d:
+        k["launches"] = t3d[k["name"]]
+    phase_train_card_vs_cpu(
+        dev, ["CONFIG.MODEL.FAST_WINDOW", "3d"], "resample-3d ", counters,
+        {**{c.__name__: 0 for c in counters},
+         **{k: 24 for k in TRAIN_KERNELS["3d"]}})
+    kernels += blend3d
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -10,21 +10,23 @@
   one K1 launch per query grid (``ops.fast_deform_cuda.fused_blend2d``)
   computes the tanh offsets, the per-head softmax and the 9-tap blend over
   all levels;
-* components, resample (2d window, any other shape; :196-263 with
-  ``dt=None``): tanh and the softmax in torch (``fused_components``, K1's
-  plain front end), the per-level dx, dy, a stacks, and the blend of the
-  aligned levels through K2 (``ops.blend2d.blend2d``);
+* components, resample (the 2d window at any other shape, and the 3d
+  window, which never takes the fused route; :196-263): tanh and the
+  softmax in torch (``fused_components``, K1's plain front end), the
+  per-level dx, dy, (dt,) a stacks, and the blend of the aligned levels
+  through K2 (2d, ``ops.blend2d.blend2d``) or K6 (3d, 27 taps,
+  ``ops.blend3d.blend3d``, which also serves the JAX package's K7);
 * native (``FAST_CROSS_LEVEL: native``, 2d or 3d window; :196-257): the
   same components (dx, dy, dt, a with the 3d window), no alignment, and
   one launch per query grid of K10 (2d) or K11 (3d) over every level at
   its own resolution (``ops.native_blend.native_blend``).
 
-All are differentiable: the resample routes' backward runs K3 and K4, the
-native route's is the VJP of its plain version, as in the JAX package.
-Not ported yet, and raising ``NotImplementedError``: the resample mode
-with the 3d window (K6-K9, ROADMAP.md Queue 1 step 16b) and with radius
-> 1 (step 16c).  As in JAX, the native mode raises ``ValueError`` for
-radius != 1 and for levels of unequal T.
+All are differentiable: the resample routes' backward runs K3 and K4 (2d)
+or K8 and K9 (3d), the native route's is the VJP of its plain version, as
+in the JAX package.  Not ported yet, and raising ``NotImplementedError``:
+the resample mode with radius > 1 (ROADMAP.md Queue 1 step 16c).  As in
+JAX, the native mode raises ``ValueError`` for radius != 1 and for levels
+of unequal T.
 
 The encoder carries ONE flattened token stream [B, sum(t*h*w), C] across
 layers; post-norm residual layers as in the reference's deformable
@@ -48,6 +50,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.blend2d import blend2d
+from ..ops.blend3d import blend3d
 from ..ops.fast_deform import align_all_levels
 from ..ops.fast_deform_cuda import fused_blend2d, fused_components
 from ..ops.native_blend import native_blend
@@ -82,10 +85,6 @@ class FastDeformAttn3D(nn.Module):
         self.native = cross_level == "native"
         if self.native and radius != 1:
             raise ValueError("cross_level='native' supports radius=1 only")
-        if not self.native and window == "3d":
-            raise NotImplementedError(
-                "FAST_WINDOW: 3d with FAST_CROSS_LEVEL: resample is not "
-                "ported yet (ROADMAP.md Queue 1 step 16b: K6-K9)")
         if radius != 1:
             raise NotImplementedError(
                 "FAST_RADIUS other than 1 is not ported yet (ROADMAP.md "
@@ -156,8 +155,8 @@ class FastDeformAttn3D(nn.Module):
             if self.fused_route:
                 out = fused_blend2d(vol, lanes, nh, float(self.radius))
             else:
-                comps = fused_components(lanes, nl, nh, float(self.radius))
-                out = blend2d(vol, *comps, nh)
+                comps = fused_components(lanes, nl, nh, float(self.radius), nc)
+                out = (blend3d if nc == 3 else blend2d)(vol, *comps, nh)
             outs.append(out.to(dt).reshape(b, t * h * w, self.d_model))
         return self.output_proj(torch.cat(outs, dim=1))
 

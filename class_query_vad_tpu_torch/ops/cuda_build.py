@@ -48,6 +48,21 @@ KERNELS = {
         "blend2d_bwd_dcomps.cu", "blend2d_bwd_dcomps_launch",
         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     ),
+    # vol, dx, dy, dt, a, out, ints
+    "blend3d": (
+        "blend3d.cu", "blend3d_launch",
+        [_P] * 6 + [_I] * 7 + [_P],
+    ),
+    # dx, dy, dt, a, g, dvol, ints
+    "blend3d_bwd_dvol": (
+        "blend3d_bwd_dvol.cu", "blend3d_bwd_dvol_launch",
+        [_P] * 6 + [_I] * 7 + [_P],
+    ),
+    # vol, dx, dy, dt, a, g, ddx, ddy, ddt, da, ints
+    "blend3d_bwd_dcomps": (
+        "blend3d_bwd_dcomps.cu", "blend3d_bwd_dcomps_launch",
+        [_P] * 10 + [_I] * 7 + [_P],
+    ),
     "selective_scan": (
         "selective_scan.cu", "selective_scan_launch",
         [_P] * 10 + [_I] * 7 + [_P],

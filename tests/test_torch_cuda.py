@@ -23,6 +23,14 @@ from class_query_vad_tpu_torch.ops.blend2d import (
     blend2d_bwd_dvol,
     blend2d_reference,
 )
+from class_query_vad_tpu_torch.ops.blend3d import (
+    blend3d,
+    blend3d_backward_reference,
+    blend3d_bwd_dcomps,
+    blend3d_bwd_dvol,
+    blend3d_fwd,
+    blend3d_reference,
+)
 from class_query_vad_tpu_torch.ops.fast_deform_cuda import (
     fused_blend2d,
     fused_blend2d_reference,
@@ -438,6 +446,136 @@ def test_tiny_native_model_card_matches_cpu(card, window):
         out_c = m_cpu(pixels, mask)
     assert (counter.launches, fused_blend2d.launches) == (
         before[0] + 2 * 4, before[1])                      # layers x grids
+    for k in ("pred_logits", "pred_boxes", "pred_logits_b"):
+        g, r = out_g[k].cpu(), out_c[k]
+        assert (g - r).abs().max().item() <= 1e-4 * max(1.0, r.abs().max().item()), k
+
+
+def _comps3d(card, dtype, b, jl, thw, points, seed, ties=False):
+    """vol, dx, dy, dt, a and a float32 cotangent; with ``ties`` a third of
+    the offsets exactly on -1, 0 or 1."""
+    tt, h, w = thw
+    g = torch.Generator().manual_seed(seed)
+    shape = (b, jl, tt, h, w, 8 * points)
+    vol = torch.randn((b, jl, tt, h, w, 256), generator=g)
+    offs = []
+    for _ in range(3):
+        x = torch.rand(shape, generator=g) * 2 - 1
+        if ties:
+            pick = torch.rand(shape, generator=g) < 1 / 3
+            x[pick] = torch.randint(-1, 2, shape, generator=g).float()[pick]
+        offs.append(x)
+    a = torch.rand(shape, generator=g) * 0.3
+    grad = torch.randn((b, tt, h, w, 256), generator=g)
+    return ([x.to(card, dtype) for x in (vol, *offs, a)], grad.to(card))
+
+
+# K6 (which serves K7), K8, K9.  K6: both sides sum the same values in
+# float32, in bf16 too (no rounding of the masses), so only the order
+# differs; K8/K9's bf16 outputs are rounded to bf16 after sums in another
+# order (one ulp, 2^-8).  The 128x160 grid at T=8 is K7's regime in the
+# JAX package (`_v2_vmem_mb` ~128 MB > 96 MB in bf16).
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("b,jl,thw,points,ties", [
+    (2, 4, (3, 7, 9), 8, False), (2, 4, (3, 7, 9), 8, True),
+    (1, 2, (8, 16, 20), 8, True), (2, 3, (1, 1, 5), 4, False),
+    (1, 1, (8, 128, 160), 8, True)],
+    ids=["7x9", "7x9-ties", "16x20-ties", "1x5-T1", "k7-regime"])
+def test_blend3d_kernels_match_plain(card, dtype, tol, b, jl, thw, points,
+                                     ties):
+    (vol, dx, dy, dt, a), g = _comps3d(card, dtype, b, jl, thw, points, 8,
+                                       ties)
+    counters = (blend3d_fwd, blend3d_bwd_dvol, blend3d_bwd_dcomps)
+    before = [c.launches for c in counters]
+    out = blend3d_fwd(vol, dx, dy, dt, a, 8)
+    dvol = blend3d_bwd_dvol(dx, dy, dt, a, g, vol.dtype, 8)
+    grads = blend3d_bwd_dcomps(vol, dx, dy, dt, a, g, 8)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == [x + 1 for x in before]
+    assert out.dtype == torch.float32
+    _close(out, blend3d_reference(vol, dx, dy, dt, a, 8), 1e-5, "K6")
+    want = blend3d_backward_reference(vol, dx, dy, dt, a, g, 8)
+    for name, got, w in zip(("K8 dvol", "K9 ddx", "K9 ddy", "K9 ddt",
+                             "K9 da"), (dvol, *grads), want):
+        assert got.dtype == dtype, name
+        _close(got, w, tol, name)
+
+
+@pytest.mark.cuda
+def test_blend3d_autograd_on_the_card(card):
+    """blend3d's forward runs K6, its backward K8 and K9, and only what
+    autograd needs; the gradients equal the plain backward's."""
+    (vol, dx, dy, dt, a), g = _comps3d(card, torch.float32, 1, 4, (2, 8, 10),
+                                       8, 9, ties=True)
+    counters = (blend3d_fwd, blend3d_bwd_dvol, blend3d_bwd_dcomps)
+    xs = [x.clone().requires_grad_() for x in (vol, dx, dy, dt, a)]
+    before = [c.launches for c in counters]
+    blend3d(*xs, 8).backward(g)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == [x + 1 for x in before]
+    want = blend3d_backward_reference(vol, dx, dy, dt, a, g, 8)
+    for x, w in zip(xs, want):
+        _close(x.grad, w, 1e-5, "blend3d gradient")
+    v = vol.clone().requires_grad_()
+    before = [c.launches for c in counters]
+    blend3d(v, dx, dy, dt, a, 8).backward(g)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == [before[0] + 1, before[1] + 1,
+                                              before[2]]
+
+
+@pytest.mark.cuda
+def test_blend3d_kernels_reject_what_they_do_not_take(card):
+    """nh != 8, C != 256, J > 4, mixed dtypes or devices: a raise, and no
+    launch counted."""
+    (vol, dx, dy, dt, a), g = _comps3d(card, torch.float32, 1, 2, (1, 4, 5),
+                                       8, 10)
+    counters = (blend3d_fwd, blend3d_bwd_dvol, blend3d_bwd_dcomps)
+    before = [c.launches for c in counters]
+    with pytest.raises(ValueError):                     # nh = 4
+        blend3d_fwd(vol, dx, dy, dt, a, 4)
+    with pytest.raises(ValueError):                     # C = 128
+        blend3d_fwd(vol[..., :128].contiguous(), dx, dy, dt, a, 8)
+    five = [torch.cat([x] * 3, dim=1) for x in (vol, dx, dy, dt, a)]
+    with pytest.raises(ValueError):                     # J = 6
+        blend3d_fwd(*five, 8)
+    with pytest.raises(ValueError):                     # mixed dtypes
+        blend3d_bwd_dcomps(vol.bfloat16(), dx, dy, dt, a, g, 8)
+    with pytest.raises(ValueError):                     # dvol dtype
+        blend3d_bwd_dvol(dx, dy, dt, a, g, torch.bfloat16, 8)
+    with pytest.raises(ValueError):                     # one CPU tensor
+        blend3d_fwd(vol, dx, dy, dt.cpu(), a, 8)
+    assert [c.launches for c in counters] == before
+
+
+@pytest.mark.cuda
+def test_tiny_resample3d_model_card_matches_cpu(card):
+    """A tiny float32 model with the 3d resample window on the card (K6)
+    and on the CPU (plain version), same seeded weights and input."""
+    cfg = get_cfg_defaults()
+    c = cfg.CONFIG
+    c.DATA.NUM_CLASSES, c.DATA.TEMP_LEN, c.MODEL.TEMP_LEN = 12, 8, 8
+    c.MODEL.SINGLE_FRAME = True
+    c.MODEL.ENCODER_TYPE, c.MODEL.FAST_WINDOW = "fast_attention", "3d"
+    c.MODEL.FAST_CROSS_LEVEL = "resample"
+    c.MODEL.ENC_LAYERS, c.MODEL.DEC_LAYERS = 2, 1
+    c.MODEL.DIM_FEEDFORWARD, c.MODEL.QUERY_NUM, c.ViT.DEPTH = 64, 4, 1
+    m_cpu = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
+    randomize_constants(m_cpu, torch.Generator().manual_seed(2))
+    m_gpu = build_model(cfg, device=card)
+    m_gpu.load_state_dict(m_cpu.state_dict(), strict=True)
+    rng = np.random.default_rng(0)
+    pixels = torch.from_numpy(rng.standard_normal((2, 8, 64, 64, 3), np.float32))
+    mask = torch.zeros((2, 64, 64), dtype=torch.bool)
+    mask[1, :, 48:] = True
+    before = (blend3d_fwd.launches, fused_blend2d.launches, blend2d.launches)
+    with torch.inference_mode():
+        out_g = m_gpu(pixels.to(card), mask.to(card))
+        out_c = m_cpu(pixels, mask)
+    assert (blend3d_fwd.launches, fused_blend2d.launches,
+            blend2d.launches) == (before[0] + 2 * 4, before[1], before[2])
     for k in ("pred_logits", "pred_boxes", "pred_logits_b"):
         g, r = out_g[k].cpu(), out_c[k]
         assert (g - r).abs().max().item() <= 1e-4 * max(1.0, r.abs().max().item()), k

@@ -203,8 +203,10 @@ def test_randomize_constants_gives_nonzero_class_logits():
 
 
 def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FastDeformAttn3D(window="3d", cross_level="resample")
+    # the 3d resample window is ported (K6-K9): it builds, with three
+    # offset components and not on the fused K1 route
+    attn = FastDeformAttn3D(window="3d", cross_level="resample")
+    assert attn.nc == 3 and not attn.fused_route and not attn.native
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         FastDeformAttn3D(radius=2, window="2d", cross_level="resample")
     cfg = _tiny_cfg()
