@@ -5,7 +5,7 @@ NVIDIA card.
     python3 chip_smoke.py            # needs one CUDA card and nvcc
 
 1. Device and build: the card's name and power limit (nvidia-smi), TF32
-   off for the parity phases, every CUDA kernel (K1-K6, K8-K11) built from
+   off for the parity phases, every CUDA kernel (K1-K6, K8-K13) built from
    ``csrc/`` (one nvcc per source, started together) with ptxas's register
    report; K10 and K11 share one source, and K6's serves K7.
 2. Kernels against their plain PyTorch versions on the card, at the main
@@ -39,7 +39,10 @@ NVIDIA card.
    K2, K3 and K4 per step.
 6. One float32 train step of the full-width model on the card and on the
    CPU, same weights and batch, dropout off: the same matcher assignment,
-   the loss and every parameter's gradient agree.
+   the loss and every parameter's gradient agree.  Both forwards run
+   first; the few activations that the two put on two sides of a kink (a
+   ReLU's 0, a max pool's argmax, a blend tap's hat) get their gradient
+   zeroed on both sides, their share bounded (``KinkSides``).
 7. K5 (the selective scan) against its plain version on the card at the
    VSS path's shapes, with their real strides (the backbone's [B=2,
    KD=384, L=5121, N=16] in bf16 with a float32 delta and all float32; the
@@ -82,13 +85,42 @@ NVIDIA card.
    width in bf16 serves 3 requests: 24 K6 launches per forward and no K1
    or K2; median ms/batch, peak memory, stage events, busy share.
 16. The same 3d model in float32 on the card (K6) and on the CPU (plain
-   version), B=1, at full depth: all three heads must agree.
+   version), B=1, at the YAML's 6 encoder layers: all three heads must
+   agree.
 17. Its train path: 1 + 4 full-width bf16 B=1 steps through ``Trainer``,
    24 launches each of K6, K8 and K9 per step and of no other kernel;
    median ms/step, peak memory, stage shares, busy share.
-18. One float32 train step of the full-width 3d model on the card (24
-   launches each of K6, K8, K9) and on the CPU: the same assignment, loss
-   and gradients, as in phase 6.
+18. One float32 train step of the 3d model on the card and on the CPU, at
+   the YAML's 6 encoder layers (24 launches each of K6, K8, K9): the same
+   assignment, loss and gradients, as in phase 6.
+19. K12 (the ViT's softmax attention from fused qkv) against its plain
+   version at one ViT-B block of the main path (B=2, N=2560, 12 x 64) and
+   an awkward shape (B=1, N=1001), float32 and bf16; device time beside the
+   bound, the plain version and ``F.scaled_dot_product_attention``; one
+   backward through ``flash_attention_qkv`` at B=1.
+20. K13 (the fused FFN) against its plain version at the encoder FFN's
+   shapes under the 2d and 3d windows (27,200 and 108,800 tokens, 256 ->
+   2048, relu) and the ViT MLP's (5,120 tokens, 768 -> 3072, exact GELU)
+   and at an awkward token count, each with all three activations, float32
+   and bf16; device times beside the bound, the plain version and the
+   ``F.linear`` composition.
+21. K12 and K13 on a full-width ``AVA22_ViT-B_fast`` model's own tensors
+   (one request): ViT block 0's qkv against that block's attention module,
+   encoder layer 0's FFN tokens against its ``linear2(relu(linear1(x)))``,
+   in bf16 and float32.
+22. K12's entry point, ``scripts/bench_vit_attn.py``'s ``main``, once.
+   K12 and K13 lie on no model path (as in the JAX package): every model
+   phase above checks that they launch 0 times.
+23. ``AVA22_ViT-B_fast`` with ``FAST_RADIUS 2`` (the general-radius blend,
+   plain PyTorch) in the 2d and the 3d window: one timed bf16 request at
+   full width with no kernel launched, then float32 card vs CPU (at 2 of
+   the 6 encoder layers in the 2d window, 1 in the 3d).
+24. ``AVA22_ViT-B_fast_native`` trains: 1 + 4 full-width bf16 B=1 steps
+   through ``Trainer`` in the 2d and the 3d window (24 K10 or K11 launches
+   per step and no other kernel: the backward is the plain version's
+   VJP), ms/step, peak memory, stage shares (no profiled step: its trace
+   takes minutes); then one float32 native-2d train step card vs CPU at
+   cut depth (``NATIVE_TRAIN_CPU_LAYERS``).
 
 Every phase raises on failure (exit code != 0).  The last two lines are a
 JSON object of per-kernel numbers and ``{"ok": true, "device": ...}``.
@@ -113,14 +145,16 @@ VSS_CONFIG = os.path.join(REPO, "configuration", "AVA22_train-mamba_VSS.yaml")
 NATIVE_CONFIG = os.path.join(REPO, "configuration",
                              "AVA22_ViT-B_fast_native.yaml")
 
-# Device memory bandwidth (bytes/s) and float32 CUDA-core peak (FLOP/s) by
-# card name (NVIDIA data sheets, dense); the bound of a kernel is the larger
-# of its bytes over the first and its operations over the second.
+# Device memory bandwidth (bytes/s), float32 CUDA-core peak and dense bf16
+# tensor-core peak (FLOP/s) by card name (NVIDIA data sheets, dense); the
+# bound of a kernel is the larger of its bytes over the first and its
+# operations over the peak of the units it runs on (K12's and K13's
+# products: the tensor cores).
 _CARDS = [
-    ("H100 PCIe", 2.0e12, 51e12),
-    ("H100 NVL", 3.9e12, 60e12),
-    ("H100", 3.35e12, 67e12),          # SXM
-    ("H200", 4.8e12, 67e12),
+    ("H100 PCIe", 2.0e12, 51e12, 756e12),
+    ("H100 NVL", 3.9e12, 60e12, 835e12),
+    ("H100", 3.35e12, 67e12, 989e12),          # SXM
+    ("H200", 4.8e12, 67e12, 989e12),
 ]
 
 # K1 at the main path's four query-level shapes (one encoder layer)
@@ -153,9 +187,10 @@ def card_info():
 
 
 def card_rates(name: str):
-    for key, bw, flops in _CARDS:
+    """(bytes/s, float32 FLOP/s, bf16 tensor-core FLOP/s) of the card."""
+    for key, *rates in _CARDS:
         if key in name:
-            return bw, flops
+            return rates
     raise RuntimeError(f"no memory/FLOP rates recorded for card {name!r}")
 
 
@@ -746,18 +781,20 @@ TRAIN_KERNELS = {"2d": ("fused_blend2d", "blend2d_bwd_dvol",
 
 
 def phase_train(dev, counters, window: str = "2d", steps: int = 7,
-                tag: str = ""):
-    """Full-width bf16 train steps of ``AVA22_ViT-B_fast.yaml`` (with
-    ``FAST_WINDOW: window``) through build_model + Trainer: 24 launches of
-    each of ``TRAIN_KERNELS[window]`` per step and of no other kernel; the
-    host LSAP's time on the main path."""
+                tag: str = "", config: str = CONFIG, kernels=None,
+                profile_step: bool = True):
+    """Full-width bf16 train steps of ``config`` (with ``FAST_WINDOW:
+    window``) through build_model + Trainer: 24 launches of each of
+    ``kernels`` (``TRAIN_KERNELS[window]`` by default) per step and of no
+    other kernel; the host LSAP's time on the main path; the stage
+    breakdown (profiled unless ``profile_step`` is off)."""
     from class_query_vad_tpu_torch.config import get_cfg_custom
     from class_query_vad_tpu_torch.engine import Trainer
     from class_query_vad_tpu_torch.losses.matcher import cost_matrix
     from class_query_vad_tpu_torch.models import build_model
     from class_query_vad_tpu_torch.ops.lsap import linear_sum_assignment
 
-    cfg = get_cfg_custom(CONFIG, ["CONFIG.MODEL.FAST_WINDOW", window])
+    cfg = get_cfg_custom(config, ["CONFIG.MODEL.FAST_WINDOW", window])
     model = build_model(cfg, dtype=torch.bfloat16)
     trainer = Trainer(model, cfg)
     tc = cfg.CONFIG.TRAIN
@@ -794,7 +831,7 @@ def phase_train(dev, counters, window: str = "2d", steps: int = 7,
               f"launches {step_launches}")
         del before
     launches = {c.__name__: c.launches for c in counters}
-    kernels = TRAIN_KERNELS[window]
+    kernels = kernels or TRAIN_KERNELS[window]
     check(all(d == {**{k: 0 for k in d}, **{k: 24 for k in kernels}}
               for d in per_step),
           f"{tag}train launches per step {per_step}, expected 24 each of "
@@ -806,8 +843,8 @@ def phase_train(dev, counters, window: str = "2d", steps: int = 7,
           f"{len(times)} steps; min {min(times):.2f}, max {max(times):.2f}; "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB; launches over the {len(per_step)} steps {launches}")
-    if window != "2d":
-        train_breakdown(trainer, batch, med, kernels)
+    if window != "2d" or config != CONFIG:
+        train_breakdown(trainer, batch, med, kernels, profile_step)
         del trainer, model
         torch.cuda.empty_cache()
         return launches
@@ -840,10 +877,12 @@ def phase_train(dev, counters, window: str = "2d", steps: int = 7,
     return launches
 
 
-def train_breakdown(trainer, batch, wall_ms: float, kernels):
-    """Device ms of one step's stages (CUDA events) and the card's busy
-    share of the median ms/step (torch.profiler's device rows, which should
-    hold 24 launches of each of ``kernels``)."""
+def train_breakdown(trainer, batch, wall_ms: float, kernels,
+                    profile_step: bool = True):
+    """Device ms of one step's stages (CUDA events) and, with
+    ``profile_step``, the card's busy share of the median ms/step
+    (torch.profiler's device rows, which should hold 24 launches of each of
+    ``kernels``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -869,7 +908,7 @@ def train_breakdown(trainer, batch, wall_ms: float, kernels):
     torch.cuda.synchronize()
     names = ("forward (train mode, ViT checkpointed)",
              "matcher + criterion (host LSAP)",
-             f"backward ({', '.join(kernels[1:])})",
+             f"backward ({', '.join(kernels[1:]) or 'plain VJP'})",
              "clip + AdamW + master copy")
     dev_ms = [marks[i].elapsed_time(marks[i + 1]) for i in range(4)]
     host_ms = [(b - a) * 1e3 for a, b in zip([t0] + host[:-1], host)]
@@ -878,6 +917,10 @@ def train_breakdown(trainer, batch, wall_ms: float, kernels):
     for name, d, h in zip(names, dev_ms, host_ms):
         print(f"  {name:40s} {d:8.2f} ms  {d / sum(dev_ms):6.1%}   host "
               f"{h:8.2f} ms")
+    if not profile_step:
+        print("  (no profiled step: the trace of the native mode's eager "
+              "plain backward took minutes; busy share not measured)")
+        return
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         trainer.step(batch)
         torch.cuda.synchronize()
@@ -932,19 +975,160 @@ TRAIN_GRAD_TOL = 1e-2       # x max|grad| of each tensor ...
 TRAIN_GRAD_FLOOR = 1e-5     # ... + this x the model's max|grad|: some
 # gradients are zero up to rounding (a key bias shifts all of a query's
 # logits alike) and their noise has no scale of its own
+# the share of kinked activations (below) whose two sides may differ: the
+# forwards agree to ~1e-6, so a share near that; a wrong forward moves far more
+KINK_SHARE = 1e-4
+
+
+def hat_codes(p: torch.Tensor, taps) -> torch.Tensor:
+    """For float32 positions p, where each tap's hat argument fl(p - s)
+    lies against the hat's kinks -1, 0, 1 (below, on or above each: 7
+    codes per tap), packed over ``taps`` into one int16."""
+    kinks = torch.tensor([-1.0, 0.0, 1.0])
+    code = torch.zeros(p.shape, dtype=torch.int16)
+    for s in taps:
+        u = (p - s)[..., None]
+        code = code * 7 + ((u > kinks).sum(-1) + (u >= kinks).sum(-1))
+    return code
+
+
+class KinkSides:
+    """Which side of its kinks each kinked activation of a model lies on,
+    and a gradient mask for the ones whose side differs between two runs.
+
+    The step's function is piecewise smooth: a ReLU's derivative jumps at
+    0, a max pool's where its window's argmax changes, and the blend's hat
+    taps where an offset crosses a whole pixel (radius * tanh(lane) in the
+    resample mode; tanh(lane) plus the level's phase in the native one).
+    Where the card's and the CPU's forwards, which agree to rounding, put
+    one element on two sides of such a jump, each side's gradient there is
+    right for its own forward and they differ by the jump, not by rounding.
+    The hat's arguments are compared as the blends compute them, rounded to
+    float32, which puts an offset within an ulp of 0 on the kink of its -1
+    tap.  ``watch`` hooks every ReLU input (the FFNs' and the MLP heads'
+    hidden layers), the backbone's max pool and every encoder layer's head
+    lanes;
+    ``match`` marks the elements whose sides differ, and the hooks then
+    zero the gradient there, on both sides alike, before it flows on.
+    """
+
+    def __init__(self):
+        self.sides, self.kinds, self.masks, self.numel = [], [], [], 0
+        self.active = False         # the hooks zero the masked gradients
+
+    def watch(self, model):
+        from class_query_vad_tpu_torch.models.backbone import MaxPool2x
+        from class_query_vad_tpu_torch.models.common import MLP
+        from class_query_vad_tpu_torch.models.fast_encoder import (
+            FastDeformAttn3D)
+
+        for name, mod in model.named_modules():
+            if isinstance(mod, FastDeformAttn3D):
+                mod.register_forward_pre_hook(self._shapes)
+                mod.head_lanes.register_forward_hook(
+                    lambda _m, _i, out, a=mod: self._keep(
+                        out, self._lane_sides(a, out), "head lanes"))
+            elif isinstance(mod, MaxPool2x):
+                mod.register_forward_hook(self._argmax)
+            elif isinstance(mod, MLP):
+                for layer in mod.layers[:-1]:
+                    layer.register_forward_hook(self._relu)
+            elif name.endswith(("linear1", "linear1_")):
+                mod.register_forward_hook(self._relu)
+
+    def _shapes(self, _mod, args):
+        self.level_shapes = args[2]
+
+    def _relu(self, _mod, _inp, out):
+        self._keep(out, (out.detach() > 0).cpu(), "ReLU")
+
+    def _argmax(self, _mod, inp, out):
+        b, t, h, w, c = inp[0].shape
+        win = inp[0].detach()[:, :, :h // 2 * 2, :w // 2 * 2].reshape(
+            b, t, h // 2, 2, w // 2, 2, c).permute(0, 1, 2, 4, 6, 3, 5)
+        self._keep(out, win.reshape(*out.shape, 4).argmax(-1).to(
+            torch.int8).cpu(), "max pool")
+
+    def _keep(self, out, side, kind):
+        i = len(self.sides)
+        self.sides.append(side)
+        self.kinds.append(kind)
+        self.numel += side.numel()
+        out.register_hook(lambda g: g.masked_fill(
+            self.masks[i].to(g.device), 0) if self.active else g)
+
+    def _lane_sides(self, attn, lanes):
+        """Per offset lane, where each of its taps' hat arguments lies
+        against the hat's kinks (0 on the weight lanes)."""
+        from class_query_vad_tpu_torch.ops.fast_deform import native_phase
+
+        nl, nc = attn.n_levels, attn.nc
+        kp = attn.n_heads * attn.n_points
+        x = torch.tanh(lanes.detach().float().cpu()[..., :nl * nc * kp])
+        side = torch.zeros(lanes.shape, dtype=torch.int16)
+        if not attn.native:
+            r = attn.radius
+            side[..., :nl * nc * kp] = hat_codes(r * x, range(-r, r + 1))
+            return side
+        start = 0
+        for t, h, w in self.level_shapes:         # each query grid
+            rows = slice(start, start + t * h * w)
+            start += t * h * w
+            q = x[:, rows].reshape(x.shape[0], t, h, w, -1)
+            s = torch.zeros(q.shape, dtype=torch.int16)
+            for j, (_, hv, wv) in enumerate(self.level_shapes):
+                for k in range(nc):               # x, y[, t] components
+                    jk = slice((nc * j + k) * kp, (nc * j + k + 1) * kp)
+                    if k == 2:                    # frames: taps -1, 0, 1
+                        s[..., jk] = hat_codes(q[..., jk], (-1, 0, 1))
+                        continue
+                    ph = torch.from_numpy(native_phase(
+                        *((w, wv) if k == 0 else (h, hv)))[1])
+                    ph = ph[:, None] if k == 0 else ph[:, None, None]
+                    s[..., jk] = hat_codes(q[..., jk] + ph, (-1, 0, 1, 2))
+            side[:, rows, :nl * nc * kp] = s.reshape(x.shape[0], t * h * w,
+                                                     -1)
+        return side
+
+    def match(self, other: "KinkSides") -> dict:
+        """Mask, in both, the elements whose sides differ; their count per
+        kind of kink."""
+        if [x.shape for x in self.sides] != [x.shape for x in other.sides]:
+            raise RuntimeError("the two runs hooked different activations")
+        self.masks = [a != b for a, b in zip(self.sides, other.sides)]
+        other.masks = self.masks
+        counts = dict.fromkeys(self.kinds, 0)
+        for kind, m in zip(self.kinds, self.masks):
+            counts[kind] += int(m.sum())
+        return counts
+
+
+def grad_distances(g_g, g_c):
+    """Per parameter tensor, (max|card - CPU| / its limit, name, max|err|,
+    limit), farthest first."""
+    floor = TRAIN_GRAD_FLOOR * max(g.abs().max().item() for g in g_c.values())
+    rows = []
+    for k, gc in g_c.items():
+        lim = TRAIN_GRAD_TOL * gc.abs().max().item() + floor
+        err = (g_g[k] - gc).abs().max().item()
+        rows.append((err / lim, k, err, lim))
+    return sorted(rows, reverse=True)
 
 
 def phase_train_card_vs_cpu(dev, opts=(), tag: str = "", counters=(),
-                            expected=None):
-    """One float32 train step of ``AVA22_ViT-B_fast.yaml`` (with ``opts``)
-    on the card and on the CPU, same weights and batch, dropout off; on
-    the card the ``counters`` must move by ``expected`` launches."""
+                            expected=None, config: str = CONFIG,
+                            unmatched_too: bool = False):
+    """One float32 train step of ``config`` (with ``opts``) on the card and
+    on the CPU, same weights and batch, dropout off; on the card the
+    ``counters`` must move by ``expected`` launches.  With
+    ``unmatched_too`` both sides also run the backward without the kink
+    matching, whose farthest gradient is printed and not checked."""
     from class_query_vad_tpu_torch.config import get_cfg_custom
     from class_query_vad_tpu_torch.engine import Trainer
     from class_query_vad_tpu_torch.models import build_model
     from class_query_vad_tpu_torch.models.detr import randomize_constants
 
-    cfg = get_cfg_custom(CONFIG, ["CONFIG.MODEL.FAST_DTYPE", "float32",
+    cfg = get_cfg_custom(config, ["CONFIG.MODEL.FAST_DTYPE", "float32",
                                   "CONFIG.MODEL.DECODER_DTYPE", "float32",
                                   *opts])
     cfg.CONFIG.MODEL.DROPOUT = 0.0
@@ -955,28 +1139,56 @@ def phase_train_card_vs_cpu(dev, opts=(), tag: str = "", counters=(),
     m_gpu = build_model(cfg, torch.float32, dev)
     m_gpu.load_state_dict(m_cpu.state_dict(), strict=True)
     batch = train_batch(cfg, seed=2)
-    res = {}
+    # both forwards first, then both backwards with the kink sides matched
+    fwd, secs = {}, {}
+    counts = [c.launches for c in counters]
     for name, model, d in (("card", m_gpu, dev), ("CPU", m_cpu, "cpu")):
         model.head_dropout.p = 0.0           # the class head's fixed 0.5
+        sides = KinkSides()
+        sides.watch(model)
         trainer = Trainer(model, cfg, device=d)
-        counts = [c.launches for c in counters]
         t0 = time.perf_counter()
-        total, losses, match = trainer.loss(
-            {k: torch.as_tensor(v).to(d) for k, v in batch.items()})
-        total.backward()
-        if d != "cpu":
+        fwd[name] = (*trainer.loss(
+            {k: torch.as_tensor(v).to(d) for k, v in batch.items()}), sides)
+        secs[name] = time.perf_counter() - t0
+    masked = fwd["card"][3].match(fwd["CPU"][3])
+    share = sum(masked.values()) / fwd["CPU"][3].numel
+    print(f"{tag}activations whose card and CPU sides of a kink differ: "
+          f"{masked} of {fwd['CPU'][3].numel} ({share:.1e}, limit "
+          f"{KINK_SHARE:.0e}); their gradients are zeroed on both sides")
+    check(share <= KINK_SHARE, f"{tag}the card's and the CPU's forwards "
+                               f"differ in {share:.1e} of the kink sides")
+    res = {}
+    for name, model in (("card", m_gpu), ("CPU", m_cpu)):
+        total, losses, match, sides = fwd[name]
+        t0 = time.perf_counter()
+        sides.active = True
+        total.backward(retain_graph=unmatched_too)
+        if name == "card":
             torch.cuda.synchronize()
             moved = {c.__name__: c.launches - n
                      for c, n in zip(counters, counts)}
             check(expected is None or moved == expected,
                   f"{tag}card train step launches {moved}, expected "
                   f"{expected}")
-        print(f"{tag}{name} float32 train step (loss + backward): "
-              f"{time.perf_counter() - t0:.1f} s")
+        print(f"{tag}{name} float32 train step (loss + backward), "
+              f"{cfg.CONFIG.MODEL.ENC_LAYERS} encoder layers: "
+              f"{secs[name] + time.perf_counter() - t0:.1f} s")
         res[name] = (total.item(), {k: v.item() for k, v in losses.items()},
                      match, {k: p.grad.float().cpu()
                              for k, p in model.named_parameters()})
     (t_g, l_g, m_g, g_g), (t_c, l_c, m_c, g_c) = res["card"], res["CPU"]
+    if unmatched_too:
+        plain = {}
+        for name, model in (("card", m_gpu), ("CPU", m_cpu)):
+            model.zero_grad(set_to_none=True)
+            fwd[name][3].active = False
+            fwd[name][0].backward()
+            plain[name] = {k: p.grad.float().cpu()
+                           for k, p in model.named_parameters()}
+        far = grad_distances(plain["card"], plain["CPU"])[0]
+        print(f"{tag}without the kink matching (not checked), the farthest "
+              f"gradient would be {far[1]} at {far[0]:.1%} of its limit")
     ok = m_c.match_ok
     same = (torch.equal(ok, m_g.match_ok.cpu())
             and torch.equal(m_c.gt_idx[ok], m_g.gt_idx.cpu()[ok]))
@@ -990,21 +1202,16 @@ def phase_train_card_vs_cpu(dev, opts=(), tag: str = "", counters=(),
     print(f"{tag}train loss card {t_g:.7f} vs CPU {t_c:.7f}: rel err {e:.2e} "
           f"(tol {TRAIN_LOSS_TOL:.0e}); losses {l_g}")
     check(e <= TRAIN_LOSS_TOL, f"{tag}card and CPU train losses disagree")
-    floor = TRAIN_GRAD_FLOOR * max(g.abs().max().item() for g in g_c.values())
-    worst, worst_k = 0.0, None
-    for k, gc in g_c.items():
-        gg = g_g[k]
+    for k, gg in g_g.items():
         check(bool(torch.isfinite(gg).all()), f"card gradient of {k} not finite")
-        lim = TRAIN_GRAD_TOL * gc.abs().max().item() + floor
-        err = (gg - gc).abs().max().item()
-        check(err <= lim, f"{tag}card and CPU gradients of {k} disagree: "
+    rows = grad_distances(g_g, g_c)
+    for ratio, k, err, lim in rows:
+        check(ratio <= 1, f"{tag}card and CPU gradients of {k} disagree: "
                           f"max|err| {err:.3e} > {lim:.3e}")
-        if err / lim > worst:
-            worst, worst_k = err / lim, k
     print(f"{tag}gradients of all {len(g_c)} parameter tensors agree (tol "
           f"{TRAIN_GRAD_TOL:.0e} x max|grad| + {TRAIN_GRAD_FLOOR:.0e} x the "
-          f"model's max|grad|); closest to its limit: {worst_k} at "
-          f"{worst:.1%} of it")
+          f"model's max|grad|); closest to its limit: {rows[0][1]} at "
+          f"{rows[0][0]:.1%} of it")
 
 
 # K5 at the VSS path's shapes (B, KD, L, N, G): the backbone's scans (24
@@ -1800,6 +2007,389 @@ NATIVE_3D_CPU_LAYERS = 2
 RESAMPLE_3D_TRAIN_STEPS = 5
 
 
+# ---- K12 (ViT attention), K13 (fused FFN): no model path calls them, as in
+# the JAX package; their entry points are the ops and the bench script
+
+# K12 at one ViT-B attention block of the main path (B=2, N = 8 x 16 x 20
+# tokens, 12 heads x 64) and an awkward shape (B=1, N not a multiple of 16)
+K12_SHAPE = (2, 2560, 12)
+K12_AWKWARD = (1, 1001, 12)
+K12_SCALE = 64 ** -0.5
+# against the plain version: float32 in another summation order; bf16: p
+# and the output rounded to bf16 after scores summed in another order (one
+# bf16 ulp, 2^-8)
+K12_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# against the port ViT's own attention (its einsum order): float32 as
+# above; bf16: the ViT rounds q * scale, the scores, e, the row sum and p
+# to bf16 where K12 keeps them float32 (four roundings of 2^-9 relative,
+# and a score's own rounding, |s| 2^-9, becomes relative error of p)
+K12_MODEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
+
+
+def k12_work(b: int, n: int, heads: int, itemsize: int):
+    """(bytes, operations): qkv read once and the output written once; the
+    two products, 4 B H N^2 D (the N^2 exponentials ride on the SFUs)."""
+    c = heads * 64
+    return b * n * 4 * c * itemsize, 4 * b * heads * n * n * 64
+
+
+def phase_vit_attention(dev, bw, bf16_peak):
+    """K12 against its plain version at the ViT-B block shape and an awkward
+    one, float32 and bf16; device times beside the bound, the plain version
+    and ``F.scaled_dot_product_attention`` (the library yardstick); one
+    backward through ``flash_attention_qkv`` at B=1 against autograd of the
+    einsum reference."""
+    from class_query_vad_tpu_torch.ops.vit_attention import (
+        attention_from_qkv_ref, flash_attention_plain, flash_attention_qkv,
+        vit_attention)
+    from class_query_vad_tpu_torch.scripts.bench_vit_attn import (
+        sdpa_attention)
+
+    g = torch.Generator().manual_seed(19)
+    entry = {"name": "vit_attention", "route": "cuda",
+             "source": "class_query_vad_tpu_torch/csrc/vit_attention.cu",
+             "replaces": "class_query_vad_tpu/ops/vit_attention.py:36",
+             "launches": None, "max_abs_err": 0.0}
+    for b, n, heads in (K12_SHAPE, K12_AWKWARD):
+        for dtype in (torch.float32, torch.bfloat16):
+            qkv = torch.randn((b, n, 3 * heads * 64), generator=g).to(dev, dtype)
+            out = vit_attention(qkv, heads, K12_SCALE)
+            torch.cuda.synchronize()
+            check(out.shape == (b, n, heads * 64) and out.dtype == dtype,
+                  f"K12 output {tuple(out.shape)} {out.dtype}")
+            check(bool(torch.isfinite(out).all()), "K12 output not finite")
+            plain = flash_attention_plain(qkv, heads, K12_SCALE)
+            err, rel = rel_err(out, plain)
+            ok = rel <= K12_TOL[dtype]
+            print(f"K12 {str(dtype)[6:]:8s} B={b} N={n} H={heads}: max|err| "
+                  f"{err:.3e} = {rel:.2e} x max|out| (tol "
+                  f"{K12_TOL[dtype]:.0e}) {'ok' if ok else 'FAIL'}")
+            check(ok, f"K12 disagrees with its plain version at B={b} N={n} "
+                      f"{dtype}")
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            if (b, n, heads) != K12_SHAPE or dtype != torch.bfloat16:
+                continue
+            t_k = kernel_device_ms(lambda: vit_attention(qkv, heads, K12_SCALE))
+            t_p = cuda_ms(lambda: flash_attention_plain(qkv, heads, K12_SCALE),
+                          5, 1)
+            lib = lambda: sdpa_attention(qkv, K12_SCALE, heads)
+            lib_rel = rel_err(lib(), plain)[1]
+            check(lib_rel <= K12_MODEL_TOL[dtype],
+                  f"scaled_dot_product_attention disagrees with K12's plain "
+                  f"version: {lib_rel:.2e}")
+            t_l = kernel_device_ms(lib)
+            nbytes, ops = k12_work(b, n, heads, 2)
+            t_b = max(nbytes / bw, ops / bf16_peak) * 1e3
+            entry.update(ms=t_k, plain_ms=t_p, bound_ms=t_b,
+                         bound_by="bytes" if nbytes / bw >= ops / bf16_peak
+                         else "operations", library_ms=t_l)
+            print(f"K12 bf16 one ViT-B block (B={b}, N={n}, {heads} x 64): "
+                  f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+                  f"scaled_dot_product_attention {t_l:.4f} ms (rel err "
+                  f"{lib_rel:.2e} vs the plain version), bound {t_b:.4f} ms "
+                  f"({entry['bound_by']}: {nbytes / 1e6:.1f} MB, "
+                  f"{ops / 1e9:.1f} GFLOP at {bf16_peak / 1e12:.0f} TFLOP/s "
+                  f"bf16) -> {ops / t_k / 1e9:.1f} TFLOP/s, "
+                  f"{t_b / t_k:.1%} of the bound's speed")
+    # the training path's gradient: autograd through the einsum reference.
+    # The loss cot . out + |out|^2 / 2 makes the cotangent (cot + out) carry
+    # K12's own output, so a wrong forward moves the gradient too; that
+    # output's float32 error (<= 1e-6 x max|out|, above) bounds the tol
+    b, n, heads = 1, K12_SHAPE[1], K12_SHAPE[2]
+    qkv = torch.randn((b, n, 3 * heads * 64), generator=g).to(dev)
+    cot = torch.randn((b, n, heads * 64), generator=g).to(dev)
+    grads = []
+    before = vit_attention.launches
+    for fn in (flash_attention_qkv, attention_from_qkv_ref):
+        x = qkv.clone().requires_grad_()
+        out = fn(x, heads, K12_SCALE)
+        ((out * cot).sum() + 0.5 * (out * out).sum()).backward()
+        grads.append(x.grad)
+    torch.cuda.synchronize()
+    check(vit_attention.launches == before + 1,
+          "flash_attention_qkv did not launch K12 once")
+    err, rel = rel_err(*grads)
+    print(f"K12 autograd (B=1, float32): the gradient of cot . out + "
+          f"|out|^2 / 2 through flash_attention_qkv vs autograd of "
+          f"attention_from_qkv_ref: max|err| {err:.3e} = {rel:.2e} x "
+          f"max|grad| (tol 2e-06)")
+    check(rel <= 2e-6, "flash_attention_qkv's gradient disagrees")
+    return entry
+
+
+# K13 at the port's FFN shapes: the main path's encoder FFN (B=2, the
+# 2-frame slice: 2 x 2 x (64x80 + 32x40 + 16x20 + 8x10) tokens), the same
+# under FAST_WINDOW 3d (8 frames), the ViT-B MLP (B=2 x 8 x 16 x 20 tokens,
+# 768 -> 3072, exact GELU); and an awkward token count, not a multiple of
+# any tile
+K13_SHAPES = {"encoder 2d": (27200, 256, 2048, "relu"),
+              "encoder 3d": (108800, 256, 2048, "relu"),
+              "ViT MLP": (5120, 768, 3072, "gelu_exact")}
+K13_AWKWARD_N = 1037
+# against the plain version: float32 in another summation order; bf16: the
+# hidden units and the output rounded to bf16 after sums in another order
+K13_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# against the model's own Linear pair in bf16: ``F.linear`` adds the bias
+# before rounding, K13 (the flax Dense chain) after: up to one more bf16
+# rounding of every hidden unit and output (2^-8 relative each)
+K13_MODEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+
+
+def k13_work(n: int, c: int, f: int, itemsize: int):
+    """(bytes, operations): x, the weights and biases read once, the output
+    written once; 4 N C F multiply-add operations."""
+    return (2 * n * c + 2 * c * f + c + f) * itemsize, 4 * n * c * f
+
+
+def ffn_inputs(g, n, c, f, dtype, dev):
+    """x [n, c] in ``dtype``; w1 [c, f], b1, w2 [f, c], b2 float32 at the
+    Linear init's scale (the wrapper casts them)."""
+    x = torch.randn((n, c), generator=g).to(dev, dtype)
+    w1 = (torch.randn((c, f), generator=g) / c ** 0.5).to(dev)
+    b1 = (0.1 * torch.randn((f,), generator=g)).to(dev)
+    w2 = (torch.randn((f, c), generator=g) / f ** 0.5).to(dev)
+    b2 = (0.1 * torch.randn((c,), generator=g)).to(dev)
+    return x, w1, b1, w2, b2
+
+
+def ffn_library(x, w1, b1, w2, b2, activation: str):
+    """The ``F.linear`` / activation / ``F.linear`` composition in x's dtype
+    (cuBLAS, bias in the epilogue): the library yardstick of K13, which no
+    path of the port routes through K13.  Returns a call."""
+    import torch.nn.functional as F
+
+    dt = x.dtype
+    w1t, w2t = w1.t().contiguous().to(dt), w2.t().contiguous().to(dt)
+    b1, b2 = b1.to(dt), b2.to(dt)
+    act = {"relu": F.relu, "gelu_exact": F.gelu,
+           "gelu_tanh": lambda h: F.gelu(h, approximate="tanh")}[activation]
+    return lambda: F.linear(act(F.linear(x, w1t, b1)), w2t, b2)
+
+
+def phase_fused_ffn(dev, bw, bf16_peak):
+    """K13 against its plain version at the port's three FFN shapes and at
+    an awkward token count, each with all three activations, float32 and
+    bf16; bf16 device times (with each shape's own activation) beside the
+    bound, the plain version and the cuBLAS composition."""
+    from class_query_vad_tpu_torch.ops.fused_ffn import (
+        ACTIVATIONS, fused_ffn_kernel, fused_ffn_plain)
+
+    g = torch.Generator().manual_seed(22)
+    entry = {"name": "fused_ffn", "route": "cuda",
+             "source": "class_query_vad_tpu_torch/csrc/fused_ffn.cu",
+             "replaces": "class_query_vad_tpu/ops/fused_ffn.py:74",
+             "launches": None, "max_abs_err": 0.0}
+    # every activation at each shape; timed with the shape's own
+    cases = [(tag, n, c, f, act, act == own)
+             for tag, (n, c, f, own) in K13_SHAPES.items()
+             for act in ACTIVATIONS]
+    cases += [("awkward", K13_AWKWARD_N, c, f, act, False)
+              for c, f in ((256, 2048), (768, 3072)) for act in ACTIVATIONS]
+    for tag, n, c, f, act, timed in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = ffn_inputs(g, n, c, f, dtype, dev)
+            out = fused_ffn_kernel(*args, act)
+            torch.cuda.synchronize()
+            check(out.shape == (n, c) and out.dtype == dtype,
+                  f"K13 output {tuple(out.shape)} {out.dtype}")
+            check(bool(torch.isfinite(out).all()), "K13 output not finite")
+            plain = fused_ffn_plain(*args, act)
+            err, rel = rel_err(out, plain)
+            ok = rel <= K13_TOL[dtype]
+            print(f"K13 {str(dtype)[6:]:8s} {tag:10s} N={n} {c}->{f} {act}: "
+                  f"max|err| {err:.3e} = {rel:.2e} x max|out| (tol "
+                  f"{K13_TOL[dtype]:.0e}) {'ok' if ok else 'FAIL'}")
+            check(ok, f"K13 disagrees with its plain version: {tag} {act} "
+                      f"{dtype}")
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            if not timed or dtype != torch.bfloat16:
+                continue
+            t_k = kernel_device_ms(lambda: fused_ffn_kernel(*args, act))
+            t_p = cuda_ms(lambda: fused_ffn_plain(*args, act), 5, 1)
+            lib = ffn_library(*args, act)
+            lib_rel = rel_err(lib(), plain)[1]
+            check(lib_rel <= K13_MODEL_TOL[dtype],
+                  f"the F.linear composition disagrees with K13's plain "
+                  f"version: {lib_rel:.2e}")
+            t_l = kernel_device_ms(lib)
+            nbytes, ops = k13_work(n, c, f, 2)
+            t_b = max(nbytes / bw, ops / bf16_peak) * 1e3
+            by = "bytes" if nbytes / bw >= ops / bf16_peak else "operations"
+            print(f"K13 bf16 {tag} (N={n}, {c}->{f}->{c}, {act}): kernel "
+                  f"{t_k:.4f} ms, plain {t_p:.4f} ms, F.linear composition "
+                  f"{t_l:.4f} ms (rel err {lib_rel:.2e}), bound {t_b:.4f} ms "
+                  f"({by}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.1f} GFLOP) -> "
+                  f"{ops / t_k / 1e9:.1f} TFLOP/s, {t_b / t_k:.1%} of the "
+                  f"bound's speed")
+            if tag == "encoder 2d":               # the main path's FFN
+                entry.update(ms=t_k, plain_ms=t_p, bound_ms=t_b, bound_by=by,
+                             library_ms=t_l)
+            else:
+                key = "k13_3d" if tag == "encoder 3d" else "k13_vit_mlp"
+                entry.update({f"{key}_ms": t_k, f"{key}_plain_ms": t_p,
+                              f"{key}_bound_ms": t_b,
+                              f"{key}_library_ms": t_l})
+    return entry
+
+
+def phase_model_attention_ffn(dev):
+    """K12 and K13 on the full-width ``AVA22_ViT-B_fast`` model's own
+    tensors: the qkv of ViT block 0 and encoder layer 0's FFN input tokens
+    from one request, against that block's attention module and that
+    layer's ``linear2(relu(linear1(x)))``, in bf16 (the model's dtype) and
+    float32 (float32 copies of the modules on the same inputs)."""
+    import copy
+
+    import torch.nn.functional as F
+
+    from class_query_vad_tpu_torch.config import get_cfg_custom
+    from class_query_vad_tpu_torch.models import build_model
+    from class_query_vad_tpu_torch.models.detr import randomize_constants
+    from class_query_vad_tpu_torch.ops.fused_ffn import fused_ffn_kernel
+    from class_query_vad_tpu_torch.ops.vit_attention import vit_attention
+
+    model = build_model(get_cfg_custom(CONFIG), dtype=torch.bfloat16)
+    randomize_constants(model, torch.Generator().manual_seed(20))
+    attn = model.backbone[0].body.blocks[0].attn
+    layer = model.transformer.encoder.layers[0]
+    seen = {}
+    hooks = [attn.register_forward_pre_hook(
+                 lambda m, a: seen.setdefault("vit", a[0].detach())),
+             layer.linear1.register_forward_pre_hook(
+                 lambda m, a: seen.setdefault("ffn", a[0].detach()))]
+    pixels, mask = make_request(40)
+    serve(model, pixels, mask, dev)
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    heads, scale = attn.num_heads, (attn.dim // attn.num_heads) ** -0.5
+    x = seen["vit"]
+    print(f"ViT block 0's input {tuple(x.shape)}, encoder layer 0's FFN "
+          f"input {tuple(seen['ffn'].shape)} (one request, B=2)")
+    for dtype in (torch.bfloat16, torch.float32):
+        mod = (attn if attn.qkv.weight.dtype == dtype
+               else copy.deepcopy(attn).to(dtype))
+        bias = torch.cat([mod.q_bias, torch.zeros_like(mod.v_bias), mod.v_bias])
+        with torch.inference_mode():
+            xd = x.to(dtype)
+            qkv = F.linear(xd, mod.qkv.weight, bias)
+            got = mod.proj(vit_attention(qkv, heads, scale))
+            want = mod(xd)
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, want)
+        ok = rel <= K12_MODEL_TOL[dtype]
+        print(f"K12 in the model, {str(dtype)[6:]}: proj(K12(qkv of ViT "
+              f"block 0)) vs the block's own attention: max|err| {err:.3e} "
+              f"= {rel:.2e} x max|ref| (tol {K12_MODEL_TOL[dtype]:.0e}) "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"K12 disagrees with the ViT's attention in {dtype}")
+    tokens = seen["ffn"].reshape(-1, seen["ffn"].shape[-1])
+    for dtype in (torch.bfloat16, torch.float32):
+        lay = (layer if layer.linear1.weight.dtype == dtype
+               else copy.deepcopy(layer).to(dtype))
+        with torch.inference_mode():
+            xd = tokens.to(dtype)
+            got = fused_ffn_kernel(xd, lay.linear1.weight.t(), lay.linear1.bias,
+                                   lay.linear2.weight.t(), lay.linear2.bias,
+                                   "relu")
+            want = lay.linear2(F.relu(lay.linear1(xd)))
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, want)
+        ok = rel <= K13_MODEL_TOL[dtype]
+        print(f"K13 in the model, {str(dtype)[6:]}: encoder layer 0's FFN on "
+              f"its {tokens.shape[0]} input tokens vs linear2(relu(linear1(x)))"
+              f": max|err| {err:.3e} = {rel:.2e} x max|ref| (tol "
+              f"{K13_MODEL_TOL[dtype]:.0e}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"K13 disagrees with the encoder's FFN in {dtype}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_bench_entry():
+    """The K12 bench entry point's ``main``, once; returns its launches of
+    K12 and its numbers."""
+    from class_query_vad_tpu_torch.ops.vit_attention import vit_attention
+    from class_query_vad_tpu_torch.scripts import bench_vit_attn
+
+    vit_attention.launches = 0
+    res = bench_vit_attn.main()
+    check(res["rel_err"] <= K12_MODEL_TOL[torch.bfloat16]
+          and res["grad_rel_err"] <= K12_MODEL_TOL[torch.bfloat16],
+          f"bench_vit_attn's checks failed: {res}")
+    print(f"bench_vit_attn.main: {vit_attention.launches} K12 launches")
+    return vit_attention.launches
+
+
+# ---- FAST_RADIUS 2 (the general-radius blend, plain PyTorch: no kernel)
+RADIUS2_OPTS = {w: ["CONFIG.MODEL.FAST_RADIUS", 2, "CONFIG.MODEL.FAST_WINDOW", w]
+                for w in ("2d", "3d")}
+# the card-vs-CPU checks' encoder depth, cut from the YAML's 6 for the
+# CPU's time: the plain blend takes (2R+1)^3 = 125 shifts per level under
+# the 3d window
+RADIUS2_CPU_LAYERS = {"2d": 2, "3d": 1}
+
+
+def phase_radius2(dev, counters, window: str):
+    """``AVA22_ViT-B_fast`` with ``FAST_RADIUS 2`` at full width in bf16:
+    one warm-up and one timed request (ms/batch), no launch of any kernel
+    (the general blend takes precedence over K1, K2 and K6); then the
+    float32 card-vs-CPU check at ``RADIUS2_CPU_LAYERS``."""
+    from class_query_vad_tpu_torch.config import get_cfg_custom
+    from class_query_vad_tpu_torch.models import build_model
+    from class_query_vad_tpu_torch.models.detr import randomize_constants
+
+    tag = f"radius-2 {window}"
+    model = build_model(get_cfg_custom(CONFIG, RADIUS2_OPTS[window]),
+                        dtype=torch.bfloat16)
+    randomize_constants(model, torch.Generator().manual_seed(24))
+    attn = model.transformer.encoder.layers[0].self_attn
+    check(attn.radius == 2 and not attn.fused_route,
+          f"{tag}: the encoder is not on the general route")
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for seed in (41, 42):
+        pixels, mask = make_request(seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, (scores, boxes, actor) = serve(model, pixels, mask, dev)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        for name, x, shape in (("scores", scores, (2, 15, 80)),
+                               ("boxes", boxes, (2, 15, 4)),
+                               ("actorness", actor, (2, 15, 1))):
+            check(tuple(x.shape) == shape, f"{tag} {name} shape {tuple(x.shape)}")
+            check(bool(torch.isfinite(x).all()), f"{tag} {name} not finite")
+    launches = {c.__name__: c.launches for c in counters}
+    print(f"{tag}: full-width eval, B=2 bf16, forward + postprocess: "
+          f"{times[1]:.2f} ms/batch (the second request; the first "
+          f"{times[0]:.2f} ms), peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; kernel "
+          f"launches {launches}")
+    check(not any(launches.values()),
+          f"{tag}: kernel launches {launches}, expected none (radius 2 "
+          f"takes the general blend)")
+    del model
+    torch.cuda.empty_cache()
+    layers = RADIUS2_CPU_LAYERS[window]
+    cpu_s = phase_in_model(
+        dev, CONFIG, RADIUS2_OPTS[window] + ["CONFIG.MODEL.ENC_LAYERS", layers],
+        tag=f"{tag} ")
+    print(f"{tag} card-vs-CPU check at {layers} of the YAML's 6 encoder "
+          f"layers; its CPU forward {cpu_s:.1f} s")
+    return times[1]
+
+
+# ---- the native train step at full width (B=1 bf16) and card vs CPU
+NATIVE_TRAIN_STEPS = 5
+# the float32 native-2d train step's card-vs-CPU check: 2 of the YAML's 6
+# encoder layers, for the CPU's time (its step took 31.9 s at 2 layers on
+# the 8 host cores beside an H100, ~8 s more per layer: the backward
+# recomputes the plain native blend per level)
+NATIVE_TRAIN_CPU_LAYERS = 2
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1817,23 +2407,29 @@ def main() -> int:
         blend3d_fwd,
     )
     from class_query_vad_tpu_torch.ops.fast_deform_cuda import fused_blend2d
+    from class_query_vad_tpu_torch.ops.fused_ffn import fused_ffn_kernel
     from class_query_vad_tpu_torch.ops.native_blend import (
         native_blend2d,
         native_blend3d,
     )
     from class_query_vad_tpu_torch.ops.selective_scan import selective_scan
+    from class_query_vad_tpu_torch.ops.vit_attention import vit_attention
 
+    # K12 and K13 are on no model path (as in the JAX package): every phase
+    # below that drives a model checks that they launch 0 times
     counters = [fused_blend2d, blend2d, blend2d_bwd_dvol, blend2d_bwd_dcomps,
                 selective_scan, native_blend2d, native_blend3d, blend3d_fwd,
-                blend3d_bwd_dvol, blend3d_bwd_dcomps]
+                blend3d_bwd_dvol, blend3d_bwd_dcomps, vit_attention,
+                fused_ffn_kernel]
     dev = torch.device("cuda", 0)
     card = card_info()
     name = torch.cuda.get_device_name(0)
-    bw, peak = card_rates(name)
+    bw, peak, bf16_peak = card_rates(name)
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s); bound rates "
-          f"{bw / 1e12:.2f} TB/s, {peak / 1e12:.0f} TFLOP/s fp32")
+          f"{bw / 1e12:.2f} TB/s, {peak / 1e12:.0f} TFLOP/s fp32, "
+          f"{bf16_peak / 1e12:.0f} TFLOP/s dense bf16")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1850,7 +2446,7 @@ def main() -> int:
     kernels = [phase_kernels(dev, bw, peak)]
     blend, _ = phase_blend_kernels(dev, bw, peak)
     kernels += blend
-    phase_main_path(dev, counters)
+    main_eval = phase_main_path(dev, counters)
     phase_in_model(dev)
     launches = phase_train(dev, counters)
     comps = phase_components_route(dev, counters)
@@ -1896,6 +2492,30 @@ def main() -> int:
         {**{c.__name__: 0 for c in counters},
          **{k: 24 for k in TRAIN_KERNELS["3d"]}})
     kernels += blend3d
+    # K12 and K13 at the main path's shapes and on the model's own tensors,
+    # then K12's bench entry point
+    k12 = phase_vit_attention(dev, bw, bf16_peak)
+    k13 = phase_fused_ffn(dev, bw, bf16_peak)
+    phase_model_attention_ffn(dev)
+    bench = phase_bench_entry()
+    for k, c in ((k12, vit_attention), (k13, fused_ffn_kernel)):
+        # main-path launches (eval and train): 0, as in the JAX package
+        k["launches"] = main_eval[c.__name__] + launches[c.__name__]
+    k12["bench_launches"] = bench
+    kernels += [k12, k13]
+    # FAST_RADIUS 2 (the general blend) in both windows
+    for window in ("2d", "3d"):
+        phase_radius2(dev, counters, window)
+    # the native train step: 2d and 3d windows, then card vs CPU
+    for window, kernel in (("2d", "native_blend2d"), ("3d", "native_blend3d")):
+        phase_train(dev, counters, window, NATIVE_TRAIN_STEPS,
+                    f"native-{window} ", NATIVE_CONFIG, (kernel,),
+                    profile_step=False)
+    phase_train_card_vs_cpu(
+        dev, ["CONFIG.MODEL.ENC_LAYERS", NATIVE_TRAIN_CPU_LAYERS], "native-2d ",
+        counters, {**{c.__name__: 0 for c in counters},
+                   "native_blend2d": 4 * NATIVE_TRAIN_CPU_LAYERS},
+        NATIVE_CONFIG, unmatched_too=True)
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

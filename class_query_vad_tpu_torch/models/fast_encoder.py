@@ -2,31 +2,36 @@
 (counterpart of ``class_query_vad_tpu/models/fast_encoder.py``).
 
 ``FastDeformAttn3D`` takes the JAX package's routes (fast_encoder.py:
-172-284) for radius 1:
+172-284):
 
-* fused (``FAST_CROSS_LEVEL: resample``, ``FAST_WINDOW: 2d``, nh=8, C a
-  multiple of 256, points a multiple of 8 — the ``AVA22_ViT-B_fast`` main
-  path; :175-194): every value level is aligned onto each query grid, and
-  one K1 launch per query grid (``ops.fast_deform_cuda.fused_blend2d``)
-  computes the tanh offsets, the per-head softmax and the 9-tap blend over
-  all levels;
-* components, resample (the 2d window at any other shape, and the 3d
-  window, which never takes the fused route; :196-263): tanh and the
+* fused (``FAST_CROSS_LEVEL: resample``, ``FAST_WINDOW: 2d``, radius 1,
+  nh=8, C a multiple of 256, points a multiple of 8 — the
+  ``AVA22_ViT-B_fast`` main path; :175-194): every value level is aligned
+  onto each query grid, and one K1 launch per query grid
+  (``ops.fast_deform_cuda.fused_blend2d``) computes the tanh offsets, the
+  per-head softmax and the 9-tap blend over all levels;
+* components, resample, radius 1 (the 2d window at any other shape, and
+  the 3d window, which never takes the fused route; :196-263): tanh and the
   softmax in torch (``fused_components``, K1's plain front end), the
   per-level dx, dy, (dt,) a stacks, and the blend of the aligned levels
   through K2 (2d, ``ops.blend2d.blend2d``) or K6 (3d, 27 taps,
   ``ops.blend3d.blend3d``, which also serves the JAX package's K7);
+* general radius, resample (``FAST_RADIUS`` > 1, either window;
+  :264-282): the same components, scaled by the radius, and the aligned
+  levels blended over the (2R+1)^2 (2d) or (2R+1)^3 (3d) window by
+  ``ops.fast_deform.windowed_blend_fused``, plain PyTorch as in JAX (no
+  kernel there); it takes precedence over K1, K2 and K6, which are radius 1
+  only;
 * native (``FAST_CROSS_LEVEL: native``, 2d or 3d window; :196-257): the
   same components (dx, dy, dt, a with the 3d window), no alignment, and
   one launch per query grid of K10 (2d) or K11 (3d) over every level at
   its own resolution (``ops.native_blend.native_blend``).
 
-All are differentiable: the resample routes' backward runs K3 and K4 (2d)
-or K8 and K9 (3d), the native route's is the VJP of its plain version, as
-in the JAX package.  Not ported yet, and raising ``NotImplementedError``:
-the resample mode with radius > 1 (ROADMAP.md Queue 1 step 16c).  As in
-JAX, the native mode raises ``ValueError`` for radius != 1 and for levels
-of unequal T.
+All are differentiable: the radius-1 resample routes' backward runs K3 and
+K4 (2d) or K8 and K9 (3d), the general-radius and native routes' are the
+VJPs of their plain versions, as in the JAX package.  As in JAX, the
+native mode raises ``ValueError`` for radius != 1 and for levels of
+unequal T.
 
 The encoder carries ONE flattened token stream [B, sum(t*h*w), C] across
 layers; post-norm residual layers as in the reference's deformable
@@ -51,7 +56,7 @@ import torch.nn.functional as F
 
 from ..ops.blend2d import blend2d
 from ..ops.blend3d import blend3d
-from ..ops.fast_deform import align_all_levels
+from ..ops.fast_deform import align_all_levels, windowed_blend_fused
 from ..ops.fast_deform_cuda import fused_blend2d, fused_components
 from ..ops.native_blend import native_blend
 from .common import LayerNorm, Linear
@@ -85,21 +90,22 @@ class FastDeformAttn3D(nn.Module):
         self.native = cross_level == "native"
         if self.native and radius != 1:
             raise ValueError("cross_level='native' supports radius=1 only")
-        if radius != 1:
-            raise NotImplementedError(
-                "FAST_RADIUS other than 1 is not ported yet (ROADMAP.md "
-                "Queue 1 step 16c)")
         self.d_model, self.n_levels = d_model, n_levels
         self.n_heads, self.n_points, self.radius = n_heads, n_points, radius
         self.nc = 3 if window == "3d" else 2
         # the JAX package's fused-route conditions (fast_encoder.py:175-176)
-        self.fused_route = (not self.native and self.nc == 2 and n_heads == 8
-                            and d_model % 256 == 0 and n_points % 8 == 0)
+        self.fused_route = (not self.native and self.nc == 2 and radius == 1
+                            and n_heads == 8 and d_model % 256 == 0
+                            and n_points % 8 == 0)
         kp = n_heads * n_points
         self.value_proj = Linear(d_model, d_model)
         self.window_offsets = Linear(d_model, n_levels * self.nc * kp)
         self.window_weights = Linear(d_model, n_levels * kp)
         self.output_proj = Linear(d_model, d_model)
+        # the raw offset + weight-logit lanes pass through here, where a
+        # forward hook can read them (chip_smoke.py's card-vs-CPU train
+        # checks find the lanes whose taps differ between the two sides)
+        self.head_lanes = nn.Identity()
 
     def forward(self, src: torch.Tensor, pos: torch.Tensor, shapes: Shapes,
                 mask: torch.Tensor | None) -> torch.Tensor:
@@ -123,7 +129,7 @@ class FastDeformAttn3D(nn.Module):
                             self.window_weights.weight], dim=0)
         head_b = torch.cat([self.window_offsets.bias,
                             self.window_weights.bias])
-        fused = F.linear((src + pos).to(dt), head_w, head_b)
+        fused = self.head_lanes(F.linear((src + pos).to(dt), head_w, head_b))
         # PER-HEAD max subtraction on the weight-logit lanes, once, at the
         # producer, with no gradient (as the JAX package's stop_gradient):
         # the softmax then sees per-head denominators >= 1.  A global max
@@ -156,9 +162,29 @@ class FastDeformAttn3D(nn.Module):
                 out = fused_blend2d(vol, lanes, nh, float(self.radius))
             else:
                 comps = fused_components(lanes, nl, nh, float(self.radius), nc)
-                out = (blend3d if nc == 3 else blend2d)(vol, *comps, nh)
+                if self.radius == 1:
+                    out = (blend3d if nc == 3 else blend2d)(vol, *comps, nh)
+                else:
+                    out = self._general_radius(aligned_all[i], comps)
             outs.append(out.to(dt).reshape(b, t * h * w, self.d_model))
         return self.output_proj(torch.cat(outs, dim=1))
+
+    def _general_radius(self, aligned: Sequence[torch.Tensor],
+                        comps) -> torch.Tensor:
+        """The JAX package's ``r != 1`` branch (fast_encoder.py:264-282):
+        components [B, J, T, H, W, nh*P] to the (head, level, point)
+        layout of ``windowed_blend_fused``; the 2d window passes (x, y)
+        only, which JAX writes as dt = 0."""
+        nh, np_ = self.n_heads, self.n_points
+        b, jl, t, h, w, _ = comps[0].shape
+        offsets = torch.stack(comps[:-1], dim=-1).reshape(
+            b, jl, t, h, w, nh, np_, len(comps) - 1).permute(
+            0, 2, 3, 4, 5, 1, 6, 7)
+        weights = comps[-1].reshape(b, jl, t, h, w, nh, np_).permute(
+            0, 2, 3, 4, 5, 1, 6)
+        headed = [v.reshape(*v.shape[:4], nh, -1) for v in aligned]
+        out = windowed_blend_fused(headed, offsets, weights, self.radius)
+        return out.reshape(b, t, h, w, self.d_model)
 
 
 class FastEncoderLayer(nn.Module):

@@ -93,12 +93,18 @@ class Attention(nn.Module):
                            None if bias is None else bias[self.dim :])
             q = q.reshape(b, nq, nh, hd)
             k, v = kvm.reshape(b, kv.shape[1], 2, nh, hd).unbind(2)
-        q = (q * hd ** -0.5).transpose(1, 2)      # [B, H, Nq, D]
-        k = k.transpose(1, 2)
-        v = v.transpose(1, 2)
-        attn = softmax(q @ k.transpose(-2, -1))   # [B, H, Nq, N], dtype dt
-        out = (attn @ v).transpose(1, 2).reshape(b, nq, self.dim)
-        return self.proj(out)
+        return self.proj(eager_attention(q, k, v, hd ** -0.5))
+
+
+def eager_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float) -> torch.Tensor:
+    """softmax((q * scale) k^T) v per head in the inputs' dtype (the JAX
+    package's einsum attention, vit.py:84-90): q [B, Nq, H, D], k and v
+    [B, N, H, D] -> [B, Nq, H*D]."""
+    b, nq, h, d = q.shape
+    q = (q * scale).transpose(1, 2)               # [B, H, Nq, D]
+    attn = softmax(q @ k.permute(0, 2, 3, 1))     # [B, H, Nq, N]
+    return (attn @ v.transpose(1, 2)).transpose(1, 2).reshape(b, nq, h * d)
 
 
 def softmax(scores: torch.Tensor) -> torch.Tensor:

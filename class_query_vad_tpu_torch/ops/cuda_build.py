@@ -77,6 +77,16 @@ KERNELS = {
         "native_blend.cu", "native_blend3d_launch",
         [_P] * 4 + [_L] * 4 + [_P] * 7 + [_I] * 7 + [_P],
     ),
+    # qkv, out, dtype, batch, n, heads, scale
+    "vit_attention": (
+        "vit_attention.cu", "vit_attention_launch",
+        [_P, _P, _I, _I, _I, _I, _F, _P],
+    ),
+    # x, w1, b1, w2, b2, out, dtype, activation, n, c, f
+    "fused_ffn": (
+        "fused_ffn.cu", "fused_ffn_launch",
+        [_P] * 6 + [_I] * 5 + [_P],
+    ),
 }
 
 NVCC_FLAGS = [

@@ -10,6 +10,10 @@ plain matmul.
 ``FAST_CROSS_LEVEL: native``: every level is sampled at its own resolution
 (``native_blend_level``, the plain version of kernels K10 and K11, whose
 wrapper is ``ops.native_blend``).
+
+``FAST_RADIUS`` > 1 (resample mode): ``windowed_blend_fused``, the JAX
+package's general-radius blend, which has no Pallas kernel there and is
+plain PyTorch here.
 """
 
 from __future__ import annotations
@@ -138,6 +142,54 @@ class _Hat(torch.autograd.Function):
     def backward(ctx, g):
         (u,) = ctx.saved_tensors
         return g * hat_grad(u)
+
+
+def windowed_blend_fused(aligned: Sequence[torch.Tensor],
+                         offsets: torch.Tensor, weights: torch.Tensor,
+                         radius: int) -> torch.Tensor:
+    """The general-radius windowed blend (the JAX package's
+    ``windowed_blend_fused``, fast_deform.py:186):
+
+        out[g] = sum_j sum_s m[g, j, s] * aligned[j][g + s]
+        m[g, j, s] = sum_p a * hat(dt - st) * hat(dy - sy) * hat(dx - sx)
+
+    over the (2R+1)^3 shifts s = (st, sy, sx) in [-R, R], zeros outside the
+    map, each shift's mass recomputed from the [..., nh*P] lanes.
+    ``aligned``: per level [B, T, H, W, nh, D]; ``offsets`` [B, T, H, W, nh,
+    L, P, 3] (x, y, t) or [..., 2] (x, y: the 2d window, which JAX writes as
+    dt = 0, so that only the centre frame's shift has mass; the other
+    frames' shifts add exact zeros and are skipped); ``weights`` [B, T, H,
+    W, nh, L, P].  Computed in the dtype of ``aligned``, as JAX does; the
+    hats are differentiated by XLA's rules at the ties (``_Hat``).  Any
+    device; returns [B, T, H, W, nh, D]."""
+    b, t, h, w, nh, d = aligned[0].shape
+    p = weights.shape[-1]
+    r = int(radius)
+    win = 2 * r + 1
+    nc = offsets.shape[-1]
+    out = torch.zeros((b, t, h, w, nh, d), dtype=aligned[0].dtype,
+                      device=aligned[0].device)
+    rt = r if nc == 3 else 0
+    for j, vol in enumerate(aligned):
+        vp = F.pad(vol, (0, 0, 0, 0, r, r, r, r, rt, rt))
+        dx = offsets[..., j, :, 0].reshape(b, t, h, w, nh * p)
+        dy = offsets[..., j, :, 1].reshape(b, t, h, w, nh * p)
+        a = weights[..., j, :].reshape(b, t, h, w, nh * p)
+        if nc == 3:
+            dt = offsets[..., j, :, 2].reshape(b, t, h, w, nh * p)
+            t_shifts = [(st, _Hat.apply(dt - (st - r))) for st in range(win)]
+        else:
+            t_shifts = [(0, None)]
+        for st, ht in t_shifts:
+            for sy in range(win):
+                hy = _Hat.apply(dy - (sy - r))
+                aty = a * hy if ht is None else a * ht * hy
+                for sx in range(win):
+                    hx = _Hat.apply(dx - (sx - r))
+                    m = (aty * hx).reshape(b, t, h, w, nh, p).sum(-1)
+                    out = out + m[..., None] * vp[
+                        :, st:st + t, sy:sy + h, sx:sx + w]
+    return out
 
 
 def native_blend_level(vol: torch.Tensor, dx: torch.Tensor, dy: torch.Tensor,

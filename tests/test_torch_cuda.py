@@ -36,6 +36,12 @@ from class_query_vad_tpu_torch.ops.fast_deform_cuda import (
     fused_blend2d_reference,
     fused_components,
 )
+from class_query_vad_tpu_torch.ops.fused_ffn import (
+    ffn_reference,
+    fused_ffn,
+    fused_ffn_kernel,
+    fused_ffn_plain,
+)
 from class_query_vad_tpu_torch.ops.native_blend import (
     native_blend,
     native_blend2d,
@@ -45,6 +51,13 @@ from class_query_vad_tpu_torch.ops.native_blend import (
 from class_query_vad_tpu_torch.ops.selective_scan import (
     selective_scan,
     selective_scan_reference,
+)
+from class_query_vad_tpu_torch.ops.vit_attention import (
+    attention_from_qkv_ref,
+    flash_attention_plain,
+    flash_attention_qkv,
+    max_tokens,
+    vit_attention,
 )
 
 
@@ -579,3 +592,122 @@ def test_tiny_resample3d_model_card_matches_cpu(card):
     for k in ("pred_logits", "pred_boxes", "pred_logits_b"):
         g, r = out_g[k].cpu(), out_c[k]
         assert (g - r).abs().max().item() <= 1e-4 * max(1.0, r.abs().max().item()), k
+
+
+# K12: float32 differs from the plain version in summation order only; bf16
+# p is rounded to bf16 after scores summed in another order, and the output
+# is bf16 (one ulp, 2^-8)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("b,n,heads", [(1, 37, 2), (2, 200, 3), (1, 2560, 12),
+                                       (1, 1, 1)])
+def test_vit_attention_matches_plain(card, dtype, tol, b, n, heads):
+    g = torch.Generator().manual_seed(n)
+    qkv = torch.randn((b, n, 3 * heads * 64), generator=g).to(card, dtype)
+    before = vit_attention.launches
+    out = vit_attention(qkv, heads, 64 ** -0.5)
+    torch.cuda.synchronize()
+    assert vit_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == (b, n, heads * 64)
+    _close(out, flash_attention_plain(qkv, heads, 64 ** -0.5), tol, "K12")
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_on_the_card(card):
+    """The forward launches K12; the backward is autograd through the
+    einsum reference, as in the JAX package."""
+    g = torch.Generator().manual_seed(3)
+    qkv = torch.randn((2, 70, 3 * 2 * 64), generator=g).to(card)
+    cot = torch.randn((2, 70, 128), generator=g).to(card)
+    x = qkv.clone().requires_grad_()
+    before = vit_attention.launches
+    flash_attention_qkv(x, 2, 0.125).backward(cot)
+    torch.cuda.synchronize()
+    assert vit_attention.launches == before + 1
+    y = qkv.clone().requires_grad_()
+    attention_from_qkv_ref(y, 2, 0.125).backward(cot)
+    _close(x.grad, y.grad, 1e-6, "K12 gradient")
+
+
+@pytest.mark.cuda
+def test_vit_attention_rejects_what_it_does_not_take(card):
+    """head dim != 64, N past the shared memory, a non-contiguous or
+    float16 qkv, a CPU tensor among CUDA ones: a raise, and no launch."""
+    qkv = torch.zeros((1, 32, 3 * 128), device=card)
+    before = vit_attention.launches
+    with pytest.raises(ValueError):                     # D = 32
+        vit_attention(qkv, 4, 0.1)
+    n = max_tokens(torch.float32) + 16
+    with pytest.raises(ValueError):                     # too many tokens
+        vit_attention(torch.zeros((1, n, 3 * 64), device=card), 1, 0.1)
+    with pytest.raises(ValueError):                     # not contiguous
+        vit_attention(qkv[:, ::2], 2, 0.1)
+    with pytest.raises(ValueError):                     # float16
+        vit_attention(qkv.half(), 2, 0.1)
+    assert vit_attention.launches == before
+
+
+# K13: float32 in another summation order; bf16 rounds the hidden units and
+# the output to bf16 after sums in another order (one ulp, 2^-8)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("activation", ["relu", "gelu_exact", "gelu_tanh"])
+@pytest.mark.parametrize("n,c,f", [(300, 256, 128), (77, 768, 192),
+                                   (1, 256, 64)])
+def test_fused_ffn_matches_plain(card, dtype, tol, activation, n, c, f):
+    g = torch.Generator().manual_seed(n + c)
+    x = torch.randn((n, c), generator=g).to(card, dtype)
+    w1 = (torch.randn((c, f), generator=g) / c ** 0.5).to(card)
+    b1 = (0.1 * torch.randn((f,), generator=g)).to(card)
+    w2 = (torch.randn((f, c), generator=g) / f ** 0.5).to(card)
+    b2 = (0.1 * torch.randn((c,), generator=g)).to(card)
+    before = fused_ffn_kernel.launches
+    out = fused_ffn_kernel(x, w1, b1, w2, b2, activation)
+    torch.cuda.synchronize()
+    assert fused_ffn_kernel.launches == before + 1
+    assert out.dtype == dtype and out.shape == (n, c)
+    _close(out, fused_ffn_plain(x, w1, b1, w2, b2, activation), tol, "K13")
+
+
+@pytest.mark.cuda
+def test_fused_ffn_autograd_on_the_card(card):
+    """The forward launches K13; the backward is autograd through
+    ``ffn_reference``, each gradient in its input's dtype."""
+    g = torch.Generator().manual_seed(5)
+    args = [torch.randn(s, generator=g).to(card)
+            for s in ((50, 256), (256, 128), (128,), (128, 256), (256,))]
+    cot = torch.randn((50, 256), generator=g).to(card)
+    xs = [a.clone().requires_grad_() for a in args]
+    before = fused_ffn_kernel.launches
+    fused_ffn(*xs, "gelu_tanh").backward(cot)
+    torch.cuda.synchronize()
+    assert fused_ffn_kernel.launches == before + 1
+    ys = [a.clone().requires_grad_() for a in args]
+    ffn_reference(*ys, "gelu_tanh").backward(cot)
+    for x, y in zip(xs, ys):
+        assert x.grad.dtype == torch.float32
+        _close(x.grad, y.grad, 1e-6, "K13 gradient")
+
+
+@pytest.mark.cuda
+def test_fused_ffn_kernel_rejects_what_it_does_not_take(card):
+    """C outside (256, 768), F not a multiple of 64, mismatched shapes, an
+    unknown activation, a CPU tensor among CUDA ones: a raise, no launch."""
+    def args(n, c, f):
+        return [torch.zeros(s, device=card)
+                for s in ((n, c), (c, f), (f,), (f, c), (c,))]
+    before = fused_ffn_kernel.launches
+    with pytest.raises(ValueError):                     # C = 128
+        fused_ffn_kernel(*args(8, 128, 64))
+    with pytest.raises(ValueError):                     # F = 100
+        fused_ffn_kernel(*args(8, 256, 100))
+    x, w1, b1, w2, b2 = args(8, 256, 64)
+    with pytest.raises(ValueError):                     # w2 transposed
+        fused_ffn_kernel(x, w1, b1, w2.t(), b2)
+    with pytest.raises(ValueError):
+        fused_ffn_kernel(x, w1, b1, w2, b2, "silu")
+    with pytest.raises(ValueError):                     # one CPU tensor
+        fused_ffn(x, w1, b1.cpu(), w2, b2)
+    assert fused_ffn_kernel.launches == before

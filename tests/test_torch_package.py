@@ -25,6 +25,11 @@ from class_query_vad_tpu_torch.ops.blend2d import (
     blend2d_bwd_dvol,
 )
 from class_query_vad_tpu_torch.ops.fast_deform_cuda import fused_blend2d
+from class_query_vad_tpu_torch.ops.fused_ffn import fused_ffn, fused_ffn_kernel
+from class_query_vad_tpu_torch.ops.vit_attention import (
+    flash_attention_qkv,
+    vit_attention,
+)
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "class_query_vad_tpu_torch"
@@ -51,12 +56,10 @@ def test_port_imports_no_jax(path):
         assert root not in FORBIDDEN, f"{path.name} imports {mod}"
 
 
-@pytest.mark.parametrize("name", ["fast_deform_cuda.py", "cuda_build.py",
-                                  "blend2d.py", "selective_scan.py",
-                                  "native_blend.py"])
+@pytest.mark.parametrize("name", sorted(p.name for p in (PORT / "ops").glob("*.py")))
 def test_kernel_path_has_no_try(name):
-    """No ``try`` around the build or the launch: on the card the wrapper
-    launches the kernel or raises."""
+    """No ``try`` around the build or the launch, in any module of ops/:
+    on the card a wrapper launches its kernel or raises."""
     tree = ast.parse((PORT / "ops" / name).read_text())
     assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
 
@@ -68,6 +71,32 @@ def test_wrapper_rejects_non_cpu_non_cuda_tensors():
     with pytest.raises(ValueError):
         fused_blend2d(vol, fused, 8, 1.0)
     assert fused_blend2d.launches == before
+
+
+def test_attention_and_ffn_wrappers_reject_non_cpu_non_cuda_tensors():
+    qkv = torch.empty((1, 16, 3 * 64), device="meta")
+    ffn = [torch.empty(s, device="meta")
+           for s in ((8, 256), (256, 64), (64,), (64, 256), (256,))]
+    before = (vit_attention.launches, fused_ffn_kernel.launches)
+    with pytest.raises(ValueError):
+        flash_attention_qkv(qkv, 1, 0.125)
+    with pytest.raises(ValueError):
+        fused_ffn(*ffn)
+    with pytest.raises(ValueError):      # one CPU, four meta tensors
+        fused_ffn(torch.zeros((8, 256)), *ffn[1:])
+    assert (vit_attention.launches, fused_ffn_kernel.launches) == before
+
+
+def test_attention_and_ffn_wrappers_take_cpu_tensors_to_the_plain_versions():
+    g = torch.Generator().manual_seed(0)
+    qkv = torch.randn((1, 20, 3 * 128), generator=g, requires_grad=True)
+    ffn = [torch.randn(s, generator=g, requires_grad=True)
+           for s in ((8, 256), (256, 64), (64,), (64, 256), (256,))]
+    before = (vit_attention.launches, fused_ffn_kernel.launches)
+    flash_attention_qkv(qkv, 2, 0.125).sum().backward()
+    fused_ffn(*ffn, "gelu_exact").sum().backward()
+    assert qkv.grad is not None and all(x.grad is not None for x in ffn)
+    assert (vit_attention.launches, fused_ffn_kernel.launches) == before
 
 
 def _meta_comps(shape=(1, 2, 1, 3, 4)):
@@ -207,8 +236,10 @@ def test_unported_modes_raise():
     # offset components and not on the fused K1 route
     attn = FastDeformAttn3D(window="3d", cross_level="resample")
     assert attn.nc == 3 and not attn.fused_route and not attn.native
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FastDeformAttn3D(radius=2, window="2d", cross_level="resample")
+    # FAST_RADIUS > 1 is ported (the general blend): it builds, and never
+    # takes K1's fused route, which is radius 1 only
+    attn = FastDeformAttn3D(radius=2, window="2d", cross_level="resample")
+    assert attn.nc == 2 and not attn.fused_route and attn.radius == 2
     cfg = _tiny_cfg()
     cfg.CONFIG.MODEL.ENCODER_TYPE = "attention"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
