@@ -94,16 +94,19 @@ NVIDIA card.
    the YAML's 6 encoder layers (24 launches each of K6, K8, K9): the same
    assignment, loss and gradients, as in phase 6.
 19. K12 (the ViT's softmax attention from fused qkv) against its plain
-   version at one ViT-B block of the main path (B=2, N=2560, 12 x 64) and
-   an awkward shape (B=1, N=1001), float32 and bf16; device time beside the
-   bound, the plain version and ``F.scaled_dot_product_attention``; one
-   backward through ``flash_attention_qkv`` at B=1.
+   version at one ViT-B block of the main path (B=2, N=2560, 12 x 64), an
+   awkward shape (B=1, N=1001) and a long one (B=1, N=4096), float32 and
+   bf16; its registers, shared memory and CTAs per SM; bf16 device time
+   beside the bound, the plain version, ``F.scaled_dot_product_attention``
+   and its first version's time; one backward through
+   ``flash_attention_qkv`` at B=1.
 20. K13 (the fused FFN) against its plain version at the encoder FFN's
    shapes under the 2d and 3d windows (27,200 and 108,800 tokens, 256 ->
    2048, relu) and the ViT MLP's (5,120 tokens, 768 -> 3072, exact GELU)
    and at an awkward token count, each with all three activations, float32
-   and bf16; device times beside the bound, the plain version and the
-   ``F.linear`` composition.
+   and bf16; registers, shared memory and CTAs per SM; bf16 device times
+   beside the bound, the plain version, the ``F.linear`` composition and
+   its first version's time.
 21. K12 and K13 on a full-width ``AVA22_ViT-B_fast`` model's own tensors
    (one request): ViT block 0's qkv against that block's attention module,
    encoder layer 0's FFN tokens against its ``linear2(relu(linear1(x)))``,
@@ -2011,9 +2014,12 @@ RESAMPLE_3D_TRAIN_STEPS = 5
 # the JAX package; their entry points are the ops and the bench script
 
 # K12 at one ViT-B attention block of the main path (B=2, N = 8 x 16 x 20
-# tokens, 12 heads x 64) and an awkward shape (B=1, N not a multiple of 16)
+# tokens, 12 heads x 64), an awkward shape (B=1, N not a multiple of 16)
+# and a long one (B=1, N = 4096: a 16-frame 256x512 clip, 8 x 16 x 32
+# tokens, past the 3296 tokens of K12's first version)
 K12_SHAPE = (2, 2560, 12)
 K12_AWKWARD = (1, 1001, 12)
+K12_LONG = (1, 4096, 12)
 K12_SCALE = 64 ** -0.5
 # against the plain version: float32 in another summation order; bf16: p
 # and the output rounded to bf16 after scores summed in another order (one
@@ -2024,6 +2030,11 @@ K12_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # to bf16 where K12 keeps them float32 (four roundings of 2^-9 relative,
 # and a score's own rounding, |s| 2^-9, becomes relative error of p)
 K12_MODEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
+# the times of K12's and K13's first CUDA versions (wmma, before their
+# wgmma redesign; NVIDIA H100 80GB HBM3, 700 W), bf16, printed beside this
+# run's: K12 per ViT-B block, K13 at its three shapes
+FIRST_VERSION_MS = {"K12": 1.7409, "encoder 2d": 1.3227, "encoder 3d": 4.2382,
+                    "ViT MLP": 1.5816}
 
 
 def k12_work(b: int, n: int, heads: int, itemsize: int):
@@ -2033,12 +2044,23 @@ def k12_work(b: int, n: int, heads: int, itemsize: int):
     return b * n * 4 * c * itemsize, 4 * b * heads * n * n * 64
 
 
+def print_kernel_info(name: str, tag: str, *args: int) -> None:
+    """Registers, shared memory per CTA and CTAs per SM of a kernel
+    variant, as the card runs it."""
+    from class_query_vad_tpu_torch.ops.cuda_build import kernel_info
+
+    info = kernel_info(name, *args)
+    print(f"{tag}: {info['registers']} registers, {info['smem_bytes']} B "
+          f"shared memory per CTA, {info['ctas_per_sm']} CTA(s) per SM")
+
+
 def phase_vit_attention(dev, bw, bf16_peak):
-    """K12 against its plain version at the ViT-B block shape and an awkward
-    one, float32 and bf16; device times beside the bound, the plain version
-    and ``F.scaled_dot_product_attention`` (the library yardstick); one
-    backward through ``flash_attention_qkv`` at B=1 against autograd of the
-    einsum reference."""
+    """K12 against its plain version at the ViT-B block shape, an awkward
+    one and a long one, float32 and bf16; bf16 device times beside the
+    bound, the plain version, ``F.scaled_dot_product_attention`` (the
+    library yardstick) and its first version's time; one backward through
+    ``flash_attention_qkv`` at B=1 against autograd of the einsum
+    reference."""
     from class_query_vad_tpu_torch.ops.vit_attention import (
         attention_from_qkv_ref, flash_attention_plain, flash_attention_qkv,
         vit_attention)
@@ -2050,7 +2072,9 @@ def phase_vit_attention(dev, bw, bf16_peak):
              "source": "class_query_vad_tpu_torch/csrc/vit_attention.cu",
              "replaces": "class_query_vad_tpu/ops/vit_attention.py:36",
              "launches": None, "max_abs_err": 0.0}
-    for b, n, heads in (K12_SHAPE, K12_AWKWARD):
+    print_kernel_info("vit_attention", "K12 bf16", 1)
+    print_kernel_info("vit_attention", "K12 float32", 0)
+    for b, n, heads in (K12_SHAPE, K12_AWKWARD, K12_LONG):
         for dtype in (torch.float32, torch.bfloat16):
             qkv = torch.randn((b, n, 3 * heads * 64), generator=g).to(dev, dtype)
             out = vit_attention(qkv, heads, K12_SCALE)
@@ -2067,9 +2091,17 @@ def phase_vit_attention(dev, bw, bf16_peak):
             check(ok, f"K12 disagrees with its plain version at B={b} N={n} "
                       f"{dtype}")
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
-            if (b, n, heads) != K12_SHAPE or dtype != torch.bfloat16:
+            if (b, n, heads) == K12_AWKWARD or dtype != torch.bfloat16:
                 continue
             t_k = kernel_device_ms(lambda: vit_attention(qkv, heads, K12_SCALE))
+            if (b, n, heads) == K12_LONG:
+                nbytes, ops = k12_work(b, n, heads, 2)
+                t_b = max(nbytes / bw, ops / bf16_peak) * 1e3
+                entry.update(k12_4096_ms=t_k, k12_4096_bound_ms=t_b)
+                print(f"K12 bf16 B={b}, N={n}, {heads} x 64: kernel "
+                      f"{t_k:.4f} ms, bound {t_b:.4f} ms -> "
+                      f"{ops / t_k / 1e9:.1f} TFLOP/s")
+                continue
             t_p = cuda_ms(lambda: flash_attention_plain(qkv, heads, K12_SCALE),
                           5, 1)
             lib = lambda: sdpa_attention(qkv, K12_SCALE, heads)
@@ -2084,7 +2116,9 @@ def phase_vit_attention(dev, bw, bf16_peak):
                          bound_by="bytes" if nbytes / bw >= ops / bf16_peak
                          else "operations", library_ms=t_l)
             print(f"K12 bf16 one ViT-B block (B={b}, N={n}, {heads} x 64): "
-                  f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+                  f"kernel {t_k:.4f} ms (first version "
+                  f"{FIRST_VERSION_MS['K12']:.4f} ms), "
+                  f"plain {t_p:.4f} ms, "
                   f"scaled_dot_product_attention {t_l:.4f} ms (rel err "
                   f"{lib_rel:.2e} vs the plain version), bound {t_b:.4f} ms "
                   f"({entry['bound_by']}: {nbytes / 1e6:.1f} MB, "
@@ -2142,13 +2176,14 @@ def k13_work(n: int, c: int, f: int, itemsize: int):
 
 
 def ffn_inputs(g, n, c, f, dtype, dev):
-    """x [n, c] in ``dtype``; w1 [c, f], b1, w2 [f, c], b2 float32 at the
-    Linear init's scale (the wrapper casts them)."""
+    """x [n, c], w1 [c, f], b1, w2 [f, c], b2 in ``dtype``, the weights at
+    the Linear init's scale (a bf16 model's weights are bf16: the timed
+    call then casts nothing, as the library composition does not)."""
     x = torch.randn((n, c), generator=g).to(dev, dtype)
-    w1 = (torch.randn((c, f), generator=g) / c ** 0.5).to(dev)
-    b1 = (0.1 * torch.randn((f,), generator=g)).to(dev)
-    w2 = (torch.randn((f, c), generator=g) / f ** 0.5).to(dev)
-    b2 = (0.1 * torch.randn((c,), generator=g)).to(dev)
+    w1 = (torch.randn((c, f), generator=g) / c ** 0.5).to(dev, dtype)
+    b1 = (0.1 * torch.randn((f,), generator=g)).to(dev, dtype)
+    w2 = (torch.randn((f, c), generator=g) / f ** 0.5).to(dev, dtype)
+    b2 = (0.1 * torch.randn((c,), generator=g)).to(dev, dtype)
     return x, w1, b1, w2, b2
 
 
@@ -2170,7 +2205,8 @@ def phase_fused_ffn(dev, bw, bf16_peak):
     """K13 against its plain version at the port's three FFN shapes and at
     an awkward token count, each with all three activations, float32 and
     bf16; bf16 device times (with each shape's own activation) beside the
-    bound, the plain version and the cuBLAS composition."""
+    bound, the plain version, the cuBLAS composition and the first
+    version's time."""
     from class_query_vad_tpu_torch.ops.fused_ffn import (
         ACTIVATIONS, fused_ffn_kernel, fused_ffn_plain)
 
@@ -2185,6 +2221,9 @@ def phase_fused_ffn(dev, bw, bf16_peak):
              for act in ACTIVATIONS]
     cases += [("awkward", K13_AWKWARD_N, c, f, act, False)
               for c, f in ((256, 2048), (768, 3072)) for act in ACTIVATIONS]
+    for c in (256, 768):
+        print_kernel_info("fused_ffn", f"K13 bf16 C={c}", 1, c)
+        print_kernel_info("fused_ffn", f"K13 float32 C={c}", 0, c)
     for tag, n, c, f, act, timed in cases:
         for dtype in (torch.float32, torch.bfloat16):
             args = ffn_inputs(g, n, c, f, dtype, dev)
@@ -2216,7 +2255,9 @@ def phase_fused_ffn(dev, bw, bf16_peak):
             t_b = max(nbytes / bw, ops / bf16_peak) * 1e3
             by = "bytes" if nbytes / bw >= ops / bf16_peak else "operations"
             print(f"K13 bf16 {tag} (N={n}, {c}->{f}->{c}, {act}): kernel "
-                  f"{t_k:.4f} ms, plain {t_p:.4f} ms, F.linear composition "
+                  f"{t_k:.4f} ms (first version {FIRST_VERSION_MS[tag]:.4f} "
+                  f"ms), plain "
+                  f"{t_p:.4f} ms, F.linear composition "
                   f"{t_l:.4f} ms (rel err {lib_rel:.2e}), bound {t_b:.4f} ms "
                   f"({by}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.1f} GFLOP) -> "
                   f"{ops / t_k / 1e9:.1f} TFLOP/s, {t_b / t_k:.1%} of the "

@@ -162,6 +162,21 @@ def launcher(name: str):
     return _launchers[name]
 
 
+def kernel_info(name: str, *args: int) -> Dict[str, int]:
+    """Registers per thread, shared memory bytes per CTA and CTAs per SM
+    of kernel ``name``'s variant chosen by ``args``, as the card runs it
+    (its source's C function ``<name>_info``, which K12 and K13 have)."""
+    launcher(name)
+    fn = getattr(ctypes.CDLL(str(library_path(name))), f"{name}_info")
+    fn.argtypes = [_I] * len(args) + [ctypes.POINTER(_I)]
+    fn.restype = ctypes.c_int
+    out = (_I * 3)()
+    err = fn(*args, out)
+    if err != 0:
+        raise RuntimeError(f"{name}_info failed: CUDA error {err}")
+    return {"registers": out[0], "smem_bytes": out[1], "ctas_per_sm": out[2]}
+
+
 def device_of(*tensors: torch.Tensor) -> str:
     """"cpu" when every tensor lies on the CPU, "cuda" when all lie on one
     CUDA device; raises otherwise (the wrappers' only routing rule)."""

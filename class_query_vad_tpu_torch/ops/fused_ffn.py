@@ -94,10 +94,10 @@ def fused_ffn_plain(x, w1, b1, w2, b2,
 def fused_ffn_kernel(x, w1, b1, w2, b2,
                      activation: str = "relu") -> torch.Tensor:
     """K13 on CUDA tensors: [N, C] out.  Takes C in ``KERNEL_WIDTHS``, F a
-    multiple of 64, float32 or bf16 x with rows 16-byte aligned; casts the
-    weights and biases to x's dtype (w1 and w2 then 32-byte aligned).
-    Raises on anything else.  Not
-    differentiable: ``fused_ffn`` is the entry point."""
+    multiple of 64, float32 or bf16 x, contiguous and 16-byte aligned;
+    casts the weights and biases to x's dtype (w1 and w2 then 16-byte
+    aligned).  Raises on anything else.  Not differentiable: ``fused_ffn``
+    is the entry point."""
     n, c, f = _check(x, w1, b1, w2, b2, activation)
     if c not in KERNEL_WIDTHS or f % HIDDEN_CHUNK or f == 0:
         raise ValueError(f"K13 takes C in {KERNEL_WIDTHS} and F a multiple "
@@ -108,8 +108,8 @@ def fused_ffn_kernel(x, w1, b1, w2, b2,
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("K13 takes a contiguous, 16-byte aligned x")
     w1, b1, w2, b2 = (w.to(dt).contiguous() for w in (w1, b1, w2, b2))
-    if w1.data_ptr() % 32 or w2.data_ptr() % 32:
-        raise ValueError("K13 reads w1 and w2 as 32-byte aligned tiles")
+    if w1.data_ptr() % 16 or w2.data_ptr() % 16:
+        raise ValueError("K13's tensor maps take 16-byte aligned w1 and w2")
     out = torch.empty((n, c), dtype=dt, device=x.device)
     if n:
         launch("fused_ffn", x.device, x.data_ptr(), w1.data_ptr(),

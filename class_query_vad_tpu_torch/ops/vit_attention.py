@@ -9,8 +9,8 @@ it and its design are in that file's header.
 
 Layout (the JAX package's): fused ``qkv`` [B, N, 3C] with q | k | v along
 the last axis and head h at lanes [h*D, (h+1)*D) of each third; output [B,
-N, C].  The kernel takes D = 64 (ViT-B) and any N whose 16 score rows fit in
-a block's shared memory (``max_tokens``).
+N, C].  The kernel takes D = 64 (ViT-B) and any N: it streams K and V
+through shared memory twice and keeps no score row (``kernel_shape``).
 
 As in the JAX package, no model path calls it: the port's ViT keeps its
 eager attention (``models/vit.py``), and the one entry point is
@@ -31,8 +31,7 @@ import torch
 from .cuda_build import device_of, launch
 
 HEAD_DIM = 64
-_ROWS = 16                    # query rows per block (csrc/vit_attention.cu)
-_SMEM_LIMIT = 232_448         # bytes of shared memory a block can use (H100)
+_GRID_LIMIT = 65535           # CUDA's grid y / z: heads and batch
 
 
 def split_qkv(qkv: torch.Tensor, num_heads: int):
@@ -67,52 +66,62 @@ def attention_from_qkv_ref(qkv: torch.Tensor, num_heads: int,
     return merge_heads(p @ v)
 
 
-def flash_attention_plain(qkv: torch.Tensor, num_heads: int,
-                          scale: float) -> torch.Tensor:
+def flash_attention_plain(qkv: torch.Tensor, num_heads: int, scale: float,
+                          keys_per_tile: int | None = None) -> torch.Tensor:
     """Plain PyTorch version of K12, in ``_flash_kernel``'s order (:44-56):
     the scores a float32 dot times the scale, the max and the sum in
     float32, p = e / sum rounded to the v dtype, and p v accumulated in
-    float32, then cast.  Any device."""
+    float32, then cast.  ``keys_per_tile`` takes the card kernel's pass 1
+    order instead of the whole row's: the max m and the sum l by the
+    running recurrence over tiles of that many keys (l rescaled by
+    exp(m_old - m_new) when m grows), then p = exp(s - m) / l.  Any
+    device."""
     q, k, v = split_qkv(qkv, num_heads)
     s = (q.float() @ k.float().transpose(-2, -1)) * scale
-    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    p = (e / e.sum(dim=-1, keepdim=True)).to(v.dtype)
-    return merge_heads((p.float() @ v.float()).to(qkv.dtype))
+    if keys_per_tile is None:
+        e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        p = e / e.sum(dim=-1, keepdim=True)
+    else:
+        m = torch.full_like(s[..., :1], -torch.inf)
+        l = torch.zeros_like(m)
+        for j0 in range(0, s.shape[-1], keys_per_tile):
+            tile = s[..., j0:j0 + keys_per_tile]
+            m_new = torch.maximum(m, tile.amax(dim=-1, keepdim=True))
+            l = l * torch.exp(m - m_new) + torch.exp(tile - m_new).sum(
+                dim=-1, keepdim=True)
+            m = m_new
+        p = torch.exp(s - m) / l
+    return merge_heads((p.to(v.dtype).float() @ v.float()).to(qkv.dtype))
 
 
-def smem_bytes(n: int, dtype: torch.dtype) -> int:
-    """Dynamic shared memory of one K12 block (csrc/vit_attention.cu): the
-    16 float32 score rows, then the K/V staging tile and the Q tile."""
-    pitch = -(-n // 16) * 16 + 4
-    if dtype == torch.bfloat16:
-        return _ROWS * pitch * 4 + (128 + _ROWS) * (HEAD_DIM + 8) * 2
-    return _ROWS * pitch * 4 + (_ROWS * HEAD_DIM + 64 * (HEAD_DIM + 1)) * 4
-
-
-def max_tokens(dtype: torch.dtype) -> int:
-    """The largest N whose score rows fit in a block."""
-    n = 16
-    while smem_bytes(n + 16, dtype) <= _SMEM_LIMIT:
-        n += 16
-    return n
+def kernel_shape(shape, num_heads: int):
+    """(B, N, C) of a fused qkv ``shape`` [B, N, 3C] that K12 takes: head
+    dim 64, any N, B and ``num_heads`` up to the grid's 65535.  Raises
+    ValueError otherwise.  Pure Python: the wrapper's shape rules."""
+    if len(shape) != 3 or num_heads < 1 or shape[-1] % (3 * num_heads):
+        raise ValueError(f"qkv must be [B, N, 3C] with C a multiple of "
+                         f"num_heads={num_heads}; got {tuple(shape)}")
+    b, n, c3 = shape
+    c = c3 // 3
+    if c // num_heads != HEAD_DIM:
+        raise ValueError(f"K12 takes head dim {HEAD_DIM}; got {c // num_heads}")
+    if b > _GRID_LIMIT or num_heads > _GRID_LIMIT:
+        raise ValueError(f"K12 takes batch and heads up to {_GRID_LIMIT}; got "
+                         f"{b} and {num_heads}")
+    return b, n, c
 
 
 def vit_attention(qkv: torch.Tensor, num_heads: int,
                   scale: float) -> torch.Tensor:
     """K12 on a CUDA tensor: out [B, N, C] from fused qkv [B, N, 3C].  Takes
-    D = 64, N up to ``max_tokens``, float32 or bf16, contiguous and 16-byte
-    aligned; raises on anything else.  Not differentiable:
-    ``flash_attention_qkv`` is the entry point."""
-    split_qkv(qkv, num_heads)
-    b, n, c3 = qkv.shape
-    c = c3 // 3
-    if c // num_heads != HEAD_DIM:
-        raise ValueError(f"K12 takes head dim {HEAD_DIM}; got {c // num_heads}")
+    the shapes ``kernel_shape`` takes, a positive scale, float32 or bf16,
+    contiguous and 16-byte aligned; raises on anything else.  Not
+    differentiable: ``flash_attention_qkv`` is the entry point."""
+    b, n, c = kernel_shape(qkv.shape, num_heads)
+    if not scale > 0:
+        raise ValueError(f"K12 takes a positive scale; got {scale}")
     if qkv.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"K12 takes float32 or bf16; got {qkv.dtype}")
-    if smem_bytes(n, qkv.dtype) > _SMEM_LIMIT:
-        raise ValueError(f"K12 keeps 16 score rows of N in shared memory: "
-                         f"N={n} exceeds {max_tokens(qkv.dtype)} in {qkv.dtype}")
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError("K12 takes a contiguous, 16-byte aligned qkv")
     out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)

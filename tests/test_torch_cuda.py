@@ -56,7 +56,6 @@ from class_query_vad_tpu_torch.ops.vit_attention import (
     attention_from_qkv_ref,
     flash_attention_plain,
     flash_attention_qkv,
-    max_tokens,
     vit_attention,
 )
 
@@ -630,17 +629,33 @@ def test_flash_attention_autograd_on_the_card(card):
     _close(x.grad, y.grad, 1e-6, "K12 gradient")
 
 
+# K12 keeps no score row, so it takes any N: 3312 is the first N past the
+# cap of its first version (16 float32 score rows in shared memory), 4096 a
+# 16-frame 256x512 clip (8 x 16 x 32 tokens), which JAX's kernel also runs
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("n", [3312, 4096])
+def test_vit_attention_takes_long_token_rows(card, dtype, tol, n):
+    g = torch.Generator().manual_seed(n)
+    qkv = torch.randn((1, n, 3 * 2 * 64), generator=g).to(card, dtype)
+    before = vit_attention.launches
+    out = vit_attention(qkv, 2, 64 ** -0.5)
+    torch.cuda.synchronize()
+    assert vit_attention.launches == before + 1
+    _close(out, flash_attention_plain(qkv, 2, 64 ** -0.5), tol, "K12")
+
+
 @pytest.mark.cuda
 def test_vit_attention_rejects_what_it_does_not_take(card):
-    """head dim != 64, N past the shared memory, a non-contiguous or
-    float16 qkv, a CPU tensor among CUDA ones: a raise, and no launch."""
+    """head dim != 64, a scale that is not positive, a non-contiguous or
+    float16 qkv: a raise, and no launch."""
     qkv = torch.zeros((1, 32, 3 * 128), device=card)
     before = vit_attention.launches
     with pytest.raises(ValueError):                     # D = 32
         vit_attention(qkv, 4, 0.1)
-    n = max_tokens(torch.float32) + 16
-    with pytest.raises(ValueError):                     # too many tokens
-        vit_attention(torch.zeros((1, n, 3 * 64), device=card), 1, 0.1)
+    with pytest.raises(ValueError):                     # the max needs scale > 0
+        vit_attention(qkv, 2, -0.1)
     with pytest.raises(ValueError):                     # not contiguous
         vit_attention(qkv[:, ::2], 2, 0.1)
     with pytest.raises(ValueError):                     # float16
