@@ -48,7 +48,9 @@ NVIDIA card.
    KD=384, L=5121, N=16] in bf16 with a float32 delta and all float32; the
    encoder's [2, 1024, 320, 4, G=4] float32) and an awkward one (L=37,
    KD=96, G=2), with and without D, delta_bias and the softplus; device
-   times and the card's lower bound.
+   times (one call = K5's three CUDA kernels: chunk summaries, carries,
+   rescan) beside the card's lower bound, the plain version and the
+   earlier, sequential version's time.
 8. The VSS eval path at full width: ``AVA22_train-mamba_VSS`` (VideoMamba-
    tiny, 24 blocks; VSS encoder, 6 layers; 6 decoder layer pairs) in bf16
    with seeded random weights serves 3 requests of [2, 16, 256, 320, 3]
@@ -62,8 +64,10 @@ NVIDIA card.
    each over the four levels at their own resolution, at B=2 with T=2
    (K10) and T=8 (K11), and an awkward 12x20 grid with a finer level, in
    float32 and bf16; device times, the card's lower bound from this run's
-   data, and the time of the ``F.grid_sample`` composition of the same
-   function (the library yardstick; no path of the port calls it).
+   data, the earlier versions' times (before K11 shared its value rows
+   across a tile of queries), and the time of the ``F.grid_sample``
+   composition of the same function (the library yardstick; no path of
+   the port calls it).
 11. ``AVA22_ViT-B_fast_native`` (native mode, 2d window, centre-frame
    slice) at full width in bf16 serves 3 requests: 24 K10 launches per
    forward and no K1 or K2; median ms/batch, stage events, busy share.
@@ -1230,6 +1234,13 @@ K5_PER_FORWARD = {K5_BACKBONE: 48, K5_ENCODER: 48}
 # bf16: y is rounded to bf16 on both sides (one ulp, 2^-8 of |y|)
 K5_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 SFU_RATE = 132 * 16 * 1.98e9     # H100 SXM: exps per second (16/clk/SM)
+# the times of K5's, K10's and K11's versions before their redesign (K5
+# sequential over L; K10 / K11 a warp per query gathering every tap), bf16,
+# printed beside this run's (NVIDIA H100 80GB HBM3, 700 W, the last call of
+# chip_smoke.py with those sources): K5 per scan shape and per VSS forward,
+# K10 / K11 per encoder layer
+EARLIER_MS = {K5_BACKBONE: 0.4360, K5_ENCODER: 0.0354, "K5": 22.626,
+              "K10": 0.1599, "K11": 1.5505}
 
 
 def k5_work(b, kd, length, ns, g, itemsize):
@@ -1319,7 +1330,8 @@ def phase_scan_kernel(dev, bw, peak):
             per_shape[shape] = (t_k, t_p, t_b,
                                 "bytes" if nbytes / bw >= ops / peak else "operations")
             print(f"K5 {str(dtype)[6:]:8s} {'x'.join(map(str, shape)):16s}: "
-                  f"kernel {t_k:.4f} ms (device, queued), plain {t_p:.2f} ms, "
+                  f"kernel {t_k:.4f} ms (device, queued; three CUDA kernels, "
+                  f"earlier version {EARLIER_MS[shape]:.4f} ms), plain {t_p:.2f} ms, "
                   f"bound {t_b:.4f} ms ({nbytes / 1e6:.1f} MB, "
                   f"{ops / 1e9:.3f} GFLOP; the {exps / 1e6:.1f} M exps alone "
                   f"{exps / SFU_RATE * 1e3:.4f} ms at the SFU rate) -> kernel at "
@@ -1331,7 +1343,8 @@ def phase_scan_kernel(dev, bw, peak):
     for s_, n_ in K5_PER_FORWARD.items():
         bound_by[per_shape[s_][3]] = bound_by.get(per_shape[s_][3], 0.0) + n_ * per_shape[s_][2]
     print(f"K5 per VSS forward (48 backbone + 48 encoder launches): kernel "
-          f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms")
+          f"{ms:.3f} ms (earlier version {EARLIER_MS['K5']:.3f} ms), plain "
+          f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms")
     return {
         "name": "selective_scan", "route": "cuda",
         "source": "class_query_vad_tpu_torch/csrc/selective_scan.cu",
@@ -1702,7 +1715,8 @@ def phase_native_kernels(dev, bw, peak):
                       f"{nbytes / t_k / 1e6:.0f} GB/s, "
                       f"{t_b / t_k:.1%} of the bound's speed")
         print(f"{k} per encoder layer (4 launches, bf16, B=2, T="
-              f"{NATIVE_T[k]}): kernel {num['ms']:.4f} ms, plain "
+              f"{NATIVE_T[k]}): kernel {num['ms']:.4f} ms (earlier version "
+              f"{EARLIER_MS[k]:.4f} ms), plain "
               f"{num['plain_ms']:.3f} ms, grid_sample composition "
               f"{num['library_ms']:.3f} ms, bound {num['bound_ms']:.4f} ms "
               f"({num['bound_ms'] / num['ms']:.1%} of the bound's speed)")

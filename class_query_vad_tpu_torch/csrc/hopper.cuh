@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels,
 // K12 (vit_attention.cu) and K13 (fused_ffn.cu): TMA copies into the
 // 128-byte swizzled shared-memory layout that wgmma reads, the mbarriers
-// that complete a ring of such tiles, and wgmma itself.
+// that complete a ring of such tiles, and wgmma itself; and the per-thread
+// cp.async copies of K5 (selective_scan.cu) and K11 (native_blend.cu).
 //
 // Layout.  A tile is a stack of 128-byte rows (64 bf16); 8 rows form a
 // 1024-byte atom in which the 16-byte chunk c of row r lives at chunk
@@ -98,6 +99,34 @@ inline bool tma_map_bf16(CUtensorMap* map, const void* base, int rank,
                 strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// ------------------------------------------------------------ cp.async
+// Per-thread asynchronous copies into shared memory (K5, K11): BYTES (4, 8
+// or 16) from `src`, of which the first `src_bytes` are read and the
+// rest are zero-filled (0 reads nothing: a masked element).  16-byte copies
+// bypass L1 (.cg).  Completion is tracked per thread in commit groups.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int src_bytes) {
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+                 "l"(src), "r"(src_bytes)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_u32(dst)),
+                 "l"(src), "n"(BYTES), "r"(src_bytes)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most `N` of this thread's commit groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // make this thread's shared-memory stores visible to the async proxy that

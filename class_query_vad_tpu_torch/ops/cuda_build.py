@@ -63,9 +63,10 @@ KERNELS = {
         "blend3d_bwd_dcomps.cu", "blend3d_bwd_dcomps_launch",
         [_P] * 10 + [_I] * 7 + [_P],
     ),
+    # u, delta, A, B, C, D, bias, y, last, scratch, strides, ints, chunk
     "selective_scan": (
         "selective_scan.cu", "selective_scan_launch",
-        [_P] * 10 + [_I] * 7 + [_P],
+        [_P] * 11 + [_I] * 8 + [_P],
     ),
     # values v0..v3, their batch strides, dx, dy, a, tables, out, ints
     "native_blend2d": (

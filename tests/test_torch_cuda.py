@@ -49,6 +49,7 @@ from class_query_vad_tpu_torch.ops.native_blend import (
     native_blend_reference,
 )
 from class_query_vad_tpu_torch.ops.selective_scan import (
+    scan_chunk,
     selective_scan,
     selective_scan_reference,
 )
@@ -296,6 +297,63 @@ def test_selective_scan_matches_plain(card, dtype, tol, shape, time_major):
             assert err <= tol * want.float().abs().max().item(), (kw.keys(), err)
 
 
+def _scan_inputs(card, dtype, b, kd, length, ns, g, layout, seed):
+    """K5's inputs laid out as the VSS path hands them over: the backbone
+    (G=1) reads u [B, KD, L], delta as a time-major view of [B, L, KD] and
+    B, C as views of the x_proj output [B, L, R + 2N] (R = 12); the
+    encoder reads delta [B, KD, L] and B, C as slices of [B, G, R + 2N, L]
+    (R = 8)."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s, np.float32)).to(card)
+    u = f(b, kd, length).to(dtype)
+    if layout == "backbone":
+        delta = (0.5 * f(b, length, kd)).transpose(1, 2)
+        dbl = f(b, length, 12 + 2 * ns).to(dtype)
+        bm = dbl[..., 12:12 + ns].transpose(1, 2)[:, None]
+        cm = dbl[..., 12 + ns:].transpose(1, 2)[:, None]
+    else:
+        delta = 0.5 * f(b, kd, length)
+        dbl = f(b, g, 8 + 2 * ns, length).to(dtype)
+        bm, cm = dbl[:, :, 8:8 + ns], dbl[:, :, 8 + ns:]
+    return u, delta, -torch.exp(f(kd, ns)), bm, cm, f(kd), f(kd) - 2.0
+
+
+# K5 parallel over L: one chunk (L <= chunk), exact multiples of the chunk,
+# one step past one, several and a remainder; float32 and bf16 at their
+# strides on the VSS path; tolerances as above
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("shape,layout", [
+    ((2, 384, 16, 1), "backbone"),
+    ((2, 1024, 4, 4), "encoder"),
+    ((1, 96, 8, 2), "encoder"),
+])
+@pytest.mark.parametrize("length", [1, 37, "chunk", "chunk+1", "3chunks+5"])
+def test_selective_scan_lengths_and_chunks(card, dtype, tol, shape, layout, length):
+    b, kd, ns, g = shape
+    if isinstance(length, str):                  # resolved against the chunk
+        c = scan_chunk(b, kd, 64, g)
+        length = {"chunk": c, "chunk+1": c + 1, "3chunks+5": 3 * c + 5}[length]
+    u, delta, a, bm, cm, d, bias = _scan_inputs(card, dtype, b, kd, length, ns, g,
+                                                layout, length)
+    for kw in (dict(D=d, delta_bias=bias, delta_softplus=True),
+               dict(delta_softplus=False)):
+        if not kw["delta_softplus"]:
+            delta = delta.abs()
+        before = selective_scan.launches
+        with torch.no_grad():
+            y, last = selective_scan(u, delta, a, bm, cm, return_last_state=True, **kw)
+        torch.cuda.synchronize()
+        assert selective_scan.launches == before + 1
+        y_p, last_p = selective_scan_reference(u, delta, a, bm, cm,
+                                               return_last_state=True, **kw)
+        assert y.dtype == dtype and torch.isfinite(y).all()
+        for got, want in ((y, y_p), (last, last_p)):
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= tol * want.float().abs().max().item(), (length, kw.keys(), err)
+
+
 @pytest.mark.cuda
 def test_selective_scan_is_forward_only_on_the_card(card):
     u = torch.randn(1, 8, 5, device=card, requires_grad=True)
@@ -343,16 +401,16 @@ def test_tiny_vss_model_card_matches_cpu(card):
         assert (g - r).abs().max().item() <= 1e-4 * max(1.0, r.abs().max().item()), k
 
 
-def _native_inputs(card, dtype, b, t, grid, vshapes, nc, seed):
+def _native_inputs(card, dtype, b, t, grid, vshapes, nc, seed, c=256):
     """Value levels as views of one flat stream (dense past the batch
     axis, as the encoder hands them over), offsets in (-1, 1) with a fifth
     on the ties -1, -0.5, 0, 0.5, 1, weights in [0, 0.3)."""
     g = torch.Generator().manual_seed(seed)
     n = sum(t * hv * wv for hv, wv in vshapes)
-    flat = torch.randn((b, n, 256), generator=g)
+    flat = torch.randn((b, n, c), generator=g)
     values, start = [], 0
     for hv, wv in vshapes:
-        values.append(flat[:, start:start + t * hv * wv].reshape(b, t, hv, wv, 256))
+        values.append(flat[:, start:start + t * hv * wv].reshape(b, t, hv, wv, c))
         start += t * hv * wv
     shape = (b, len(vshapes), t) + grid + (64,)
     comps = []
@@ -398,6 +456,27 @@ def test_native_blend_kernels_match_plain(card, dtype, tol, window, grid,
            f"native {window}")
 
 
+# K11's tiles of 8x8 queries: a grid that no tile divides, levels coarser
+# at ratios that are not powers of two and one finer than the grid, the
+# temporal border cutting T = 1, 2, 3, 8, and C = 512 (two 256-channel
+# passes, 64-channel heads); tolerances as above
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [1, 2, 3, 8])
+@pytest.mark.parametrize("c", [256, 512])
+def test_native_blend3d_tiles_frames_and_channels(card, dtype, t, c):
+    vshapes = [(13, 21), (7, 11), (4, 6), (26, 42)]
+    values, comps = _native_inputs(card, dtype, 2, t, (13, 21), vshapes, 3, t + c, c=c)
+    dx, dy, dt, a = comps
+    before = native_blend3d.launches
+    out = native_blend(values, dx, dy, a, 8, dt=dt)
+    torch.cuda.synchronize()
+    assert native_blend3d.launches == before + 1
+    assert out.shape == (2, t, 13, 21, c) and out.dtype == torch.float32
+    _close(out, native_blend_reference(values, dx, dy, a, 8, dt), 1e-5,
+           f"native 3d T={t} C={c}")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("window", ["2d", "3d"])
 def test_native_blend_gradient_on_the_card(card, window):
@@ -428,6 +507,13 @@ def test_native_blend_kernel_rejects_what_it_does_not_take(card):
         native_blend([values[0].bfloat16()], *comps, 8)
     with pytest.raises(ValueError):                     # one CPU tensor
         native_blend([values[0].cpu()], *comps, 8)
+    narrow, comps3 = _native_inputs(card, torch.float32, 1, 1, (4, 5), [(4, 5)], 3, 7,
+                                    c=128)
+    with pytest.raises(ValueError):                     # C not a multiple of 256
+        native_blend(narrow, *comps3[:2], comps3[3], 8, dt=comps3[2])
+    five, comps5 = _native_inputs(card, torch.float32, 1, 1, (4, 5), [(4, 5)] * 5, 3, 7)
+    with pytest.raises(ValueError):                     # more than 4 levels
+        native_blend(five, *comps5[:2], comps5[3], 8, dt=comps5[2])
 
 
 @pytest.mark.cuda
