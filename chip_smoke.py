@@ -82,8 +82,12 @@ NVIDIA card.
    components) against their plain versions, offsets on exact ties
    included: K6 at the four query grids over the four aligned levels, B=2,
    T=8, and at a 128x160 grid in K7's regime; K8 / K9 at B=1; float32 and
-   bf16; device times, the bound from this run's data, the plain version
-   and the grid_sample composition (trilinear; its autograd for K8 / K9).
+   bf16; device times per grid and per encoder layer, the bound from this
+   run's data, the plain version, the grid_sample composition (trilinear;
+   its autograd for K8 / K9) and, for K6 and K8, the times of their
+   versions before the redesign that gave a block an 8x8 tile and one
+   head, its value window or its halo's components and masses in shared
+   memory.
 15. ``AVA22_ViT-B_fast`` with ``FAST_WINDOW: 3d`` (the resample mode's 3d
    window: no slice, all 8 backbone frames, the common-grid decode) at full
    width in bf16 serves 3 requests: 24 K6 launches per forward and no K1
@@ -1234,13 +1238,15 @@ K5_PER_FORWARD = {K5_BACKBONE: 48, K5_ENCODER: 48}
 # bf16: y is rounded to bf16 on both sides (one ulp, 2^-8 of |y|)
 K5_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 SFU_RATE = 132 * 16 * 1.98e9     # H100 SXM: exps per second (16/clk/SM)
-# the times of K5's, K10's and K11's versions before their redesign (K5
-# sequential over L; K10 / K11 a warp per query gathering every tap), bf16,
-# printed beside this run's (NVIDIA H100 80GB HBM3, 700 W, the last call of
-# chip_smoke.py with those sources): K5 per scan shape and per VSS forward,
-# K10 / K11 per encoder layer
+# the times of K5's, K6's, K8's, K10's and K11's versions before their
+# redesign (K5 sequential over L; the others a warp per query or output
+# gathering every tap or rebuilding every mass), bf16, printed beside this
+# run's (NVIDIA H100 80GB HBM3, 700 W, the last call of chip_smoke.py with
+# those sources): K5 per scan shape and per VSS forward, K6 / K8 / K10 /
+# K11 per encoder layer, K6 in K7's regime at its one grid
 EARLIER_MS = {K5_BACKBONE: 0.4360, K5_ENCODER: 0.0354, "K5": 22.626,
-              "K10": 0.1599, "K11": 1.5505}
+              "K10": 0.1599, "K11": 1.5505, "K6": 0.7099, "K8": 1.1192,
+              "K7 regime": 1.0617}
 
 
 def k5_work(b, kd, length, ns, g, itemsize):
@@ -1744,6 +1750,18 @@ B3_K7_GRID = (128, 160)
 # after sums in another order (one bf16 ulp, 2^-8)
 B3_TOL = {"K6": {torch.float32: 1e-5, torch.bfloat16: 1e-5},
           "K8": BLEND_TOL, "K9": BLEND_TOL}
+# what each kernel's block does (the kernels line names it)
+B3_DESIGN = {
+    "K6": "8x8 query tile x one head x 4 frames (2 at small grids) per "
+          "block: value windows of 6 frames in shared memory (cp.async, "
+          "double-buffered over levels), each window row blended into every "
+          "frame it reaches, masses in registers shared by shuffles",
+    "K8": "8x8 output tile x one head per block: G window and the halo's "
+          "components in shared memory (cp.async), each tap mass built once "
+          "into a [level][neighbour][output] table, every level's d vol from "
+          "one G load per neighbour",
+    "K9": "a warp per query: per-head dots over the 27 taps, gathered rows",
+}
 
 
 def v2_vmem_mb(t, h, w, c, kp, vol_bytes=2, comp_bytes=2):
@@ -1914,7 +1932,8 @@ def phase_blend3d_kernels(dev, bw, peak):
           f"{v2_vmem_mb(B3_T, *B3_K7_GRID, K1_C, K1_KP):.1f} MB of VMEM for "
           f"the TPU's K6 > 96 MB; at 64x80 "
           f"{v2_vmem_mb(B3_T, 64, 80, K1_C, K1_KP):.1f} MB) through "
-          f"csrc/blend3d.cu: kernel {k7['ms']:.4f} ms, plain "
+          f"csrc/blend3d.cu: kernel {k7['ms']:.4f} ms (earlier version "
+          f"{EARLIER_MS['K7 regime']:.4f} ms), plain "
           f"{k7['plain_ms']:.3f} ms, grid_sample composition "
           f"{k7['library_ms']:.3f} ms, bound {k7['bound_ms']:.4f} ms")
     names = {"K6": ("blend3d_fwd", "blend3d.cu", 96, 2),
@@ -1924,8 +1943,10 @@ def phase_blend3d_kernels(dev, bw, peak):
     entries = []
     for k, (name, src, line, b) in names.items():
         n = num[k]
+        earlier = (f" (earlier version {EARLIER_MS[k]:.4f} ms)"
+                   if k in EARLIER_MS else "")
         print(f"{k} per encoder layer (4 launches, bf16, B={b}, T={B3_T}): "
-              f"kernel {n['ms']:.4f} ms, plain {n['plain_ms']:.3f} ms, "
+              f"kernel {n['ms']:.4f} ms{earlier}, plain {n['plain_ms']:.3f} ms, "
               f"grid_sample composition {n['library_ms']:.3f} ms, bound "
               f"{n['bound_ms']:.4f} ms ({n['bound_ms'] / n['ms']:.1%} of the "
               f"bound's speed)")
@@ -1936,7 +1957,7 @@ def phase_blend3d_kernels(dev, bw, peak):
             "launches": None, "max_abs_err": err[k], "ms": n["ms"],
             "plain_ms": n["plain_ms"], "bound_ms": n["bound_ms"],
             "bound_by": max(n["bound_by"], key=n["bound_by"].get),
-            "library_ms": n["library_ms"],
+            "library_ms": n["library_ms"], "design": B3_DESIGN[k],
         }
         if k == "K6":
             # the same kernel in K7's regime (the JAX package's

@@ -1,5 +1,6 @@
-// Helpers shared by the radius-1 spatial blend kernels K1-K4 (fused_blend2d.cu,
-// blend2d.cu, blend2d_bwd_dvol.cu, blend2d_bwd_dcomps.cu).
+// Helpers shared by the radius-1 blend kernels: K1-K4 (fused_blend2d.cu,
+// blend2d.cu, blend2d_bwd_dvol.cu, blend2d_bwd_dcomps.cu), K6, K8, K9
+// (blend3d*.cu) and K10 / K11 (native_blend.cu).
 //
 // Layouts (all contiguous, channels last):
 //   vol    [B, J, T, H, W, C]   value levels aligned onto the query grid
@@ -53,6 +54,36 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float v[8]) {
     const float2 f = __bfloat1622float2(h[i]);
     v[2 * i] = f.x;
     v[2 * i + 1] = f.y;
+  }
+}
+
+// 8 consecutive values as loaded (16-byte words), and as float32
+template <typename T>
+struct Raw8 {
+  uint4 w[sizeof(T) / 2];
+};
+
+template <typename T>
+__device__ __forceinline__ void fetch8(const T* p, Raw8<T>& r) {
+#pragma unroll
+  for (int i = 0; i < static_cast<int>(sizeof(T) / 2); ++i)
+    r.w[i] = reinterpret_cast<const uint4*>(p)[i];
+}
+
+template <typename T>
+__device__ __forceinline__ void unpack8(const Raw8<T>& r, float v[8]) {
+#pragma unroll
+  for (int i = 0; i < static_cast<int>(sizeof(T) / 2); ++i) {
+    const uint32_t ws[4] = {r.w[i].x, r.w[i].y, r.w[i].z, r.w[i].w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if constexpr (sizeof(T) == 2) {       // bf16 pairs, low half first
+        v[2 * k] = __uint_as_float(ws[k] << 16);
+        v[2 * k + 1] = __uint_as_float(ws[k] & 0xffff0000u);
+      } else {
+        v[4 * i + k] = __uint_as_float(ws[k]);
+      }
+    }
   }
 }
 

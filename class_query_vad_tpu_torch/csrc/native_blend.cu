@@ -247,36 +247,6 @@ constexpr int kMassBytes = kTaps3 * kMassLd * 4;
 
 constexpr int kWindowElems = 3 * kWin * kWin * kSlice;   // one level's window
 
-// 8 consecutive components as loaded (16-byte words), and as float32
-template <typename T>
-struct Raw8 {
-  uint4 w[sizeof(T) / 2];
-};
-
-template <typename T>
-__device__ __forceinline__ void fetch8(const T* p, Raw8<T>& r) {
-#pragma unroll
-  for (int i = 0; i < static_cast<int>(sizeof(T) / 2); ++i)
-    r.w[i] = reinterpret_cast<const uint4*>(p)[i];
-}
-
-template <typename T>
-__device__ __forceinline__ void unpack8(const Raw8<T>& r, float v[8]) {
-#pragma unroll
-  for (int i = 0; i < static_cast<int>(sizeof(T) / 2); ++i) {
-    const uint32_t ws[4] = {r.w[i].x, r.w[i].y, r.w[i].z, r.w[i].w};
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if constexpr (sizeof(T) == 2) {       // bf16 pairs, low half first
-        v[2 * k] = __uint_as_float(ws[k] << 16);
-        v[2 * k + 1] = __uint_as_float(ws[k] & 0xffff0000u);
-      } else {
-        v[4 * i + k] = __uint_as_float(ws[k]);
-      }
-    }
-  }
-}
-
 template <typename T>
 constexpr int k11_smem_bytes() {
   return kMassBytes + 2 * kWindowElems * static_cast<int>(sizeof(T));

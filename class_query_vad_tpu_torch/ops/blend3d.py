@@ -33,6 +33,26 @@ from torch.autograd.function import once_differentiable
 from .blend2d import check_kernel_args, hat, hat_grad
 from .cuda_build import device_of, launch
 
+# The side of the square (y, x) tile of one frame that a block of K6 or K8
+# owns (csrc/blend3d.cu, csrc/blend3d_bwd_dvol.cu): the wrappers pass it and
+# the kernels check it; tests/test_torch_blend3d_tiled.py mirrors the
+# kernels' tile, halo and table arithmetic with it.
+BLEND3D_TILE = 8
+# The most frames a block of K6 blends: it holds their window of up to
+# BLEND3D_FRAMES + 2 frames per level and blends every frame from it.
+BLEND3D_FRAMES = 4
+
+
+def k6_frames_per_block(b: int, t: int, h: int, w: int, sms: int) -> int:
+    """The frames per block K6 is launched with: ``BLEND3D_FRAMES`` (a
+    block blends each window row into every frame that reaches it), or two
+    where four would leave some of the card's ``sms`` SMs without a block
+    (the 8x10 query grid)."""
+    tiles = -(-h // BLEND3D_TILE) * -(-w // BLEND3D_TILE)
+    blocks = b * -(-t // BLEND3D_FRAMES) * tiles * 8
+    return BLEND3D_FRAMES if blocks >= sms else BLEND3D_FRAMES // 2
+
+
 # _TAPS[s] = (it, ih, iw): tap s = it * 9 + ih * 3 + iw shifts by
 # (it - 1, ih - 1, iw - 1) in (t, y, x), and reads a padded tensor's window
 # starting at (it, ih, iw)
@@ -192,9 +212,11 @@ def blend3d_fwd(vol, dx, dy, dt, a, nh: int = 8) -> torch.Tensor:
     check_kernel_args(nh, c, jl, vol.dtype,
                       {"vol": vol, "dx": dx, "dy": dy, "dt": dt, "a": a})
     out = torch.empty((b, t, h, w, c), dtype=torch.float32, device=vol.device)
+    sms = torch.cuda.get_device_properties(vol.device).multi_processor_count
     launch("blend3d", vol.device, vol.data_ptr(), dx.data_ptr(),
            dy.data_ptr(), dt.data_ptr(), a.data_ptr(), out.data_ptr(),
-           int(vol.dtype == torch.bfloat16), b, jl, t, h, w, kp // nh)
+           int(vol.dtype == torch.bfloat16), b, jl, t, h, w, kp // nh,
+           BLEND3D_TILE, k6_frames_per_block(b, t, h, w, sms))
     blend3d_fwd.launches += 1
     return out
 
@@ -219,7 +241,8 @@ def blend3d_bwd_dvol(dx, dy, dt, a, g, vol_dtype: torch.dtype,
     dvol = torch.empty((b, jl, t, h, w, c), dtype=vol_dtype, device=dx.device)
     launch("blend3d_bwd_dvol", dx.device, dx.data_ptr(), dy.data_ptr(),
            dt.data_ptr(), a.data_ptr(), g.data_ptr(), dvol.data_ptr(),
-           int(dx.dtype == torch.bfloat16), b, jl, t, h, w, kp // nh)
+           int(dx.dtype == torch.bfloat16), b, jl, t, h, w, kp // nh,
+           BLEND3D_TILE)
     blend3d_bwd_dvol.launches += 1
     return dvol
 

@@ -48,15 +48,15 @@ KERNELS = {
         "blend2d_bwd_dcomps.cu", "blend2d_bwd_dcomps_launch",
         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     ),
-    # vol, dx, dy, dt, a, out, ints
+    # vol, dx, dy, dt, a, out, ints, tile, frames per block
     "blend3d": (
         "blend3d.cu", "blend3d_launch",
-        [_P] * 6 + [_I] * 7 + [_P],
+        [_P] * 6 + [_I] * 9 + [_P],
     ),
-    # dx, dy, dt, a, g, dvol, ints
+    # dx, dy, dt, a, g, dvol, ints, tile
     "blend3d_bwd_dvol": (
         "blend3d_bwd_dvol.cu", "blend3d_bwd_dvol_launch",
-        [_P] * 6 + [_I] * 7 + [_P],
+        [_P] * 6 + [_I] * 8 + [_P],
     ),
     # vol, dx, dy, dt, a, g, ddx, ddy, ddt, da, ints
     "blend3d_bwd_dcomps": (

@@ -49,11 +49,12 @@ def kernel_table(root: Path) -> dict:
     return module.KERNELS
 
 
-def build(root: Path, out_dir: Path) -> dict:
-    """The C launchers of K5, K10 and K11 built from ``root``'s sources."""
+def build(root: Path, out_dir: Path, names=SOURCES) -> dict:
+    """The C launchers of the kernels ``names`` (K5, K10 and K11 unless
+    told) built from ``root``'s sources."""
     table = kernel_table(root)
     procs = {}
-    for name in SOURCES:
+    for name in names:
         source = table[name][0]
         if source in procs:
             continue
@@ -69,7 +70,7 @@ def build(root: Path, out_dir: Path) -> dict:
             raise RuntimeError(f"nvcc failed for {root}'s {source}:\n{log}")
         libs[source] = ctypes.CDLL(str(so))
     launchers = {}
-    for name in SOURCES:
+    for name in names:
         source, fn_name, argtypes = table[name]
         fn = getattr(libs[source], fn_name)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int

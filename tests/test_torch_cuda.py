@@ -572,15 +572,24 @@ def _comps3d(card, dtype, b, jl, thw, points, seed, ties=False):
 # float32, in bf16 too (no rounding of the masses), so only the order
 # differs; K8/K9's bf16 outputs are rounded to bf16 after sums in another
 # order (one ulp, 2^-8).  The 128x160 grid at T=8 is K7's regime in the
-# JAX package (`_v2_vmem_mb` ~128 MB > 96 MB in bf16).
+# JAX package (`_v2_vmem_mb` ~128 MB > 96 MB in bf16).  K6 and K8 tile the
+# grid by 8x8 (BLEND3D_TILE): 9x9 is one past a tile on both axes, 1x17 a
+# single row of ragged tiles; K8 stages the components in chunks of 8
+# points, copied 16, 8, 4 or 2 bytes at a time (P = 12: two chunks; P = 3
+# in bf16: 2-byte copies).
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 1e-2)])
 @pytest.mark.parametrize("b,jl,thw,points,ties", [
     (2, 4, (3, 7, 9), 8, False), (2, 4, (3, 7, 9), 8, True),
     (1, 2, (8, 16, 20), 8, True), (2, 3, (1, 1, 5), 4, False),
-    (1, 1, (8, 128, 160), 8, True)],
-    ids=["7x9", "7x9-ties", "16x20-ties", "1x5-T1", "k7-regime"])
+    (1, 1, (8, 128, 160), 8, True), (1, 4, (2, 9, 9), 8, True),
+    (2, 2, (3, 1, 17), 8, True), (1, 1, (2, 10, 13), 8, True),
+    (1, 2, (2, 10, 13), 8, False), (1, 3, (2, 10, 13), 8, True),
+    (1, 4, (2, 10, 13), 8, False), (1, 3, (3, 9, 11), 12, True),
+    (1, 2, (2, 5, 9), 3, True)],
+    ids=["7x9", "7x9-ties", "16x20-ties", "1x5-T1", "k7-regime", "9x9",
+         "1x17", "J1-T2", "J2-T2", "J3-T2", "J4-T2", "P12", "P3"])
 def test_blend3d_kernels_match_plain(card, dtype, tol, b, jl, thw, points,
                                      ties):
     (vol, dx, dy, dt, a), g = _comps3d(card, dtype, b, jl, thw, points, 8,
@@ -599,6 +608,25 @@ def test_blend3d_kernels_match_plain(card, dtype, tol, b, jl, thw, points,
                              "K9 da"), (dvol, *grads), want):
         assert got.dtype == dtype, name
         _close(got, w, tol, name)
+
+
+# K6 blends 1-4 frames per block (ops/blend3d.py k6_frames_per_block picks
+# them from the grid): each count, T not a multiple of it, ragged tiles
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("frames", [1, 2, 3, 4])
+@pytest.mark.parametrize("jl,thw", [(4, (5, 9, 9)), (3, (3, 12, 17))])
+def test_blend3d_k6_frames_per_block(card, monkeypatch, dtype, frames, jl,
+                                     thw):
+    from class_query_vad_tpu_torch.ops import blend3d as b3
+    (vol, dx, dy, dt, a), _ = _comps3d(card, dtype, 2, jl, thw, 8, 11,
+                                       ties=True)
+    monkeypatch.setattr(b3, "k6_frames_per_block", lambda *args: frames)
+    before = blend3d_fwd.launches
+    out = blend3d_fwd(vol, dx, dy, dt, a, 8)
+    torch.cuda.synchronize()
+    assert blend3d_fwd.launches == before + 1
+    _close(out, blend3d_reference(vol, dx, dy, dt, a, 8), 1e-5, "K6")
 
 
 @pytest.mark.cuda
