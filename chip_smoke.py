@@ -64,8 +64,8 @@ NVIDIA card.
    each over the four levels at their own resolution, at B=2 with T=2
    (K10) and T=8 (K11), and an awkward 12x20 grid with a finer level, in
    float32 and bf16; device times, the card's lower bound from this run's
-   data, the earlier versions' times (before K11 shared its value rows
-   across a tile of queries), and the time of the ``F.grid_sample``
+   data, the earlier versions' times (before K11, then K10, shared their
+   value rows across a tile of queries), and the time of the ``F.grid_sample``
    composition of the same function (the library yardstick; no path of
    the port calls it).
 11. ``AVA22_ViT-B_fast_native`` (native mode, 2d window, centre-frame
@@ -84,10 +84,9 @@ NVIDIA card.
    T=8, and at a 128x160 grid in K7's regime; K8 / K9 at B=1; float32 and
    bf16; device times per grid and per encoder layer, the bound from this
    run's data, the plain version, the grid_sample composition (trilinear;
-   its autograd for K8 / K9) and, for K6 and K8, the times of their
-   versions before the redesign that gave a block an 8x8 tile and one
-   head, its value window or its halo's components and masses in shared
-   memory.
+   its autograd for K8 / K9) and the times of their versions before the
+   redesign that gave a block an 8x8 tile and one head, its value window
+   (K6, K9) or its halo's components and masses (K8) in shared memory.
 15. ``AVA22_ViT-B_fast`` with ``FAST_WINDOW: 3d`` (the resample mode's 3d
    window: no slice, all 8 backbone frames, the common-grid decode) at full
    width in bf16 serves 3 requests: 24 K6 launches per forward and no K1
@@ -1238,15 +1237,31 @@ K5_PER_FORWARD = {K5_BACKBONE: 48, K5_ENCODER: 48}
 # bf16: y is rounded to bf16 on both sides (one ulp, 2^-8 of |y|)
 K5_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 SFU_RATE = 132 * 16 * 1.98e9     # H100 SXM: exps per second (16/clk/SM)
-# the times of K5's, K6's, K8's, K10's and K11's versions before their
-# redesign (K5 sequential over L; the others a warp per query or output
-# gathering every tap or rebuilding every mass), bf16, printed beside this
-# run's (NVIDIA H100 80GB HBM3, 700 W, the last call of chip_smoke.py with
-# those sources): K5 per scan shape and per VSS forward, K6 / K8 / K10 /
-# K11 per encoder layer, K6 in K7's regime at its one grid
+# the times of K5's, K6's, K8's, K9's, K10's and K11's versions before
+# their redesign (K5 sequential over L; the others a warp per query or
+# output gathering every tap or rebuilding every mass), bf16, printed
+# beside this run's (NVIDIA H100 80GB HBM3, 700 W, the last call of
+# chip_smoke.py with those sources): K5 per scan shape and per VSS forward,
+# K6 / K8 / K9 / K10 / K11 per encoder layer, K6 in K7's regime at its one
+# grid
 EARLIER_MS = {K5_BACKBONE: 0.4360, K5_ENCODER: 0.0354, "K5": 22.626,
-              "K10": 0.1599, "K11": 1.5505, "K6": 0.7099, "K8": 1.1192,
-              "K7 regime": 1.0617}
+              "K10": 0.1592, "K11": 1.5505, "K6": 0.7099, "K8": 1.1192,
+              "K9": 0.6466, "K7 regime": 1.0617}
+# K9's and K10's warp-per-query versions per query grid (64x80 .. 8x10),
+# bf16: the mean of two turns each in one call of
+# ``class_query_vad_tpu_torch.scripts.compare_k9_k10`` against those
+# sources (NVIDIA H100 80GB HBM3, 700 W)
+EARLIER_GRID_MS = {"K9": (0.4504, 0.1243, 0.0438, 0.0279),
+                   "K10": (0.0930, 0.0307, 0.0185, 0.0169)}
+
+
+def earlier_at(k: str, grid) -> str:
+    """`` (earlier version x ms)`` for kernel ``k`` at one of the four
+    query grids, where it is known."""
+    if k not in EARLIER_GRID_MS or tuple(grid) not in K1_LEVELS:
+        return ""
+    return (f" (earlier version "
+            f"{EARLIER_GRID_MS[k][K1_LEVELS.index(tuple(grid))]:.4f} ms)")
 
 
 def k5_work(b, kd, length, ns, g, itemsize):
@@ -1519,6 +1534,14 @@ VSS_MODEL_TOL = 2e-3
 # runs on the centre-frame slice's 2 frames, the 3d window on all 8
 NATIVE_GRIDS = K1_LEVELS
 NATIVE_T = {"K10": 2, "K11": 8}
+# what each kernel's block does (the kernels line names it); one kernel,
+# templated on the temporal taps
+NATIVE_DESIGN = {
+    k: f"8x8 query tile x 32 channels x one frame per block: value windows "
+       f"of {n} frame{'s' * (n > 1)} in shared memory (cp.async, "
+       f"double-buffered over levels), a [tap][query] mass table of "
+       f"{16 * n} taps, finer levels gathered"
+    for k, n in (("K10", 1), ("K11", 3))}
 # an awkward grid: 12x20 queries (not a multiple of 8), levels at ratios 1,
 # 2 and 4 and one finer level (24x40), T=3
 NATIVE_AWKWARD = ((12, 20), [(12, 20), (6, 10), (3, 5), (24, 40)], 3)
@@ -1714,7 +1737,8 @@ def phase_native_kernels(dev, bw, peak):
                                ("bound_ms", t_b), ("library_ms", t_l)):
                     num[key] += x
                 print(f"{k} bf16     B=2 T={t} {grid[0]:3d}x{grid[1]:<3d}: kernel "
-                      f"{t_k:.4f} ms (device, queued), plain {t_p:.3f} ms, "
+                      f"{t_k:.4f} ms (device, queued){earlier_at(k, grid)}, "
+                      f"plain {t_p:.3f} ms, "
                       f"grid_sample composition {t_l:.3f} ms (matches the "
                       f"plain version to {rel_lib:.1e}), bound {t_b:.4f} ms "
                       f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP) -> "
@@ -1733,7 +1757,7 @@ def phase_native_kernels(dev, bw, peak):
             "launches": None, "max_abs_err": max_err, "ms": num["ms"],
             "plain_ms": num["plain_ms"], "bound_ms": num["bound_ms"],
             "bound_by": max(num["bound_by"], key=num["bound_by"].get),
-            "library_ms": num["library_ms"],
+            "library_ms": num["library_ms"], "design": NATIVE_DESIGN[k],
         })
     return entries
 
@@ -1760,7 +1784,11 @@ B3_DESIGN = {
           "components in shared memory (cp.async), each tap mass built once "
           "into a [level][neighbour][output] table, every level's d vol from "
           "one G load per neighbour",
-    "K9": "a warp per query: per-head dots over the 27 taps, gathered rows",
+    "K9": "8x8 query tile x one head x 4 frames (2 at small grids) per "
+          "block, as K6: G tile and value windows of 6 frames in shared "
+          "memory (cp.async, double-buffered over levels), each window row "
+          "dotted with the G of every frame it reaches, a reduce-scatter "
+          "over the query's 4 lanes, then each (query, frame) lane's points",
 }
 
 
@@ -1914,7 +1942,8 @@ def phase_blend3d_kernels(dev, bw, peak):
                                ("bound_ms", t_b), ("library_ms", t_l)):
                     n[key] += x
                 print(f"{k} bf16     B={b} T={B3_T} {h:3d}x{w:<3d}: kernel "
-                      f"{t_k:.4f} ms (device, queued), plain {t_p:.3f} ms, "
+                      f"{t_k:.4f} ms (device, queued){earlier_at(k, (h, w))}, "
+                      f"plain {t_p:.3f} ms, "
                       f"grid_sample composition {t_l:.3f} ms ("
                       + (f"vs the plain version {rel_lib:.1e}"
                          if rel_lib is not None else "not compared: its "

@@ -32,12 +32,15 @@ from ..utils.lr_scheduler import build_scheduler
 
 def backbone_freeze_labels(model: nn.Module, cfg) -> Dict[str, str]:
     """{parameter name: "frozen" | "trainable"}, the reference's
-    ``tune_point`` freezing of a pretrained ViT (the JAX package's labels,
-    train.py:34): ``patch_embed``, every norm of the trunk and the blocks
-    with index <= TUNE_POINT — only when ``PRETRAINED`` and TUNE_POINT > 0."""
+    ``tune_point`` freezing (the JAX package's labels, train.py:37-101):
+    for a pretrained ViT (``BACKBONE_NAME`` "ViT", ``PRETRAINED`` and
+    TUNE_POINT > 0) ``patch_embed``, every norm of the trunk and the
+    blocks with index <= TUNE_POINT; every other backbone freezes nothing
+    (the port has no CSN, whose stages JAX freezes)."""
     mc = cfg.CONFIG.MODEL
     tune = int(mc.get("TUNE_POINT", 0))
-    active = bool(mc.get("PRETRAINED", False)) and tune > 0
+    active = (mc.BACKBONE_NAME == "ViT" and bool(mc.get("PRETRAINED", False))
+              and tune > 0)
 
     def frozen(name: str) -> bool:
         keys = name.split(".")

@@ -27,6 +27,11 @@
   one launch per query grid of K10 (2d) or K11 (3d) over every level at
   its own resolution (``ops.native_blend.native_blend``).
 
+``MODEL.FAST_USE_PALLAS: false`` (``use_kernels=False``) keeps every
+route but takes each one's plain version on any device, its backward too,
+as the JAX package's flag takes its XLA-oracle blend (fast_encoder.py:172);
+the default sends CUDA tensors to the kernels.
+
 All are differentiable: the radius-1 resample routes' backward runs K3 and
 K4 (2d) or K8 and K9 (3d), the general-radius and native routes' are the
 VJPs of their plain versions, as in the JAX package.  As in JAX, the
@@ -81,7 +86,8 @@ class FastDeformAttn3D(nn.Module):
 
     def __init__(self, d_model: int = 256, n_levels: int = 4,
                  n_heads: int = 8, n_points: int = 8, radius: int = 1,
-                 window: str = "2d", cross_level: str = "resample"):
+                 window: str = "2d", cross_level: str = "resample",
+                 use_kernels: bool = True):
         super().__init__()
         if window not in ("2d", "3d") or cross_level not in ("resample",
                                                              "native"):
@@ -92,6 +98,7 @@ class FastDeformAttn3D(nn.Module):
             raise ValueError("cross_level='native' supports radius=1 only")
         self.d_model, self.n_levels = d_model, n_levels
         self.n_heads, self.n_points, self.radius = n_heads, n_points, radius
+        self.use_kernels = use_kernels
         self.nc = 3 if window == "3d" else 2
         # the JAX package's fused-route conditions (fast_encoder.py:175-176)
         self.fused_route = (not self.native and self.nc == 2 and radius == 1
@@ -110,6 +117,7 @@ class FastDeformAttn3D(nn.Module):
     def forward(self, src: torch.Tensor, pos: torch.Tensor, shapes: Shapes,
                 mask: torch.Tensor | None) -> torch.Tensor:
         nh, nl, np_, nc = self.n_heads, self.n_levels, self.n_points, self.nc
+        kernels = self.use_kernels
         kp = nh * np_
         n_off = nl * nc * kp
         b = src.shape[0]
@@ -148,7 +156,8 @@ class FastDeformAttn3D(nn.Module):
                 comps = fused_components(fused_levels[i].contiguous(), nl, nh,
                                          float(self.radius), nc)
                 out = native_blend(values, comps[0], comps[1], comps[-1], nh,
-                                   dt=comps[2] if nc == 3 else None)
+                                   dt=comps[2] if nc == 3 else None,
+                                   kernels=kernels)
                 outs.append(out.to(dt).reshape(b, t * h * w, self.d_model))
             return self.output_proj(torch.cat(outs, dim=1))
 
@@ -159,11 +168,13 @@ class FastDeformAttn3D(nn.Module):
             vol = torch.stack(aligned_all[i], dim=1)        # [B, J, T, H, W, C]
             lanes = fused_levels[i].contiguous()
             if self.fused_route:
-                out = fused_blend2d(vol, lanes, nh, float(self.radius))
+                out = fused_blend2d(vol, lanes, nh, float(self.radius),
+                                    kernels=kernels)
             else:
                 comps = fused_components(lanes, nl, nh, float(self.radius), nc)
                 if self.radius == 1:
-                    out = (blend3d if nc == 3 else blend2d)(vol, *comps, nh)
+                    out = (blend3d if nc == 3 else blend2d)(vol, *comps, nh,
+                                                            kernels)
                 else:
                     out = self._general_radius(aligned_all[i], comps)
             outs.append(out.to(dt).reshape(b, t * h * w, self.d_model))
@@ -195,11 +206,12 @@ class FastEncoderLayer(nn.Module):
     def __init__(self, d_model: int = 256, d_ffn: int = 2048,
                  n_levels: int = 4, n_heads: int = 8, n_points: int = 8,
                  radius: int = 1, window: str = "2d",
-                 cross_level: str = "resample", dropout: float = 0.1):
+                 cross_level: str = "resample", dropout: float = 0.1,
+                 use_kernels: bool = True):
         super().__init__()
         self.self_attn = FastDeformAttn3D(d_model, n_levels, n_heads,
                                           n_points, radius, window,
-                                          cross_level)
+                                          cross_level, use_kernels)
         self.dropout1 = nn.Dropout(dropout)
         self.norm1 = LayerNorm(d_model)
         self.linear1 = Linear(d_model, d_ffn)
@@ -220,11 +232,13 @@ class FastDeformableEncoder(nn.Module):
     def __init__(self, num_layers: int = 6, d_model: int = 256,
                  d_ffn: int = 2048, n_levels: int = 4, n_heads: int = 8,
                  n_points: int = 8, radius: int = 1, window: str = "2d",
-                 cross_level: str = "resample", dropout: float = 0.1):
+                 cross_level: str = "resample", dropout: float = 0.1,
+                 use_kernels: bool = True):
         super().__init__()
         self.layers = nn.ModuleList(
             FastEncoderLayer(d_model, d_ffn, n_levels, n_heads, n_points,
-                             radius, window, cross_level, dropout)
+                             radius, window, cross_level, dropout,
+                             use_kernels)
             for _ in range(num_layers)
         )
 

@@ -54,9 +54,9 @@ class ModelSpec:
     # centre-frame encoder slice (exact; see transformer.DABTransformer
     # .eff_slice) — MODEL.FAST_EFF_SLICE
     fast_eff_slice: bool = True
-    # MODEL.FAST_USE_PALLAS=False forces the XLA-oracle blend path (same
-    # function, no Mosaic kernels) — for A/B debugging and tiny shapes
-    # below the kernels' tile minima
+    # MODEL.FAST_USE_PALLAS=False takes the fast encoder's plain PyTorch
+    # blends on any device (same function, no CUDA kernels), as the JAX
+    # package takes its XLA-oracle blend: the A/B switch for debugging
     fast_use_pallas: bool = True
     decoder_type: str = "attention"
     # serving compute dtype for the DAB decoder (Dense/LN/conv matmuls).

@@ -118,6 +118,7 @@ class DABTransformer(nn.Module):
                 s.enc_layers, s.d_model, s.dim_feedforward,
                 s.num_feature_levels, s.nhead, s.enc_n_points, s.fast_radius,
                 s.fast_window, s.fast_cross_level, s.dropout,
+                s.fast_use_pallas,
             )
         elif s.encoder_type in ("ssm", "vssm"):
             from .ssm_encoder import SSMEncoder

@@ -16,7 +16,9 @@ output and its cotangent G float32 [B, T, H, W, C].
 Each wrapper takes CPU tensors to its plain version and CUDA tensors to its
 kernel; anything else raises.  There is no fallback: on the card a wrapper
 launches its kernel or raises.  Each counts its launches in ``.launches``.
-The kernels take nh=8, C=256, 1<=J<=4 and any P.
+The kernels take nh=8, C=256, 1<=J<=4 and any P.  ``blend2d`` with
+``kernels=False`` (the configuration's ``MODEL.FAST_USE_PALLAS: false``)
+takes the plain versions on any device, backward included.
 
 Gradients follow XLA's subgradient conventions, as the JAX package's
 kernels do (``hat_grad``), not torch autograd's of ``abs``/``clamp``.
@@ -192,10 +194,12 @@ def blend2d_backward_reference(vol: torch.Tensor, dx: torch.Tensor,
 # kernel wrappers
 # --------------------------------------------------------------------------
 
-def _blend2d_forward(vol, dx, dy, a, nh: int) -> torch.Tensor:
-    """K2 on CUDA tensors, the plain version on CPU tensors."""
+def _blend2d_forward(vol, dx, dy, a, nh: int,
+                     kernels: bool = True) -> torch.Tensor:
+    """K2 on CUDA tensors, the plain version on CPU tensors or when not
+    ``kernels``."""
     b, jl, t, h, w, c, kp = _shapes(vol, dx, dy, a, nh)
-    if device_of(vol, dx, dy, a) == "cpu":
+    if device_of(vol, dx, dy, a) == "cpu" or not kernels:
         return blend2d_reference(vol, dx, dy, a, nh)
     check_kernel_args(nh, c, jl, vol.dtype,
                       {"vol": vol, "dx": dx, "dy": dy, "a": a})
@@ -252,13 +256,15 @@ def blend2d_bwd_dcomps(vol, dx, dy, a, g, nh: int = 8):
 
 
 def blend2d_backward(vol, dx, dy, a, g, nh: int = 8, need_vol: bool = True,
-                     need_comps: bool = True):
+                     need_comps: bool = True, kernels: bool = True):
     """(dvol, ddx, ddy, da) for the float32 cotangent g through K3 and K4
-    (their plain versions on the CPU); a part not needed is None."""
+    (their plain versions on the CPU or when not ``kernels``); a part not
+    needed is None."""
     g = g.float().contiguous()
-    dvol = (blend2d_bwd_dvol(dx, dy, a, g, vol.dtype, nh) if need_vol
-            else None)
-    comps = (blend2d_bwd_dcomps(vol, dx, dy, a, g, nh) if need_comps
+    dvol_fn = blend2d_bwd_dvol if kernels else blend2d_bwd_dvol_reference
+    dcomps_fn = blend2d_bwd_dcomps if kernels else blend2d_bwd_dcomps_reference
+    dvol = dvol_fn(dx, dy, a, g, vol.dtype, nh) if need_vol else None
+    comps = (dcomps_fn(vol, dx, dy, a, g, nh) if need_comps
              else (None, None, None))
     return (dvol,) + tuple(comps)
 
@@ -268,10 +274,10 @@ class _Blend2d(torch.autograd.Function):
     custom_vjp, whose residuals are the inputs)."""
 
     @staticmethod
-    def forward(ctx, vol, dx, dy, a, nh):
+    def forward(ctx, vol, dx, dy, a, nh, kernels):
         ctx.save_for_backward(vol, dx, dy, a)
-        ctx.nh = nh
-        return _blend2d_forward(vol, dx, dy, a, nh)
+        ctx.nh, ctx.kernels = nh, kernels
+        return _blend2d_forward(vol, dx, dy, a, nh, kernels)
 
     @staticmethod
     @once_differentiable
@@ -280,15 +286,16 @@ class _Blend2d(torch.autograd.Function):
         need = ctx.needs_input_grad
         dvol, ddx, ddy, da = blend2d_backward(
             vol, dx, dy, a, g, ctx.nh, need_vol=need[0],
-            need_comps=any(need[1:4]))
-        return dvol, ddx, ddy, da, None
+            need_comps=any(need[1:4]), kernels=ctx.kernels)
+        return dvol, ddx, ddy, da, None, None
 
 
 def blend2d(vol: torch.Tensor, dx: torch.Tensor, dy: torch.Tensor,
-            a: torch.Tensor, nh: int = 8) -> torch.Tensor:
+            a: torch.Tensor, nh: int = 8, kernels: bool = True) -> torch.Tensor:
     """vol [B, J, T, H, W, C], dx/dy/a [B, J, T, H, W, nh*P] -> float32
-    [B, T, H, W, C], differentiable in all four inputs."""
-    return _Blend2d.apply(vol, dx, dy, a, nh)
+    [B, T, H, W, C], differentiable in all four inputs; the plain versions
+    on any device when not ``kernels``."""
+    return _Blend2d.apply(vol, dx, dy, a, nh, kernels)
 
 
 blend2d.launches = 0

@@ -19,6 +19,9 @@ Each wrapper takes CPU tensors to its plain version and CUDA tensors to its
 kernel; anything else raises.  There is no fallback: on the card a wrapper
 launches its kernel or raises.  Each counts its launches in ``.launches``.
 The kernels take nh=8, C=256, 1<=J<=4 and any P (``check_kernel_args``).
+``blend3d`` with ``kernels=False`` (the configuration's
+``MODEL.FAST_USE_PALLAS: false``) takes the plain versions on any device,
+backward included.
 
 Gradients follow XLA's subgradient conventions, as the JAX package's
 kernels do (``hat_grad``), not torch autograd's of ``abs``/``clamp``.
@@ -33,14 +36,23 @@ from torch.autograd.function import once_differentiable
 from .blend2d import check_kernel_args, hat, hat_grad
 from .cuda_build import device_of, launch
 
-# The side of the square (y, x) tile of one frame that a block of K6 or K8
-# owns (csrc/blend3d.cu, csrc/blend3d_bwd_dvol.cu): the wrappers pass it and
-# the kernels check it; tests/test_torch_blend3d_tiled.py mirrors the
-# kernels' tile, halo and table arithmetic with it.
+# The side of the square (y, x) tile of one frame that a block of K6, K8 or
+# K9 owns (csrc/blend3d.cu, csrc/blend3d_bwd_dvol.cu,
+# csrc/blend3d_bwd_dcomps.cu): the wrappers pass it and the kernels check
+# it; tests/test_torch_blend3d_tiled.py mirrors the kernels' tile, halo and
+# table arithmetic with it.
 BLEND3D_TILE = 8
-# The most frames a block of K6 blends: it holds their window of up to
-# BLEND3D_FRAMES + 2 frames per level and blends every frame from it.
+# The most frames a block of K6 or K9 serves: it holds their window of up
+# to BLEND3D_FRAMES + 2 frames per level and reads each window row once for
+# every frame that reaches it (``k6_frames_per_block``,
+# ``k9_frames_per_block``).
 BLEND3D_FRAMES = 4
+
+
+def _blocks(b: int, t: int, h: int, w: int, frames: int) -> int:
+    """Blocks of K6 or K9 at ``frames`` frames per block (8 heads)."""
+    tiles = -(-h // BLEND3D_TILE) * -(-w // BLEND3D_TILE)
+    return b * -(-t // frames) * tiles * 8
 
 
 def k6_frames_per_block(b: int, t: int, h: int, w: int, sms: int) -> int:
@@ -48,9 +60,22 @@ def k6_frames_per_block(b: int, t: int, h: int, w: int, sms: int) -> int:
     block blends each window row into every frame that reaches it), or two
     where four would leave some of the card's ``sms`` SMs without a block
     (the 8x10 query grid)."""
-    tiles = -(-h // BLEND3D_TILE) * -(-w // BLEND3D_TILE)
-    blocks = b * -(-t // BLEND3D_FRAMES) * tiles * 8
-    return BLEND3D_FRAMES if blocks >= sms else BLEND3D_FRAMES // 2
+    if _blocks(b, t, h, w, BLEND3D_FRAMES) >= sms:
+        return BLEND3D_FRAMES
+    return BLEND3D_FRAMES // 2
+
+
+def k9_frames_per_block(b: int, t: int, h: int, w: int, sms: int) -> int:
+    """The frames per block K9 is launched with: the most of 4, 2 and 1
+    whose blocks reach at least half of the card's ``sms`` SMs (each row
+    of a block's window is read once for all its frames, but a block's
+    phases run in turn, so a grid of under half the SMs' count waits on
+    its longest blocks; measured at B=1, T=8: 4 frames down to the 16x20
+    query grid, 1 at 8x10)."""
+    for frames in (BLEND3D_FRAMES, BLEND3D_FRAMES // 2):
+        if 2 * _blocks(b, t, h, w, frames) >= sms:
+            return frames
+    return 1
 
 
 # _TAPS[s] = (it, ih, iw): tap s = it * 9 + ih * 3 + iw shifts by
@@ -260,22 +285,27 @@ def blend3d_bwd_dcomps(vol, dx, dy, dt, a, g, nh: int = 8):
                       {"vol": vol, "dx": dx, "dy": dy, "dt": dt, "a": a,
                        "g": g})
     ddx, ddy, ddt, da = (torch.empty_like(dx) for _ in range(4))
+    sms = torch.cuda.get_device_properties(vol.device).multi_processor_count
     launch("blend3d_bwd_dcomps", vol.device, vol.data_ptr(), dx.data_ptr(),
            dy.data_ptr(), dt.data_ptr(), a.data_ptr(), g.data_ptr(),
            ddx.data_ptr(), ddy.data_ptr(), ddt.data_ptr(), da.data_ptr(),
-           int(vol.dtype == torch.bfloat16), b, jl, t, h, w, kp // nh)
+           int(vol.dtype == torch.bfloat16), b, jl, t, h, w, kp // nh,
+           BLEND3D_TILE, k9_frames_per_block(b, t, h, w, sms))
     blend3d_bwd_dcomps.launches += 1
     return ddx, ddy, ddt, da
 
 
 def blend3d_backward(vol, dx, dy, dt, a, g, nh: int = 8,
-                     need_vol: bool = True, need_comps: bool = True):
+                     need_vol: bool = True, need_comps: bool = True,
+                     kernels: bool = True):
     """(dvol, ddx, ddy, ddt, da) for the float32 cotangent g through K8 and
-    K9 (their plain versions on the CPU); a part not needed is None."""
+    K9 (their plain versions on the CPU or when not ``kernels``); a part
+    not needed is None."""
     g = g.float().contiguous()
-    dvol = (blend3d_bwd_dvol(dx, dy, dt, a, g, vol.dtype, nh) if need_vol
-            else None)
-    comps = (blend3d_bwd_dcomps(vol, dx, dy, dt, a, g, nh) if need_comps
+    dvol_fn = blend3d_bwd_dvol if kernels else blend3d_bwd_dvol_reference
+    dcomps_fn = blend3d_bwd_dcomps if kernels else blend3d_bwd_dcomps_reference
+    dvol = dvol_fn(dx, dy, dt, a, g, vol.dtype, nh) if need_vol else None
+    comps = (dcomps_fn(vol, dx, dy, dt, a, g, nh) if need_comps
              else (None,) * 4)
     return (dvol,) + tuple(comps)
 
@@ -285,9 +315,11 @@ class _Blend3d(torch.autograd.Function):
     custom_vjp, whose residuals are the inputs)."""
 
     @staticmethod
-    def forward(ctx, vol, dx, dy, dt, a, nh):
+    def forward(ctx, vol, dx, dy, dt, a, nh, kernels):
         ctx.save_for_backward(vol, dx, dy, dt, a)
-        ctx.nh = nh
+        ctx.nh, ctx.kernels = nh, kernels
+        if device_of(vol, dx, dy, dt, a) == "cpu" or not kernels:
+            return blend3d_reference(vol, dx, dy, dt, a, nh)
         return blend3d_fwd(vol, dx, dy, dt, a, nh)
 
     @staticmethod
@@ -295,15 +327,18 @@ class _Blend3d(torch.autograd.Function):
     def backward(ctx, g):
         need = ctx.needs_input_grad
         grads = blend3d_backward(*ctx.saved_tensors, g, ctx.nh,
-                                 need_vol=need[0], need_comps=any(need[1:5]))
-        return (*grads, None)
+                                 need_vol=need[0], need_comps=any(need[1:5]),
+                                 kernels=ctx.kernels)
+        return (*grads, None, None)
 
 
 def blend3d(vol: torch.Tensor, dx: torch.Tensor, dy: torch.Tensor,
-            dt: torch.Tensor, a: torch.Tensor, nh: int = 8) -> torch.Tensor:
+            dt: torch.Tensor, a: torch.Tensor, nh: int = 8,
+            kernels: bool = True) -> torch.Tensor:
     """vol [B, J, T, H, W, C], dx/dy/dt/a [B, J, T, H, W, nh*P] -> float32
-    [B, T, H, W, C], differentiable in all five inputs."""
-    return _Blend3d.apply(vol, dx, dy, dt, a, nh)
+    [B, T, H, W, C], differentiable in all five inputs; the plain versions
+    on any device when not ``kernels``."""
+    return _Blend3d.apply(vol, dx, dy, dt, a, nh, kernels)
 
 
 blend3d_fwd.launches = 0

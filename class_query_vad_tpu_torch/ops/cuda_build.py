@@ -58,10 +58,10 @@ KERNELS = {
         "blend3d_bwd_dvol.cu", "blend3d_bwd_dvol_launch",
         [_P] * 6 + [_I] * 8 + [_P],
     ),
-    # vol, dx, dy, dt, a, g, ddx, ddy, ddt, da, ints
+    # vol, dx, dy, dt, a, g, ddx, ddy, ddt, da, ints, tile, frames per block
     "blend3d_bwd_dcomps": (
         "blend3d_bwd_dcomps.cu", "blend3d_bwd_dcomps_launch",
-        [_P] * 10 + [_I] * 7 + [_P],
+        [_P] * 10 + [_I] * 9 + [_P],
     ),
     # u, delta, A, B, C, D, bias, y, last, scratch, strides, ints, chunk
     "selective_scan": (

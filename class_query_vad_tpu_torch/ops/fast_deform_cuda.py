@@ -8,7 +8,9 @@ what it computes, what bounds it and its design are in that file's header.
 
 ``fused_blend2d`` is differentiable.  Its forward takes a CUDA tensor to
 the kernel and a CPU tensor to ``fused_blend2d_reference``; anything else
-raises.  Its backward follows the JAX package's ``_fused2d_bwd`` (:1569):
+raises; ``kernels=False`` (the configuration's ``MODEL.FAST_USE_PALLAS:
+false``) takes the plain version on any device, backward included.  Its
+backward follows the JAX package's ``_fused2d_bwd`` (:1569):
 it recomputes the offsets and weights from the saved head lanes with plain
 torch ops (``fused_components``, the front half of ``_fused2d_composite``
 :1509), takes the blend's backward on them directly (K3 and K4 on the card,
@@ -84,10 +86,12 @@ def fused_blend2d_reference(vol: torch.Tensor, fused: torch.Tensor,
     return blend2d_reference(vol, *fused_components(fused, jl, nh, radius), nh)
 
 
-def _fused_blend2d_forward(vol, fused, nh: int, radius: float):
-    """K1 on CUDA tensors, the plain version on CPU tensors."""
+def _fused_blend2d_forward(vol, fused, nh: int, radius: float,
+                           kernels: bool = True):
+    """K1 on CUDA tensors, the plain version on CPU tensors or when not
+    ``kernels``."""
     b, jl, t, h, w, c, kp = _shapes(vol, fused, nh)
-    if device_of(vol, fused) == "cpu":
+    if device_of(vol, fused) == "cpu" or not kernels:
         return fused_blend2d_reference(vol, fused, nh, radius)
     check_kernel_args(nh, c, jl, vol.dtype, {"vol": vol, "fused": fused})
     if kp != nh * _POINTS:
@@ -105,10 +109,10 @@ class _FusedBlend2d(torch.autograd.Function):
     by recompute + K3/K4 (see the module docstring)."""
 
     @staticmethod
-    def forward(ctx, vol, fused, nh, radius):
+    def forward(ctx, vol, fused, nh, radius, kernels):
         ctx.save_for_backward(vol, fused)
-        ctx.nh, ctx.radius = nh, radius
-        return _fused_blend2d_forward(vol, fused, nh, radius)
+        ctx.nh, ctx.radius, ctx.kernels = nh, radius, kernels
+        return _fused_blend2d_forward(vol, fused, nh, radius, kernels)
 
     @staticmethod
     @once_differentiable
@@ -121,19 +125,20 @@ class _FusedBlend2d(torch.autograd.Function):
             comps = fused_components(f, jl, ctx.nh, ctx.radius)
         dvol, *dcomps = blend2d_backward(
             vol, *(x.detach() for x in comps), g, ctx.nh,
-            need_vol=need_vol, need_comps=need_fused)
+            need_vol=need_vol, need_comps=need_fused, kernels=ctx.kernels)
         dfused = None
         if need_fused:
             (dfused,) = torch.autograd.grad(comps, f, dcomps)
-        return dvol, dfused, None, None
+        return dvol, dfused, None, None, None
 
 
 def fused_blend2d(vol: torch.Tensor, fused: torch.Tensor, nh: int = 8,
-                  radius: float = 1.0) -> torch.Tensor:
+                  radius: float = 1.0, kernels: bool = True) -> torch.Tensor:
     """vol [B, J, T, H, W, C] (value levels aligned onto this query grid),
     fused [B, T, H, W, 3*J*kp] (raw offset+weight head lanes) ->
-    float32 [B, T, H, W, C], differentiable in vol and fused."""
-    return _FusedBlend2d.apply(vol, fused, nh, radius)
+    float32 [B, T, H, W, C], differentiable in vol and fused; the plain
+    version on any device when not ``kernels``."""
+    return _FusedBlend2d.apply(vol, fused, nh, radius, kernels)
 
 
 fused_blend2d.launches = 0

@@ -20,7 +20,9 @@ H, W, C].
 ``native_blend`` is differentiable.  Its forward takes CPU tensors to the
 plain version (the sum over levels of ``fast_deform.native_blend_level``)
 and CUDA tensors to K10 (``dt=None``) or K11; anything else raises.  There
-is no fallback: on the card it launches a kernel or raises.  The JAX
+is no fallback: on the card it launches a kernel or raises, unless called
+with ``kernels=False`` (the configuration's ``MODEL.FAST_USE_PALLAS:
+false``), which takes the plain version on any device.  The JAX
 package has no backward kernel for this mode: its VJP is the oracle's, and
 so is the port's (the plain version recomputed from the saved inputs under
 autograd, one level at a time; on the card that runs eager torch ops).
@@ -139,12 +141,12 @@ class _NativeBlend(torch.autograd.Function):
     the plain version, recomputed from the saved inputs."""
 
     @staticmethod
-    def forward(ctx, nh, dx, dy, dt, a, *values):
+    def forward(ctx, nh, kernels, dx, dy, dt, a, *values):
         comps = (dx, dy, a) if dt is None else (dx, dy, dt, a)
         ctx.nh = nh
         ctx.save_for_backward(dx, dy, dt, a, *values)
         _shapes(values, comps, nh)
-        if device_of(*values, *comps) == "cpu":
+        if device_of(*values, *comps) == "cpu" or not kernels:
             return native_blend_reference(values, dx, dy, a, nh, dt)
         if dt is None:
             return native_blend2d(values, dx, dy, a, nh)
@@ -154,7 +156,7 @@ class _NativeBlend(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         dx, dy, dt, a, *values = ctx.saved_tensors
-        need = ctx.needs_input_grad[1:]       # dx, dy, dt, a, values...
+        need = ctx.needs_input_grad[2:]       # dx, dy, dt, a, values...
         g = g.float()
         grads = [[] for _ in range(4)]
         dvalues = []
@@ -176,14 +178,16 @@ class _NativeBlend(torch.autograd.Function):
             dvalues.append(next(got) if vj.requires_grad else None)
         stacked = [torch.stack(gs, dim=1) if gs and gs[0] is not None
                    else None for gs in grads]
-        return (None, *stacked, *dvalues)
+        return (None, None, *stacked, *dvalues)
 
 
 def native_blend(values: Sequence[torch.Tensor], dx: torch.Tensor,
                  dy: torch.Tensor, a: torch.Tensor, nh: int = 8,
-                 dt: torch.Tensor | None = None) -> torch.Tensor:
+                 dt: torch.Tensor | None = None,
+                 kernels: bool = True) -> torch.Tensor:
     """Native cross-level blend of one query grid: values per level [B, T,
     Hv, Wv, C] at their own resolution, dx, dy, (dt,) a [B, J, T, H, W,
     nh*P] -> float32 [B, T, H, W, C]; ``dt=None`` is the 2d window (K10 on
-    the card), else the 3d window (K11).  Differentiable in every input."""
-    return _NativeBlend.apply(nh, dx, dy, dt, a, *values)
+    the card), else the 3d window (K11); the plain version on any device
+    when not ``kernels``.  Differentiable in every input."""
+    return _NativeBlend.apply(nh, kernels, dx, dy, dt, a, *values)

@@ -116,7 +116,8 @@ def native_args(grid, t, nc, dev, keep):
 
 
 def cases(built, dev, keep):
-    """(tag, kernel, {who: launcher arguments}, count per forward / layer)."""
+    """(tag, kernel, {who: launcher arguments}, (total, count per forward /
+    layer))."""
     for shape, dtype in ((chip_smoke.K5_BACKBONE, torch.bfloat16),
                          (chip_smoke.K5_ENCODER, torch.float32)):
         inputs = chip_smoke.scan_inputs(np.random.default_rng(5), shape, dtype, dev)
@@ -135,13 +136,17 @@ def cases(built, dev, keep):
                    {who: args for who in built}, (f"{k} per encoder layer", 1))
 
 
-def main() -> dict:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+def compare(doc: str, names, make_cases) -> dict:
+    """Build ``names`` from this checkout and from ``--against``'s, then
+    time every case of ``make_cases(built, dev, keep)`` — (tag, kernel,
+    {who: launcher arguments}, (total or None, count)) — in turns, other,
+    this, this, other; print and return the times and the totals."""
+    parser = argparse.ArgumentParser(description=doc.split("\n\n")[0])
     parser.add_argument("--against", type=Path, required=True,
                         help="root of the other checkout")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
-        raise RuntimeError("compare_k5_k11 needs a CUDA card")
+        raise RuntimeError("the comparison needs a CUDA card")
     dev = torch.device("cuda", 0)
     card = chip_smoke.card_info()
     print(f"card: {card}")
@@ -149,10 +154,10 @@ def main() -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         (Path(tmp) / "this").mkdir()
         (Path(tmp) / "other").mkdir()
-        built = {"this": build(Path.cwd(), Path(tmp) / "this"),
-                 "other": build(opts.against.resolve(), Path(tmp) / "other")}
+        built = {"this": build(Path.cwd(), Path(tmp) / "this", names),
+                 "other": build(opts.against.resolve(), Path(tmp) / "other", names)}
         keep = []
-        for tag, name, args, (total, count) in cases(built, dev, keep):
+        for tag, name, args, (total, count) in make_cases(built, dev, keep):
             stream = torch.cuda.current_stream().cuda_stream
             times = {"this": [], "other": []}
             for who in ("other", "this", "this", "other"):
@@ -163,9 +168,10 @@ def main() -> dict:
                     raise RuntimeError(f"{who} checkout's {name} failed: CUDA error {err}")
                 times[who].append(chip_smoke.kernel_device_ms(lambda: fn(*a, stream)))
             res["shapes"][tag] = {"this_ms": times["this"], "other_ms": times["other"]}
-            sums = res["totals"].setdefault(total, {"this_ms": 0.0, "other_ms": 0.0})
-            for who in times:
-                sums[f"{who}_ms"] += count * sum(times[who]) / len(times[who])
+            if total is not None:
+                sums = res["totals"].setdefault(total, {"this_ms": 0.0, "other_ms": 0.0})
+                for who in times:
+                    sums[f"{who}_ms"] += count * sum(times[who]) / len(times[who])
             print(f"{tag}: this {times['this']} ms, other {times['other']} ms, "
                   f"other / this {sum(times['other']) / sum(times['this']):.2f}x")
     for total, sums in res["totals"].items():
@@ -173,6 +179,10 @@ def main() -> dict:
               f"other / this {sums['other_ms'] / sums['this_ms']:.2f}x")
     print(json.dumps(res))
     return res
+
+
+def main() -> dict:
+    return compare(__doc__, SOURCES, cases)
 
 
 if __name__ == "__main__":

@@ -24,18 +24,13 @@ Needs a CUDA card.
 
 from __future__ import annotations
 
-import argparse
-import json
-import tempfile
-from pathlib import Path
-
 import numpy as np
 import torch
 
 import chip_smoke
 
 from ..ops.blend3d import BLEND3D_TILE, k6_frames_per_block
-from .compare_k5_k11 import build
+from .compare_k5_k11 import compare
 
 SOURCES = ("blend3d", "blend3d_bwd_dvol")
 
@@ -48,7 +43,8 @@ def with_tile(fn, args, frames):
 
 
 def cases(built, dev, keep):
-    """(tag, kernel, {who: launcher arguments}, per-layer total or None)."""
+    """(tag, kernel, {who: launcher arguments}, (per-layer total or None,
+    1))."""
     rng = np.random.default_rng(15)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     grids = [("K6", 2, hw) for hw in chip_smoke.K1_LEVELS]
@@ -74,49 +70,11 @@ def cases(built, dev, keep):
         frames = k6_frames_per_block(b, chip_smoke.B3_T, h, w, sms)
         yield (f"{k} B={b} T={chip_smoke.B3_T} {h}x{w}", name,
                {who: with_tile(built[who][name], args, frames) for who in built},
-               total)
+               (total, 1))
 
 
 def main() -> dict:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--against", type=Path, required=True,
-                        help="root of the other checkout")
-    opts = parser.parse_args()
-    if not torch.cuda.is_available():
-        raise RuntimeError("compare_k6_k8 needs a CUDA card")
-    dev = torch.device("cuda", 0)
-    card = chip_smoke.card_info()
-    print(f"card: {card}")
-    res = {"card": card, "shapes": {}, "totals": {}}
-    with tempfile.TemporaryDirectory() as tmp:
-        (Path(tmp) / "this").mkdir()
-        (Path(tmp) / "other").mkdir()
-        built = {"this": build(Path.cwd(), Path(tmp) / "this", SOURCES),
-                 "other": build(opts.against.resolve(), Path(tmp) / "other",
-                                SOURCES)}
-        keep = []
-        for tag, name, args, total in cases(built, dev, keep):
-            stream = torch.cuda.current_stream().cuda_stream
-            times = {"this": [], "other": []}
-            for who in ("other", "this", "this", "other"):
-                fn, a = built[who][name], args[who]
-                err = fn(*a, stream)
-                torch.cuda.synchronize()
-                if err != 0:
-                    raise RuntimeError(f"{who} checkout's {name} failed: CUDA error {err}")
-                times[who].append(chip_smoke.kernel_device_ms(lambda: fn(*a, stream)))
-            res["shapes"][tag] = {"this_ms": times["this"], "other_ms": times["other"]}
-            if total is not None:
-                sums = res["totals"].setdefault(total, {"this_ms": 0.0, "other_ms": 0.0})
-                for who in times:
-                    sums[f"{who}_ms"] += sum(times[who]) / len(times[who])
-            print(f"{tag}: this {times['this']} ms, other {times['other']} ms, "
-                  f"other / this {sum(times['other']) / sum(times['this']):.2f}x")
-    for total, sums in res["totals"].items():
-        print(f"{total}: this {sums['this_ms']:.4f} ms, other {sums['other_ms']:.4f} ms, "
-              f"other / this {sums['other_ms'] / sums['this_ms']:.2f}x")
-    print(json.dumps(res))
-    return res
+    return compare(__doc__, SOURCES, cases)
 
 
 if __name__ == "__main__":

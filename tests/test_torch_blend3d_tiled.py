@@ -1,10 +1,12 @@
-"""The card kernels K6 and K8 in their own order, mirrored in plain PyTorch
-on the CPU, against the JAX package.
+"""The card kernels K6, K8 and K9 in their own order, mirrored in plain
+PyTorch on the CPU, against the JAX package.
 
-``csrc/blend3d.cu`` (K6) and ``csrc/blend3d_bwd_dvol.cu`` (K8) give a
-block an 8x8 (y, x) tile (``BLEND3D_TILE``, which the wrappers pass and
-the kernels check) and one head's 32 channels; a K6 block blends F frames
-(``k6_frames_per_block``: 4, or 2 at small grids), a K8 block one.  The
+``csrc/blend3d.cu`` (K6), ``csrc/blend3d_bwd_dvol.cu`` (K8) and
+``csrc/blend3d_bwd_dcomps.cu`` (K9) give a block an 8x8 (y, x) tile
+(``BLEND3D_TILE``, which the wrappers pass and the kernels check) and one
+head's 32 channels; a K6 or K9 block serves F frames
+(``k6_frames_per_block``, ``k9_frames_per_block``: 4, or 2 or 1 at small
+grids), a K8 block one.  The
 mirrors below walk the same blocks in the same launch order and compute
 the same flat indices: K6's value window (F + 2 frames x (tile+2)^2
 positions, zeros outside the grid, frames outside never copied), the 27
@@ -13,11 +15,16 @@ lane of the query, each window row blended into every frame that reaches
 it; K8's halo of 3 x (tile+2)^2 positions, its components staged in chunks
 of 8 points with zeros outside the grid, the 9 masses of each halo
 position scattered into a [level][neighbour][output] table, and phase 2
-reading G once per neighbour for every level.  What the kernels never
-copy or write starts as NaN here, so a read of it would show.
+reading G once per neighbour for every level; K9's G tile (F frames,
+zeros past the grid and the chunk) and K6's window, each window row dotted
+by lane (query, 8 channels) with the G of every frame that reaches it, the
+reduce-scatter over the query's 4 lanes that leaves lane (query, frame)
+with the frame's 27 per-head dots, and that lane's points.  What the
+kernels never copy or write starts as NaN here, so a read of it would
+show.
 
 They are held to the oracle ``_blend_xla_vol`` and its ``jax.vjp``, and to
-``_blend`` with the Pallas kernels K6 and K8 in interpret mode, in
+``_blend`` with the Pallas kernels K6, K8 and K9 in interpret mode, in
 float32 within 1e-5, at ragged shapes (H and W not multiples of 8, tiles
 straddling every border), T = 1, J = 1 and 3, P = 8 and 12 (two staged
 chunks), with a third of the offsets exactly on -1, 0 or 1; and at other
@@ -35,13 +42,15 @@ import torch
 from class_query_vad_tpu.ops.fast_deform_pallas import _blend, _blend_xla_vol
 from class_query_vad_tpu_torch.ops import blend3d as b3
 from class_query_vad_tpu_torch.ops import cuda_build
-from class_query_vad_tpu_torch.ops.blend2d import hat
+from class_query_vad_tpu_torch.ops.blend2d import hat, hat_grad
 from class_query_vad_tpu_torch.ops.blend3d import (
     BLEND3D_FRAMES,
     BLEND3D_TILE,
+    blend3d_bwd_dcomps_reference,
     blend3d_bwd_dvol_reference,
     blend3d_reference,
     k6_frames_per_block,
+    k9_frames_per_block,
 )
 
 from torch_parity import n, t
@@ -224,30 +233,113 @@ def k8_tiled(dx, dy, dt, a, g, tile=BLEND3D_TILE):
     return dvol
 
 
+def k9_tiled(vol, dx, dy, dt, a, g, tile=BLEND3D_TILE, frames=BLEND3D_FRAMES):
+    """K9 (csrc/blend3d_bwd_dcomps.cu) in its own order: (ddx, ddy, ddt,
+    da), float32 [B, J, T, H, W, nh*P].  K6's blocks and windows; lane
+    (query, cg) holds channels 8 cg .. 8 cg + 7 of the block's G at every
+    frame and dots each window row with the G of every frame that reaches
+    it; a reduce-scatter over the query's lanes (across cg ^ 2, then cg ^ 1)
+    leaves lane (query, f) the 27 dots of frame f, from which it writes the
+    frame's points."""
+    b, jl, tt, h, w, c = vol.shape
+    kp = dx.shape[-1]
+    p = kp // NH
+    win, hw, nq = tile + 2, h * w, tile * tile
+    vflat, gflat = vol.reshape(-1), g.reshape(-1)
+    cflat = [x.reshape(-1) for x in (dx, dy, dt, a)]
+    outs = [torch.full(dx.shape, float("nan")) for _ in range(4)]
+    pos = torch.arange((frames + 2) * win * win)         # window positions
+    col, row, pl = pos % win, pos // win % win, pos // (win * win)
+    q = torch.arange(nq)
+    oy, ox = q // tile, q % tile
+    lane = torch.arange(SLICE)
+    for bi, t0, y0, x0, head in _blocks(b, tt, h, w, tile, frames):
+        nf = min(frames, tt - t0)
+        y, x = y0 + oy, x0 + ox
+        valid = (y < h) & (x < w)
+        # the G tile: [frame][query][channel], zeros past the grid and chunk
+        gsrc = (((bi * tt + t0 + torch.arange(frames))[:, None] * hw
+                 + (y * w + x)[None]) * c + head * SLICE)[..., None] + lane
+        gok = (torch.arange(frames) < nf)[:, None] & valid[None]
+        gtile = _gather(gflat, gsrc, gok[..., None]).reshape(frames, nq, 4, 8)
+        for j in range(jl):
+            tw, yy, xx = t0 - 1 + pl, y0 - 1 + row, x0 - 1 + col
+            copied = (tw >= 0) & (tw < tt) & (pl <= nf + 1)
+            ok = copied & (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+            src = (((bi * jl + j) * tt * hw + tw * hw + yy * w + xx) * c
+                   + head * SLICE)[:, None] + lane
+            window = _gather(vflat, src, ok[:, None])
+            window[~copied] = float("nan")
+            # phase 1: d[tap][frame][query][lane group], one window row read
+            # per (plane, sy, sx) for every frame that reaches it
+            d = torch.zeros(27, frames, nq, 4)
+            for pi in range(frames + 2):
+                if pi > nf + 1 or not 0 <= t0 - 1 + pi < tt:
+                    continue
+                for sy in range(3):
+                    for sx in range(3):
+                        v = window[(pi * win + sy + oy) * win + sx + ox]
+                        v = v.reshape(nq, 4, 8)
+                        for f in range(frames):
+                            it = pi - f
+                            if 0 <= it <= 2:
+                                d[(it * 3 + sy) * 3 + sx, f] = (
+                                    gtile[f] * v).sum(-1)
+            # the reduce-scatter: lane group f ends with frame f's dots
+            r = torch.stack([(d[:, f, :, f] + d[:, f, :, f ^ 2])
+                             + (d[:, f, :, f ^ 1] + d[:, f, :, f ^ 3])
+                             for f in range(frames)], dim=1)
+            # phase 2: lane (query, f) writes the head's points of frame f
+            for f in range(nf):
+                off = ((((bi * jl + j) * tt + t0 + f) * hw + y * w + x) * kp
+                       + head * p)[:, None] + torch.arange(p)
+                ox_, oy_, ot_, av = (_gather(fl, off, valid[:, None])
+                                     for fl in cflat)
+                rq = r[:, f].T.reshape(nq, 3, 3, 3)[:, None]  # [q, 1, st, sy, sx]
+                hats = [torch.stack([hat(u - (k - 1)) for k in range(3)], -1)
+                        for u in (ox_, oy_, ot_)]
+                dhats = [torch.stack([hat_grad(u - (k - 1)) for k in range(3)], -1)
+                         for u in (ox_, oy_, ot_)]
+                (hx, hy, ht), (dhx, dhy, dht) = hats, dhats
+                rh = (rq * hx[:, :, None, None, :]).sum(-1)   # [q, p, st, sy]
+                rd = (rq * dhx[:, :, None, None, :]).sum(-1)
+                ra = (rh * hy[:, :, None, :]).sum(-1)         # [q, p, st]
+                rdy = (rh * dhy[:, :, None, :]).sum(-1)
+                rdx = (rd * hy[:, :, None, :]).sum(-1)
+                grads = (av * (rdx * ht).sum(-1), av * (rdy * ht).sum(-1),
+                         av * (ra * dht).sum(-1), (ra * ht).sum(-1))
+                for out, gr in zip(outs, grads):
+                    out[bi, j, t0 + f, y[valid], x[valid],
+                        head * p:(head + 1) * p] = gr[valid]
+    return tuple(outs)
+
+
 def _kernel_blend(*xs):
     return _blend(*xs, False, True)
 
 
 @functools.lru_cache(maxsize=None)
 def _jax_world(shape_key: str, kernel: bool):
-    """Forward and d vol of the oracle (``kernel`` False) or of ``_blend``
-    with K6 and K8 in interpret mode, jitted together."""
+    """Forward, d vol and d components (dx, dy, dt, a) of the oracle
+    (``kernel`` False) or of ``_blend`` with K6, K8 and K9 in interpret
+    mode, jitted together."""
     xs, g = _inputs(SHAPES[shape_key], 11)
     fn = _kernel_blend if kernel else _blend_xla_vol
 
     @jax.jit
     def run(*args):
         out, vjp = jax.vjp(fn, *args[:-1])
-        return out, vjp(args[-1])[0]
+        return out, vjp(args[-1])
 
-    out, dvol = run(*(jnp.asarray(x) for x in xs), jnp.asarray(g))
-    return xs, g, np.asarray(out), np.asarray(dvol)
+    out, (dvol, *dcomps) = run(*(jnp.asarray(x) for x in xs), jnp.asarray(g))
+    return (xs, g, np.asarray(out), np.asarray(dvol),
+            [np.asarray(x) for x in dcomps])
 
 
 @pytest.mark.parametrize("kernel", [False, True], ids=["xla", "interpret"])
 @pytest.mark.parametrize("shape_key", list(SHAPES))
 def test_k6_order_matches_jax(shape_key, kernel):
-    xs, _, out_j, _ = _jax_world(shape_key, kernel)
+    xs, _, out_j, _, _ = _jax_world(shape_key, kernel)
     got = k6_tiled(*(t(x) for x in xs))
     np.testing.assert_allclose(n(got), out_j, **TOL)
     if kernel:      # and the port's plain version, on the same inputs
@@ -258,7 +350,7 @@ def test_k6_order_matches_jax(shape_key, kernel):
 @pytest.mark.parametrize("kernel", [False, True], ids=["xla_vjp", "interpret"])
 @pytest.mark.parametrize("shape_key", list(SHAPES))
 def test_k8_order_matches_jax_vjp(shape_key, kernel):
-    xs, g, _, dvol_j = _jax_world(shape_key, kernel)
+    xs, g, _, dvol_j, _ = _jax_world(shape_key, kernel)
     comps = [t(x) for x in xs[1:]]
     got = k8_tiled(*comps, t(g))
     np.testing.assert_allclose(n(got), dvol_j, **TOL)
@@ -267,24 +359,53 @@ def test_k8_order_matches_jax_vjp(shape_key, kernel):
         np.testing.assert_allclose(n(want), n(got), **TOL)
 
 
+@pytest.mark.parametrize("kernel", [False, True], ids=["xla_vjp", "interpret"])
+@pytest.mark.parametrize("shape_key", list(SHAPES))
+def test_k9_order_matches_jax_vjp(shape_key, kernel):
+    xs, g, _, _, dcomps_j = _jax_world(shape_key, kernel)
+    ts = [t(x) for x in xs]
+    got = k9_tiled(*ts, t(g))
+    for name, x, want in zip(("ddx", "ddy", "ddt", "da"), got, dcomps_j):
+        np.testing.assert_allclose(n(x), want, err_msg=name, **TOL)
+    if kernel:
+        plain = blend3d_bwd_dcomps_reference(*ts, t(g))
+        for name, x, want in zip(("ddx", "ddy", "ddt", "da"), got, plain):
+            np.testing.assert_allclose(n(want), n(x), err_msg=name, **TOL)
+
+
+@pytest.mark.parametrize("frames", [1, 2, 3])
+def test_k9_order_holds_at_every_frames_per_block(frames):
+    """K9 at the frames per block its launcher takes besides 4: each
+    count, T = 3 not a multiple of 2."""
+    xs, g, _, _, dcomps_j = _jax_world("1x17-J3-T3-P12", False)
+    got = k9_tiled(*(t(x) for x in xs), t(g), frames=frames)
+    for name, x, want in zip(("ddx", "ddy", "ddt", "da"), got, dcomps_j):
+        np.testing.assert_allclose(n(x), want, err_msg=name, **TOL)
+
+
 @pytest.mark.parametrize("tile,frames,shape_key", [
     (4, 1, "1x17-J3-T3-P12"), (16, 3, "9x11-J3-T2")])
 def test_orders_hold_at_other_tiles(tile, frames, shape_key):
     """The mirrors' arithmetic is the tile's, not 8's and 4's: a tile of 4
     with a frame per block, and of 16 with three frames per block over T =
     2 (one short chunk), agree too."""
-    xs, g, out_j, dvol_j = _jax_world(shape_key, False)
+    xs, g, out_j, dvol_j, dcomps_j = _jax_world(shape_key, False)
     ts = [t(x) for x in xs]
     np.testing.assert_allclose(n(k6_tiled(*ts, tile=tile, frames=frames)),
                                out_j, **TOL)
     np.testing.assert_allclose(n(k8_tiled(*ts[1:], t(g), tile=tile)), dvol_j,
                                **TOL)
+    got = k9_tiled(*ts, t(g), tile=tile, frames=frames)
+    for name, x, want in zip(("ddx", "ddy", "ddt", "da"), got, dcomps_j):
+        np.testing.assert_allclose(n(x), want, err_msg=name, **TOL)
 
 
-@pytest.mark.parametrize("name", ["blend3d", "blend3d_bwd_dvol"])
+@pytest.mark.parametrize("name", ["blend3d", "blend3d_bwd_dvol",
+                                  "blend3d_bwd_dcomps"])
 def test_wrappers_pass_the_tile(monkeypatch, name):
-    """K6's and K8's wrappers hand ``BLEND3D_TILE`` to their launchers, as
-    the last argument before the stream of ``cuda_build.KERNELS``."""
+    """K6's, K8's and K9's wrappers hand ``BLEND3D_TILE`` to their
+    launchers, as the last argument before the stream of
+    ``cuda_build.KERNELS`` (K6 and K9 then the frames per block)."""
     xs, g = _inputs(SHAPES["9x11-J3-T2"], 12)
     ts = [t(x) for x in xs]
     calls = []
@@ -294,14 +415,19 @@ def test_wrappers_pass_the_tile(monkeypatch, name):
     monkeypatch.setattr(b3, "launch", lambda k, dev, *args: calls.append((k, args)))
     if name == "blend3d":
         b3.blend3d_fwd(*ts, NH)
-    else:
+    elif name == "blend3d_bwd_dvol":
         b3.blend3d_bwd_dvol(*ts[1:], t(g), torch.float32, NH)
+    else:
+        b3.blend3d_bwd_dcomps(*ts, t(g), NH)
     (kernel, args), = calls
     assert kernel == name
     assert len(args) == len(cuda_build.KERNELS[name][2]) - 1   # but the stream
     if name == "blend3d":       # then the frames per block
         args, frames = args[:-1], args[-1]
         assert frames == k6_frames_per_block(1, 2, 9, 11, 132) == 2
+    elif name == "blend3d_bwd_dcomps":
+        args, frames = args[:-1], args[-1]
+        assert frames == k9_frames_per_block(1, 2, 9, 11, 132) == 1
     assert args[-1] == BLEND3D_TILE == 8
 
 
@@ -312,3 +438,14 @@ def test_k6_frames_per_block():
     assert f(2, 8, 64, 80, 132) == f(2, 8, 16, 20, 132) == 4
     assert f(1, 8, 128, 160, 132) == f(1, 1, 512, 512, 132) == 4
     assert f(2, 8, 8, 10, 132) == 2
+
+
+def test_k9_frames_per_block():
+    """The most frames per block (4, 2, 1) whose blocks reach half the SMs:
+    four at the resample mode's grids down to 16x20 (B=1, T=8: 96 blocks),
+    one at 8x10 (32 blocks at four, 64 at two); K6's choices at B=2."""
+    f = k9_frames_per_block
+    assert f(1, 8, 64, 80, 132) == f(1, 8, 32, 40, 132) == 4
+    assert f(1, 8, 16, 20, 132) == 4
+    assert f(1, 8, 8, 10, 132) == 1
+    assert f(2, 8, 8, 10, 132) == 2 == k6_frames_per_block(2, 8, 8, 10, 132)

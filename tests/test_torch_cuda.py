@@ -477,6 +477,25 @@ def test_native_blend3d_tiles_frames_and_channels(card, dtype, t, c):
            f"native 3d T={t} C={c}")
 
 
+# K10: K11's tiled kernel with one temporal tap, at the same grid, levels,
+# frames and channels; tolerances as above
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [1, 2, 3, 8])
+@pytest.mark.parametrize("c", [256, 512])
+def test_native_blend2d_tiles_frames_and_channels(card, dtype, t, c):
+    vshapes = [(13, 21), (7, 11), (4, 6), (26, 42)]
+    values, comps = _native_inputs(card, dtype, 2, t, (13, 21), vshapes, 2, t + c, c=c)
+    dx, dy, a = comps
+    before = native_blend2d.launches
+    out = native_blend(values, dx, dy, a, 8)
+    torch.cuda.synchronize()
+    assert native_blend2d.launches == before + 1
+    assert out.shape == (2, t, 13, 21, c) and out.dtype == torch.float32
+    _close(out, native_blend_reference(values, dx, dy, a, 8), 1e-5,
+           f"native 2d T={t} C={c}")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("window", ["2d", "3d"])
 def test_native_blend_gradient_on_the_card(card, window):
@@ -627,6 +646,31 @@ def test_blend3d_k6_frames_per_block(card, monkeypatch, dtype, frames, jl,
     torch.cuda.synchronize()
     assert blend3d_fwd.launches == before + 1
     _close(out, blend3d_reference(vol, dx, dy, dt, a, 8), 1e-5, "K6")
+
+
+# K9 serves 1-4 frames per block (ops/blend3d.py k9_frames_per_block picks
+# them from the grid): each count, T not a multiple of it, ragged tiles,
+# P = 8 (16-byte components) and P = 3 (point by point)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("frames", [1, 2, 3, 4])
+@pytest.mark.parametrize("jl,thw,points", [(4, (5, 9, 9), 8),
+                                           (3, (3, 12, 17), 3)])
+def test_blend3d_k9_frames_per_block(card, monkeypatch, dtype, tol, frames,
+                                     jl, thw, points):
+    from class_query_vad_tpu_torch.ops import blend3d as b3
+    (vol, dx, dy, dt, a), g = _comps3d(card, dtype, 2, jl, thw, points, 12,
+                                       ties=True)
+    monkeypatch.setattr(b3, "k9_frames_per_block", lambda *args: frames)
+    before = blend3d_bwd_dcomps.launches
+    grads = blend3d_bwd_dcomps(vol, dx, dy, dt, a, g, 8)
+    torch.cuda.synchronize()
+    assert blend3d_bwd_dcomps.launches == before + 1
+    want = blend3d_backward_reference(vol, dx, dy, dt, a, g, 8)[1:]
+    for name, got, w in zip(("ddx", "ddy", "ddt", "da"), grads, want):
+        assert got.dtype == dtype, name
+        _close(got, w, tol, f"K9 {name}")
 
 
 @pytest.mark.cuda
@@ -840,3 +884,51 @@ def test_fused_ffn_kernel_rejects_what_it_does_not_take(card):
     with pytest.raises(ValueError):                     # one CPU tensor
         fused_ffn(x, w1, b1.cpu(), w2, b2)
     assert fused_ffn_kernel.launches == before
+
+
+# MODEL.FAST_USE_PALLAS: false keeps every route of the fast encoder and
+# takes its plain versions on the card: no blend kernel runs, forward or
+# backward, and the heads match the default model's (its kernels) within
+# the tiny models' card-vs-plain tolerance
+_BLEND_COUNTERS = (fused_blend2d, blend2d, blend2d_bwd_dvol,
+                   blend2d_bwd_dcomps, blend3d_fwd, blend3d_bwd_dvol,
+                   blend3d_bwd_dcomps, native_blend2d, native_blend3d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,cross,points", [
+    ("2d", "resample", 8), ("2d", "resample", 4), ("3d", "resample", 8),
+    ("2d", "native", 8), ("3d", "native", 8)],
+    ids=["K1", "K2", "K6", "K10", "K11"])
+def test_fast_use_pallas_false_runs_no_kernel_on_the_card(card, window, cross,
+                                                          points):
+    cfg = get_cfg_defaults()
+    c = cfg.CONFIG
+    c.DATA.NUM_CLASSES, c.DATA.TEMP_LEN, c.MODEL.TEMP_LEN = 12, 8, 8
+    c.MODEL.SINGLE_FRAME = True
+    c.MODEL.ENCODER_TYPE, c.MODEL.FAST_WINDOW = "fast_attention", window
+    c.MODEL.FAST_CROSS_LEVEL, c.MODEL.NUM_ENC_N_POINTS = cross, points
+    c.MODEL.ENC_LAYERS, c.MODEL.DEC_LAYERS = 2, 1
+    c.MODEL.DIM_FEEDFORWARD, c.MODEL.QUERY_NUM, c.ViT.DEPTH = 64, 4, 1
+    m_kern = build_model(cfg, device=card, generator=torch.Generator().manual_seed(1))
+    randomize_constants(m_kern, torch.Generator().manual_seed(2))
+    c.MODEL.FAST_USE_PALLAS = False
+    m_plain = build_model(cfg, device=card)
+    m_plain.load_state_dict(m_kern.state_dict(), strict=True)
+    rng = np.random.default_rng(0)
+    pixels = torch.from_numpy(rng.standard_normal((2, 8, 64, 64, 3), np.float32))
+    mask = torch.zeros((2, 64, 64), dtype=torch.bool)
+    mask[1, :, 48:] = True
+    outs, launched = [], []
+    for model in (m_kern, m_plain):
+        before = [k.launches for k in _BLEND_COUNTERS]
+        out = model(pixels.to(card), mask.to(card))
+        (out["pred_logits"].square().sum() + out["pred_boxes"].sum()).backward()
+        torch.cuda.synchronize()
+        launched.append(sum(k.launches for k in _BLEND_COUNTERS) - sum(before))
+        outs.append({k: v.detach().cpu() for k, v in out.items()
+                     if k in ("pred_logits", "pred_boxes", "pred_logits_b")})
+    assert launched[0] > 0 and launched[1] == 0, launched
+    for k, r in outs[0].items():
+        g = outs[1][k]
+        assert (g - r).abs().max().item() <= 1e-4 * max(1.0, r.abs().max().item()), k
