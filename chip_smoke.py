@@ -17,7 +17,9 @@ NVIDIA card.
    plain composite; timings at the train batch B=1.  Beside each, the time
    of the ``F.grid_sample`` composition of the same function (K1: after
    the torch front end; K3 / K4: its autograd with respect to vol / the
-   components), the library yardstick no path of the port calls.
+   components), the library yardstick no path of the port calls; K3 and
+   K4 per grid and per layer, and K1's whole backward per layer, beside
+   their times before K3 and K4 were tiled (``EARLIER_MS``).
 3. The eval path at full width: ``AVA22_ViT-B_fast`` (ViT-B, 6+6 layers,
    D=256, 80 classes, 15 queries) in bf16 with seeded random weights
    serves 3 requests of [2, 16, 256, 320, 3] clips through forward +
@@ -489,7 +491,8 @@ def phase_blend_kernels(dev, bw, peak):
                         n["bound_ms"] += t_b
                         n["library_ms"] += t_l
                         print(f"{k} bf16     B={b} {h:3d}x{w:<3d}: kernel "
-                              f"{t_k:.4f} ms (device, queued), plain "
+                              f"{t_k:.4f} ms (device, queued)"
+                              f"{earlier_at(k, (h, w))}, plain "
                               f"{t_p:.4f} ms, library {t_l:.4f} ms, "
                               f"bound {t_b:.4f} ms ({nbytes / 1e6:.1f} MB) "
                               f"-> {nbytes / t_k / 1e6:.0f} GB/s")
@@ -528,16 +531,20 @@ def phase_blend_kernels(dev, bw, peak):
                           f"per call (recompute + K3 + K4 + the recompute's "
                           f"backward; CUDA events)")
     print(f"K1 backward per encoder layer (bf16, B={TRAIN_B}, 4 levels): "
-          f"{k1_bwd_ms:.4f} ms, of which K3 {num['K3']['ms']:.4f} and K4 "
-          f"{num['K4']['ms']:.4f} ms of kernel device time")
+          f"{k1_bwd_ms:.4f} ms (with the first K3 and K4 "
+          f"{EARLIER_MS['K1 backward']:.4f} ms), of which K3 "
+          f"{num['K3']['ms']:.4f} and K4 {num['K4']['ms']:.4f} ms of kernel "
+          f"device time")
     names = {"K2": ("blend2d", "blend2d.cu", 186),
              "K3": ("blend2d_bwd_dvol", "blend2d_bwd_dvol.cu", 786),
              "K4": ("blend2d_bwd_dcomps", "blend2d_bwd_dcomps.cu", 733)}
     entries = []
     for k, (name, src, line) in names.items():
         n = num[k]
+        earlier = (f" (earlier version {EARLIER_MS[k]:.4f} ms)"
+                   if k in EARLIER_MS else "")
         print(f"{k} per encoder layer (4 launches, bf16, B={TRAIN_B}): kernel "
-              f"{n['ms']:.4f} ms, plain {n['plain_ms']:.4f} ms, library "
+              f"{n['ms']:.4f} ms{earlier}, plain {n['plain_ms']:.4f} ms, library "
               f"{n['library_ms']:.4f} ms, bound "
               f"{n['bound_ms']:.4f} ms ({n['bound_ms'] / n['ms']:.1%} of the "
               f"bound's speed)")
@@ -1237,21 +1244,26 @@ K5_PER_FORWARD = {K5_BACKBONE: 48, K5_ENCODER: 48}
 # bf16: y is rounded to bf16 on both sides (one ulp, 2^-8 of |y|)
 K5_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 SFU_RATE = 132 * 16 * 1.98e9     # H100 SXM: exps per second (16/clk/SM)
-# the times of K5's, K6's, K8's, K9's, K10's and K11's versions before
-# their redesign (K5 sequential over L; the others a warp per query or
-# output gathering every tap or rebuilding every mass), bf16, printed
+# the times of K3's, K4's, K5's, K6's, K8's, K9's, K10's and K11's versions
+# before their redesign (K5 sequential over L; the others a warp per query
+# or output gathering every tap or rebuilding every mass), bf16, printed
 # beside this run's (NVIDIA H100 80GB HBM3, 700 W, the last call of
 # chip_smoke.py with those sources): K5 per scan shape and per VSS forward,
-# K6 / K8 / K9 / K10 / K11 per encoder layer, K6 in K7's regime at its one
-# grid
+# K3 / K4 / K6 / K8 / K9 / K10 / K11 per encoder layer, K6 in K7's regime
+# at its one grid, and K1's whole backward per encoder layer (the
+# recompute's eager ops, K3, K4) beside the first K3 and K4
 EARLIER_MS = {K5_BACKBONE: 0.4360, K5_ENCODER: 0.0354, "K5": 22.626,
               "K10": 0.1592, "K11": 1.5505, "K6": 0.7099, "K8": 1.1192,
-              "K9": 0.6466, "K7 regime": 1.0617}
-# K9's and K10's warp-per-query versions per query grid (64x80 .. 8x10),
-# bf16: the mean of two turns each in one call of
-# ``class_query_vad_tpu_torch.scripts.compare_k9_k10`` against those
-# sources (NVIDIA H100 80GB HBM3, 700 W)
-EARLIER_GRID_MS = {"K9": (0.4504, 0.1243, 0.0438, 0.0279),
+              "K9": 0.6466, "K7 regime": 1.0617, "K3": 0.1076, "K4": 0.0996,
+              "K1 backward": 4.9334}
+# K3's, K4's, K9's and K10's first versions per query grid (64x80 ..
+# 8x10), bf16: the mean of two turns each in one call of
+# ``class_query_vad_tpu_torch.scripts.compare_k3_k4`` (K3, K4) or
+# ``compare_k9_k10`` (K9, K10) against those sources (NVIDIA H100 80GB
+# HBM3, 700 W)
+EARLIER_GRID_MS = {"K3": (0.0712, 0.0218, 0.0092, 0.0063),
+                   "K4": (0.0655, 0.0186, 0.0090, 0.0083),
+                   "K9": (0.4504, 0.1243, 0.0438, 0.0279),
                    "K10": (0.0930, 0.0307, 0.0185, 0.0169)}
 
 

@@ -16,7 +16,8 @@ output and its cotangent G float32 [B, T, H, W, C].
 Each wrapper takes CPU tensors to its plain version and CUDA tensors to its
 kernel; anything else raises.  There is no fallback: on the card a wrapper
 launches its kernel or raises.  Each counts its launches in ``.launches``.
-The kernels take nh=8, C=256, 1<=J<=4 and any P.  ``blend2d`` with
+The kernels take nh=8, C=256, 1<=J<=4 and any P; K3 and K4 take their
+block shape from the wrapper (``k3_block``, ``k4_block``).  ``blend2d`` with
 ``kernels=False`` (the configuration's ``MODEL.FAST_USE_PALLAS: false``)
 takes the plain versions on any device, backward included.
 
@@ -33,6 +34,41 @@ from torch.autograd.function import once_differentiable
 from .cuda_build import device_of, launch
 
 _HEADS, _CHANNELS, _MAX_LEVELS = 8, 256, 4
+
+# The block shapes (tile rows, tile columns, heads per block) that K3's and
+# K4's launchers take (csrc/blend2d_bwd_dvol.cu, csrc/blend2d_bwd_dcomps.cu
+# ``launch_shape``): a block owns a tile of one frame's positions and the
+# 32 channels of each of its heads.  The first is for large grids, the
+# second for small ones (``k3_block``, ``k4_block``).
+# tests/test_torch_blend2d_tiled.py mirrors the kernels' order at each.
+K3_SHAPES = ((4, 8, 2), (4, 4, 1))
+K4_SHAPES = ((2, 8, 8), (4, 4, 1))
+
+
+def _blocks(b: int, t: int, h: int, w: int, shape) -> int:
+    """Blocks of K3 or K4 launched with ``shape``."""
+    ty, tx, heads = shape
+    return b * t * -(-h // ty) * -(-w // tx) * (_HEADS // heads)
+
+
+def k3_block(b: int, t: int, h: int, w: int, sms: int):
+    """K3's block shape at a [b, t, h, w] grid on a card of ``sms`` SMs:
+    a 4x8 tile of two heads (each staged component row a whole 32-byte
+    sector at P = 8 in bf16), or a 4x4 tile of one head where that would
+    leave some SMs without a block."""
+    if _blocks(b, t, h, w, K3_SHAPES[0]) >= sms:
+        return K3_SHAPES[0]
+    return K3_SHAPES[1]
+
+
+def k4_block(b: int, t: int, h: int, w: int, sms: int):
+    """K4's block shape at a [b, t, h, w] grid on a card of ``sms`` SMs:
+    a 2x8 tile of all eight heads (each component row written whole by one
+    warp) where that gives every SM four blocks, else a 4x4 tile of one
+    head."""
+    if _blocks(b, t, h, w, K4_SHAPES[0]) >= 4 * sms:
+        return K4_SHAPES[0]
+    return K4_SHAPES[1]
 
 
 def hat(u: torch.Tensor) -> torch.Tensor:
@@ -228,9 +264,11 @@ def blend2d_bwd_dvol(dx, dy, a, g, vol_dtype: torch.dtype,
                          f"{dx.dtype}; got vol_dtype {vol_dtype}")
     check_kernel_args(nh, c, jl, dx.dtype, {"dx": dx, "dy": dy, "a": a, "g": g})
     dvol = torch.empty((b, jl, t, h, w, c), dtype=vol_dtype, device=dx.device)
+    sms = torch.cuda.get_device_properties(dx.device).multi_processor_count
     launch("blend2d_bwd_dvol", dx.device, dx.data_ptr(), dy.data_ptr(),
            a.data_ptr(), g.data_ptr(), dvol.data_ptr(),
-           int(dx.dtype == torch.bfloat16), b, jl, t, h, w, kp // nh)
+           int(dx.dtype == torch.bfloat16), b, jl, t, h, w, kp // nh,
+           *k3_block(b, t, h, w, sms))
     blend2d_bwd_dvol.launches += 1
     return dvol
 
@@ -247,10 +285,11 @@ def blend2d_bwd_dcomps(vol, dx, dy, a, g, nh: int = 8):
     check_kernel_args(nh, c, jl, vol.dtype,
                       {"vol": vol, "dx": dx, "dy": dy, "a": a, "g": g})
     ddx, ddy, da = (torch.empty_like(dx) for _ in range(3))
+    sms = torch.cuda.get_device_properties(vol.device).multi_processor_count
     launch("blend2d_bwd_dcomps", vol.device, vol.data_ptr(), dx.data_ptr(),
            dy.data_ptr(), a.data_ptr(), g.data_ptr(), ddx.data_ptr(),
            ddy.data_ptr(), da.data_ptr(), int(vol.dtype == torch.bfloat16),
-           b, jl, t, h, w, kp // nh)
+           b, jl, t, h, w, kp // nh, *k4_block(b, t, h, w, sms))
     blend2d_bwd_dcomps.launches += 1
     return ddx, ddy, da
 

@@ -40,13 +40,15 @@ KERNELS = {
         "blend2d.cu", "blend2d_launch",
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     ),
+    # dx, dy, a, g, dvol, ints, tile rows, tile columns, heads per block
     "blend2d_bwd_dvol": (
         "blend2d_bwd_dvol.cu", "blend2d_bwd_dvol_launch",
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        [_P] * 5 + [_I] * 10 + [_P],
     ),
+    # vol, dx, dy, a, g, ddx, ddy, da, ints, tile rows, tile columns, heads
     "blend2d_bwd_dcomps": (
         "blend2d_bwd_dcomps.cu", "blend2d_bwd_dcomps_launch",
-        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        [_P] * 8 + [_I] * 10 + [_P],
     ),
     # vol, dx, dy, dt, a, out, ints, tile, frames per block
     "blend3d": (

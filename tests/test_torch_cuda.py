@@ -17,6 +17,8 @@ from class_query_vad_tpu_torch.models import build_model
 from class_query_vad_tpu_torch.models.detr import randomize_constants
 from class_query_vad_tpu_torch.models.vit import softmax
 from class_query_vad_tpu_torch.ops.blend2d import (
+    K3_SHAPES,
+    K4_SHAPES,
     blend2d,
     blend2d_backward_reference,
     blend2d_bwd_dcomps,
@@ -31,6 +33,7 @@ from class_query_vad_tpu_torch.ops.blend3d import (
     blend3d_fwd,
     blend3d_reference,
 )
+from class_query_vad_tpu_torch.ops.cuda_build import launch
 from class_query_vad_tpu_torch.ops.fast_deform_cuda import (
     fused_blend2d,
     fused_blend2d_reference,
@@ -129,13 +132,23 @@ def _close(got, want, tol, what):
 
 
 # K2-K4: float32 differs only in summation order; bf16 outputs (K3, K4)
-# are rounded to bf16 after sums in another order (one ulp, 2^-8)
+# are rounded to bf16 after sums in another order (one ulp, 2^-8).  K3 and
+# K4 tile the grid (``k3_block``, ``k4_block``): 7x9, 13x21 and 1x5 leave
+# ragged tiles on both axes; K3 stages the components in chunks of 8
+# points, copied 16, 8, 4 or 2 bytes at a time (P = 12: two chunks; P = 3
+# in bf16: 2-byte copies), and K4 splits a head's points over 4 lanes (P = 3,
+# 4, 12: runs of 1, 1 and 3; P = 8 its vector path).
+BLEND2D_CASES = [
+    (4, (2, 7, 9), 8, False), (4, (2, 7, 9), 8, True),
+    (2, (1, 16, 20), 8, True), (3, (1, 1, 5), 4, False),
+    (1, (2, 13, 21), 8, True), (2, (2, 13, 21), 12, True),
+    (3, (2, 7, 9), 3, True), (4, (1, 1, 5), 3, True), (1, (2, 9, 11), 4, True)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 1e-2)])
-@pytest.mark.parametrize("jl,thw,points,ties", [
-    (4, (2, 7, 9), 8, False), (4, (2, 7, 9), 8, True),
-    (2, (1, 16, 20), 8, True), (3, (1, 1, 5), 4, False)])
+@pytest.mark.parametrize("jl,thw,points,ties", BLEND2D_CASES)
 def test_blend2d_kernels_match_plain(card, dtype, tol, jl, thw, points, ties):
     (vol, dx, dy, a), g = _comps(card, dtype, jl, thw, points, 7, ties)
     before = (blend2d.launches, blend2d_bwd_dvol.launches,
@@ -152,6 +165,34 @@ def test_blend2d_kernels_match_plain(card, dtype, tol, jl, thw, points, ties):
                             (dvol, ddx, ddy, da), want):
         assert got.dtype == dtype, name
         _close(got, w, tol, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("jl,thw,points", [(4, (2, 13, 21), 8), (3, (1, 7, 9), 3),
+                                           (2, (2, 9, 11), 12)])
+def test_blend2d_bwd_every_block_shape(card, dtype, tol, jl, thw, points):
+    """K3 and K4 through their launchers at every block shape they take
+    (``K3_SHAPES``, ``K4_SHAPES``), not only those ``k3_block`` /
+    ``k4_block`` pick, against the plain versions."""
+    (vol, dx, dy, a), g = _comps(card, dtype, jl, thw, points, 11, True)
+    want = blend2d_backward_reference(vol, dx, dy, a, g, 8)
+    b, _, tt, h, w, _ = vol.shape
+    ints = [int(dtype == torch.bfloat16), b, jl, tt, h, w, points]
+    for shape in K3_SHAPES:
+        dvol = torch.full_like(vol, float("nan"))
+        launch("blend2d_bwd_dvol", card, dx.data_ptr(), dy.data_ptr(), a.data_ptr(),
+               g.data_ptr(), dvol.data_ptr(), *ints, *shape)
+        torch.cuda.synchronize()
+        _close(dvol, want[0], tol, f"K3 {shape}")
+    for shape in K4_SHAPES:
+        outs = [torch.full_like(dx, float("nan")) for _ in range(3)]
+        launch("blend2d_bwd_dcomps", card, vol.data_ptr(), dx.data_ptr(), dy.data_ptr(),
+               a.data_ptr(), g.data_ptr(), *(x.data_ptr() for x in outs), *ints, *shape)
+        torch.cuda.synchronize()
+        for name, got, w_ in zip(("ddx", "ddy", "da"), outs, want[1:]):
+            _close(got, w_, tol, f"K4 {name} {shape}")
 
 
 @pytest.mark.cuda
