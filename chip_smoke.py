@@ -12,14 +12,16 @@ NVIDIA card.
    path's four level shapes, in float32 and bf16, with kernel / plain
    timings and the card's lower bound for the same work: K1 (fused blend)
    at the eval batch B=2; K2 (blend from components), K3 (its dvol) and K4
-   (its d components) at B=1 and B=2 with offsets on exact ties, and K1's
-   autograd (grads of vol and the head lanes) against autograd through the
-   plain composite; timings at the train batch B=1.  Beside each, the time
-   of the ``F.grid_sample`` composition of the same function (K1: after
-   the torch front end; K3 / K4: its autograd with respect to vol / the
-   components), the library yardstick no path of the port calls; K3 and
-   K4 per grid and per layer, and K1's whole backward per layer, beside
-   their times before K3 and K4 were tiled (``EARLIER_MS``).
+   (its d components) at B=1 and B=2 with offsets on exact ties, at P = 8
+   and at the components route's P = 4, and K1's autograd (grads of vol
+   and the head lanes) against autograd through the plain composite;
+   timings at the train batch B=1 (K2-K4 at both P).  Beside each, the
+   time of the ``F.grid_sample`` composition of the same function (K1:
+   after the torch front end; K3 / K4: its autograd with respect to vol /
+   the components), the library yardstick no path of the port calls;
+   K1-K4 per grid and per layer, and K1's whole backward per layer, beside
+   their times before their redesign (``EARLIER_MS``,
+   ``EARLIER_GRID_MS``).
 3. The eval path at full width: ``AVA22_ViT-B_fast`` (ViT-B, 6+6 layers,
    D=256, 80 classes, 15 queries) in bf16 with seeded random weights
    serves 3 requests of [2, 16, 256, 320, 3] clips through forward +
@@ -262,6 +264,17 @@ def k1_work(h: int, w: int, itemsize: int):
     return vol + fused + out, ops
 
 
+def k1_inputs(rng, b, h, w, dtype, dev):
+    """K1's vol and raw head lanes at one level shape (T = ``K1_T``,
+    J = ``K1_J``): the logits unshifted, so that the kernel's own
+    global max does work."""
+    vol = torch.from_numpy(rng.standard_normal(
+        (b, K1_J, K1_T, h, w, K1_C), np.float32)).to(dev, dtype)
+    fused = torch.from_numpy(2.0 * rng.standard_normal(
+        (b, K1_T, h, w, 3 * K1_J * K1_KP), np.float32)).to(dev, dtype)
+    return vol, fused
+
+
 def phase_kernels(dev, bw, peak):
     from class_query_vad_tpu_torch.ops.fast_deform_cuda import (
         fused_blend2d, fused_blend2d_reference, fused_components)
@@ -272,10 +285,7 @@ def phase_kernels(dev, bw, peak):
     bound_by = {"bytes": 0.0, "operations": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         for h, w in K1_LEVELS:
-            vol = torch.from_numpy(rng.standard_normal(
-                (K1_B, K1_J, K1_T, h, w, K1_C), np.float32)).to(dev, dtype)
-            fused = torch.from_numpy(2.0 * rng.standard_normal(
-                (K1_B, K1_T, h, w, 3 * K1_J * K1_KP), np.float32)).to(dev, dtype)
+            vol, fused = k1_inputs(rng, K1_B, h, w, dtype, dev)
             out_k = fused_blend2d(vol, fused, 8, 1.0)
             out_p = fused_blend2d_reference(vol, fused, 8, 1.0)
             torch.cuda.synchronize()
@@ -307,14 +317,16 @@ def phase_kernels(dev, bw, peak):
                 bound_by["bytes" if nbytes / bw >= ops / peak
                          else "operations"] += t_b
                 print(f"K1 bf16     {h:3d}x{w:<3d}: kernel {t_k:.4f} ms "
-                      f"(device, queued; {t_call:.4f} ms per back-to-back call with "
-                      f"the wrapper), plain {t_p:.4f} ms, library "
+                      f"(device, queued{earlier_at('K1', (h, w))}; {t_call:.4f} ms "
+                      f"per back-to-back call with the wrapper), plain "
+                      f"{t_p:.4f} ms, library "
                       f"{t_l:.4f} ms, bound {t_b:.4f} ms "
                       f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP) -> "
                       f"{nbytes / t_k / 1e6:.0f} GB/s")
                 ms, plain_ms, bound_ms = ms + t_k, plain_ms + t_p, bound_ms + t_b
                 library_ms += t_l
-    print(f"K1 per encoder layer (4 launches, bf16): kernel {ms:.4f} ms, "
+    print(f"K1 per encoder layer (4 launches, bf16): kernel {ms:.4f} ms "
+          f"(earlier version {EARLIER_MS['K1']:.4f} ms), "
           f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms (the kernel runs at {bound_ms / ms:.1%} of the "
           f"bound's speed)")
@@ -337,11 +349,12 @@ BLEND_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 K1_GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
-def blend_inputs(rng, b, h, w, dtype, dev, nc: int = 2, t: int = K1_T):
+def blend_inputs(rng, b, h, w, dtype, dev, nc: int = 2, t: int = K1_T,
+                 points: int = K1_KP // 8):
     """vol, dx, dy, (dt,) a at one level shape (``nc`` offset components,
-    ``t`` frames); a third of the offsets exactly on -1, 0 or 1 (the tie
-    points of hat'); G float32."""
-    shape = (b, K1_J, t, h, w, K1_KP)
+    ``t`` frames, ``points`` per head); a third of the offsets exactly on
+    -1, 0 or 1 (the tie points of hat'); G float32."""
+    shape = (b, K1_J, t, h, w, 8 * points)
     vol = rng.standard_normal((b, K1_J, t, h, w, K1_C), np.float32)
     offs = []
     for _ in range(nc):
@@ -355,17 +368,20 @@ def blend_inputs(rng, b, h, w, dtype, dev, nc: int = 2, t: int = K1_T):
     return comps, torch.from_numpy(g).to(dev)
 
 
-def blend_work(kernel: str, b: int, h: int, w: int, itemsize: int):
-    """(bytes, operations) one launch of K2, K3 or K4 must spend: each
-    input read once, each output written once; per (query, level): 9 taps
-    x C multiply-adds (K2, K3: the blend; K4: the per-head dots) + ~12 ops
-    per tap and point for hats and masses (~30 in K4 with hat')."""
+def blend_work(kernel: str, b: int, h: int, w: int, itemsize: int,
+               points: int = K1_KP // 8):
+    """(bytes, operations) one launch of K2, K3 or K4 must spend at
+    ``points`` per head: each input read once, each output written once;
+    per (query, level): 9 taps x C multiply-adds (K2, K3: the blend; K4:
+    the per-head dots) + ~12 ops per tap and point for hats and masses
+    (~30 in K4 with hat')."""
+    kp = 8 * points
     q = b * K1_T * h * w
     vol = b * K1_J * K1_T * h * w * K1_C * itemsize
-    comps = 3 * q * K1_J * K1_KP * itemsize
+    comps = 3 * q * K1_J * kp * itemsize
     g32 = q * K1_C * 4
     per_point = 30 if kernel == "K4" else 12
-    ops = q * K1_J * (9 * K1_C * 2 + 9 * K1_KP * per_point)
+    ops = q * K1_J * (9 * K1_C * 2 + 9 * kp * per_point)
     nbytes = {"K2": vol + comps + g32,          # out is float32 like G
               "K3": g32 + comps + vol,          # dvol like vol
               "K4": g32 + vol + comps + comps}[kernel]
@@ -406,9 +422,21 @@ def library_grad(fn, leaves, wrt, g):
                                        retain_graph=True)
 
 
+# K2-K4's points per head: the main path's (the train step's K3 and K4)
+# and the components route's (NUM_ENC_N_POINTS 4: K2, K3, K4); each
+# kernel's JSON entry reports the points its launches run at
+BLEND_POINTS = (8, 4)
+LAUNCH_POINTS = {"K2": 4, "K3": 8, "K4": 8}
+# (dtype, B, P) of phase 2's K2-K4 checks; bf16 at B = TRAIN_B is timed
+BLEND_CASES = [(torch.float32, TRAIN_B, 8), (torch.float32, 2, 8),
+               (torch.bfloat16, TRAIN_B, 8), (torch.bfloat16, 2, 8),
+               (torch.float32, TRAIN_B, 4), (torch.bfloat16, TRAIN_B, 4)]
+
+
 def phase_blend_kernels(dev, bw, peak):
     """K2, K3, K4 and K1's autograd against their plain versions; timings
-    of the bf16 train shapes (B=1, one encoder layer = 4 levels)."""
+    of the bf16 train shapes (B=1, one encoder layer = 4 levels) at P = 8
+    and at the components route's P = 4."""
     from class_query_vad_tpu_torch.ops.blend2d import (
         blend2d,
         blend2d_bwd_dcomps,
@@ -424,130 +452,139 @@ def phase_blend_kernels(dev, bw, peak):
 
     rng = np.random.default_rng(1)
     err = {k: 0.0 for k in ("K2", "K3", "K4")}
-    num = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-               "bound_by": {"bytes": 0.0, "operations": 0.0}} for k in err}
+    num = {(k, p): {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+                    "bound_by": {"bytes": 0.0, "operations": 0.0}}
+           for k in err for p in BLEND_POINTS}
     k1_bwd_ms = 0.0
-    for dtype in (torch.float32, torch.bfloat16):
-        for b in (TRAIN_B, 2):
-            for h, w in K1_LEVELS:
-                (vol, dx, dy, a), g = blend_inputs(rng, b, h, w, dtype, dev)
-                calls = {
-                    "K2": (lambda: blend2d(vol, dx, dy, a, 8),
-                           lambda: blend2d_reference(vol, dx, dy, a, 8)),
-                    "K3": (lambda: blend2d_bwd_dvol(dx, dy, a, g, dtype, 8),
-                           lambda: blend2d_bwd_dvol_reference(dx, dy, a, g,
-                                                              dtype, 8)),
-                    "K4": (lambda: blend2d_bwd_dcomps(vol, dx, dy, a, g, 8),
-                           lambda: blend2d_bwd_dcomps_reference(vol, dx, dy,
-                                                                a, g, 8)),
+    for dtype, b, points in BLEND_CASES:
+        for h, w in K1_LEVELS:
+            (vol, dx, dy, a), g = blend_inputs(rng, b, h, w, dtype, dev,
+                                               points=points)
+            calls = {
+                "K2": (lambda: blend2d(vol, dx, dy, a, 8),
+                       lambda: blend2d_reference(vol, dx, dy, a, 8)),
+                "K3": (lambda: blend2d_bwd_dvol(dx, dy, a, g, dtype, 8),
+                       lambda: blend2d_bwd_dvol_reference(dx, dy, a, g,
+                                                          dtype, 8)),
+                "K4": (lambda: blend2d_bwd_dcomps(vol, dx, dy, a, g, 8),
+                       lambda: blend2d_bwd_dcomps_reference(vol, dx, dy,
+                                                            a, g, 8)),
+            }
+            if dtype == torch.bfloat16 and b == TRAIN_B:
+                # the grid_sample composition (K2) and its autograd
+                # with respect to vol (K3) or the components (K4);
+                # the forward and d vol checked against the plain
+                # versions (d components not: grid_sample's
+                # subgradients at the ties are not XLA's)
+                lib2 = lambda: blend_grid_sample(vol, dx, dy, a, 8)
+                check_library(lib2(), calls["K2"][1](), "K2")
+                library = {
+                    "K2": lib2,
+                    "K3": library_grad(blend_grid_sample,
+                                       (vol, dx, dy, a), (0,), g),
+                    "K4": library_grad(blend_grid_sample,
+                                       (vol, dx, dy, a), (1, 2, 3), g),
                 }
+                e3 = rel_err(library["K3"]()[0], calls["K3"][1]())[1]
+                check(e3 <= BLEND_TOL[dtype], f"the grid_sample "
+                      f"composition's d vol disagrees with K3's plain "
+                      f"version: {e3:.2e}")
+            for k, (kern, plain) in calls.items():
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                if k != "K4":
+                    got, want = (got,), (want,)
+                for x in got:
+                    check(bool(torch.isfinite(x).all()), f"{k} not finite")
+                e = max(rel_err(x, y)[1] for x, y in zip(got, want))
+                tol = 1e-5 if k == "K2" else BLEND_TOL[dtype]
+                ok = e <= tol
+                print(f"{k} {str(dtype)[6:]:8s} B={b} P={points} {h:3d}x"
+                      f"{w:<3d}: max|err| = {e:.2e} x max|ref| (tol "
+                      f"{tol:.0e}) {'ok' if ok else 'FAIL'}")
+                check(ok, f"{k} disagrees with its plain version at "
+                          f"B={b} P={points} {h}x{w} {dtype}")
+                err[k] = max(err[k], max(rel_err(x, y)[0]
+                                         for x, y in zip(got, want)))
                 if dtype == torch.bfloat16 and b == TRAIN_B:
-                    # the grid_sample composition (K2) and its autograd
-                    # with respect to vol (K3) or the components (K4);
-                    # the forward and d vol checked against the plain
-                    # versions (d components not: grid_sample's
-                    # subgradients at the ties are not XLA's)
-                    lib2 = lambda: blend_grid_sample(vol, dx, dy, a, 8)
-                    check_library(lib2(), calls["K2"][1](), "K2")
-                    library = {
-                        "K2": lib2,
-                        "K3": library_grad(blend_grid_sample,
-                                           (vol, dx, dy, a), (0,), g),
-                        "K4": library_grad(blend_grid_sample,
-                                           (vol, dx, dy, a), (1, 2, 3), g),
-                    }
-                    e3 = rel_err(library["K3"]()[0], calls["K3"][1]())[1]
-                    check(e3 <= BLEND_TOL[dtype], f"the grid_sample "
-                          f"composition's d vol disagrees with K3's plain "
-                          f"version: {e3:.2e}")
-                for k, (kern, plain) in calls.items():
-                    got, want = kern(), plain()
-                    torch.cuda.synchronize()
-                    if k != "K4":
-                        got, want = (got,), (want,)
-                    for x in got:
-                        check(bool(torch.isfinite(x).all()), f"{k} not finite")
-                    e = max(rel_err(x, y)[1] for x, y in zip(got, want))
-                    tol = 1e-5 if k == "K2" else BLEND_TOL[dtype]
-                    ok = e <= tol
-                    print(f"{k} {str(dtype)[6:]:8s} B={b} {h:3d}x{w:<3d}: "
-                          f"max|err| = {e:.2e} x max|ref| (tol {tol:.0e}) "
-                          f"{'ok' if ok else 'FAIL'}")
-                    check(ok, f"{k} disagrees with its plain version at "
-                              f"B={b} {h}x{w} {dtype}")
-                    err[k] = max(err[k], max(rel_err(x, y)[0]
-                                             for x, y in zip(got, want)))
-                    if dtype == torch.bfloat16 and b == TRAIN_B:
-                        t_k = kernel_device_ms(kern)
-                        t_p = cuda_ms(plain, 3, 1)
-                        t_l = cuda_ms(library[k], 5, 1)
-                        nbytes, ops = blend_work(k, b, h, w, 2)
-                        t_b = max(nbytes / bw, ops / peak) * 1e3
-                        n = num[k]
-                        n["bound_by"]["bytes" if nbytes / bw >= ops / peak
-                                      else "operations"] += t_b
-                        n["ms"] += t_k
-                        n["plain_ms"] += t_p
-                        n["bound_ms"] += t_b
-                        n["library_ms"] += t_l
-                        print(f"{k} bf16     B={b} {h:3d}x{w:<3d}: kernel "
-                              f"{t_k:.4f} ms (device, queued)"
-                              f"{earlier_at(k, (h, w))}, plain "
-                              f"{t_p:.4f} ms, library {t_l:.4f} ms, "
-                              f"bound {t_b:.4f} ms ({nbytes / 1e6:.1f} MB) "
-                              f"-> {nbytes / t_k / 1e6:.0f} GB/s")
+                    t_k = kernel_device_ms(kern)
+                    t_p = cuda_ms(plain, 3, 1)
+                    t_l = cuda_ms(library[k], 5, 1)
+                    nbytes, ops = blend_work(k, b, h, w, 2, points)
+                    t_b = max(nbytes / bw, ops / peak) * 1e3
+                    n = num[(k, points)]
+                    n["bound_by"]["bytes" if nbytes / bw >= ops / peak
+                                  else "operations"] += t_b
+                    n["ms"] += t_k
+                    n["plain_ms"] += t_p
+                    n["bound_ms"] += t_b
+                    n["library_ms"] += t_l
+                    print(f"{k} bf16     B={b} P={points} {h:3d}x{w:<3d}: "
+                          f"kernel {t_k:.4f} ms (device, queued)"
+                          f"{earlier_at(k, (h, w), points)}, plain "
+                          f"{t_p:.4f} ms, library {t_l:.4f} ms, "
+                          f"bound {t_b:.4f} ms ({nbytes / 1e6:.1f} MB) "
+                          f"-> {nbytes / t_k / 1e6:.0f} GB/s")
 
-                # K1's autograd against the plain composite: autograd
-                # through the plain recompute of the offsets and weights,
-                # fed the plain K3/K4 (XLA's tie rules; numpy's float32
-                # normals include exact zeros, so offsets hit the ties)
-                vol1 = vol.clone().requires_grad_()
-                fused = torch.from_numpy(2.0 * rng.standard_normal(
-                    (b, K1_T, h, w, 3 * K1_J * K1_KP), np.float32)
-                ).to(dev, dtype).requires_grad_()
-                out = fused_blend2d(vol1, fused, 8, 1.0)
-                grads = torch.autograd.grad(out, (vol1, fused), g,
-                                            retain_graph=True)
-                comps = fused_components(fused, K1_J)
-                cd = [c.detach() for c in comps]
-                ref = (blend2d_bwd_dvol_reference(*cd, g, dtype, 8),
-                       torch.autograd.grad(comps, fused,
-                                           blend2d_bwd_dcomps_reference(
-                                               vol, *cd, g, 8))[0])
-                for name, x, y in zip(("d vol", "d fused"), grads, ref):
-                    e = rel_err(x, y)[1]
-                    ok = bool(torch.isfinite(x).all()) and e <= K1_GRAD_TOL[dtype]
-                    print(f"K1 grad {name:7s} {str(dtype)[6:]:8s} B={b} "
-                          f"{h:3d}x{w:<3d}: max|err| = {e:.2e} x max|ref| "
-                          f"(tol {K1_GRAD_TOL[dtype]:.0e}) "
-                          f"{'ok' if ok else 'FAIL'}")
-                    check(ok, f"K1's gradient ({name}) disagrees with the "
-                              f"plain composite at B={b} {h}x{w} {dtype}")
-                if dtype == torch.bfloat16 and b == TRAIN_B:
-                    t = cuda_ms(lambda: torch.autograd.grad(
-                        out, (vol1, fused), g, retain_graph=True), 20)
-                    k1_bwd_ms += t
-                    print(f"K1 backward bf16 B={b} {h:3d}x{w:<3d}: {t:.4f} ms "
-                          f"per call (recompute + K3 + K4 + the recompute's "
-                          f"backward; CUDA events)")
+            # K1's autograd against the plain composite: autograd
+            # through the plain recompute of the offsets and weights,
+            # fed the plain K3/K4 (XLA's tie rules; numpy's float32
+            # normals include exact zeros, so offsets hit the ties)
+            if points != K1_KP // 8:
+                continue
+            vol1 = vol.clone().requires_grad_()
+            fused = torch.from_numpy(2.0 * rng.standard_normal(
+                (b, K1_T, h, w, 3 * K1_J * K1_KP), np.float32)
+            ).to(dev, dtype).requires_grad_()
+            out = fused_blend2d(vol1, fused, 8, 1.0)
+            grads = torch.autograd.grad(out, (vol1, fused), g,
+                                        retain_graph=True)
+            comps = fused_components(fused, K1_J)
+            cd = [c.detach() for c in comps]
+            ref = (blend2d_bwd_dvol_reference(*cd, g, dtype, 8),
+                   torch.autograd.grad(comps, fused,
+                                       blend2d_bwd_dcomps_reference(
+                                           vol, *cd, g, 8))[0])
+            for name, x, y in zip(("d vol", "d fused"), grads, ref):
+                e = rel_err(x, y)[1]
+                ok = bool(torch.isfinite(x).all()) and e <= K1_GRAD_TOL[dtype]
+                print(f"K1 grad {name:7s} {str(dtype)[6:]:8s} B={b} "
+                      f"{h:3d}x{w:<3d}: max|err| = {e:.2e} x max|ref| "
+                      f"(tol {K1_GRAD_TOL[dtype]:.0e}) "
+                      f"{'ok' if ok else 'FAIL'}")
+                check(ok, f"K1's gradient ({name}) disagrees with the "
+                          f"plain composite at B={b} {h}x{w} {dtype}")
+            if dtype == torch.bfloat16 and b == TRAIN_B:
+                t = cuda_ms(lambda: torch.autograd.grad(
+                    out, (vol1, fused), g, retain_graph=True), 20)
+                k1_bwd_ms += t
+                print(f"K1 backward bf16 B={b} {h:3d}x{w:<3d}: {t:.4f} ms "
+                      f"per call (recompute + K3 + K4 + the recompute's "
+                      f"backward; CUDA events)")
     print(f"K1 backward per encoder layer (bf16, B={TRAIN_B}, 4 levels): "
           f"{k1_bwd_ms:.4f} ms (with the first K3 and K4 "
           f"{EARLIER_MS['K1 backward']:.4f} ms), of which K3 "
-          f"{num['K3']['ms']:.4f} and K4 {num['K4']['ms']:.4f} ms of kernel "
+          f"{num[('K3', 8)]['ms']:.4f} and K4 {num[('K4', 8)]['ms']:.4f} ms of kernel "
           f"device time")
     names = {"K2": ("blend2d", "blend2d.cu", 186),
              "K3": ("blend2d_bwd_dvol", "blend2d_bwd_dvol.cu", 786),
              "K4": ("blend2d_bwd_dcomps", "blend2d_bwd_dcomps.cu", 733)}
     entries = []
     for k, (name, src, line) in names.items():
-        n = num[k]
-        earlier = (f" (earlier version {EARLIER_MS[k]:.4f} ms)"
-                   if k in EARLIER_MS else "")
-        print(f"{k} per encoder layer (4 launches, bf16, B={TRAIN_B}): kernel "
-              f"{n['ms']:.4f} ms{earlier}, plain {n['plain_ms']:.4f} ms, library "
-              f"{n['library_ms']:.4f} ms, bound "
-              f"{n['bound_ms']:.4f} ms ({n['bound_ms'] / n['ms']:.1%} of the "
-              f"bound's speed)")
+        for points in BLEND_POINTS:
+            n = num[(k, points)]
+            key = earlier_key(k, points)
+            earlier = (f" (earlier version {EARLIER_MS[key]:.4f} ms)"
+                       if key in EARLIER_MS else "")
+            print(f"{k} per encoder layer (4 launches, bf16, B={TRAIN_B}, "
+                  f"P={points}): kernel {n['ms']:.4f} ms{earlier}, plain "
+                  f"{n['plain_ms']:.4f} ms, library {n['library_ms']:.4f} ms, "
+                  f"bound {n['bound_ms']:.4f} ms ({n['bound_ms'] / n['ms']:.1%} "
+                  f"of the bound's speed)")
+        times = {p: {x: num[(k, p)][x] for x in
+                     ("ms", "plain_ms", "bound_ms", "library_ms")}
+                 for p in BLEND_POINTS}
+        n = num[(k, LAUNCH_POINTS[k])]
         entries.append({
             "name": name, "route": "cuda",
             "source": f"class_query_vad_tpu_torch/csrc/{src}",
@@ -555,7 +592,8 @@ def phase_blend_kernels(dev, bw, peak):
             "launches": None, "max_abs_err": err[k], "ms": n["ms"],
             "plain_ms": n["plain_ms"], "bound_ms": n["bound_ms"],
             "bound_by": max(n["bound_by"], key=n["bound_by"].get),
-            "library_ms": n["library_ms"],
+            "library_ms": n["library_ms"], "points": LAUNCH_POINTS[k],
+            "by_points": times,
         })
     return entries, k1_bwd_ms
 
@@ -1244,32 +1282,45 @@ K5_PER_FORWARD = {K5_BACKBONE: 48, K5_ENCODER: 48}
 # bf16: y is rounded to bf16 on both sides (one ulp, 2^-8 of |y|)
 K5_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 SFU_RATE = 132 * 16 * 1.98e9     # H100 SXM: exps per second (16/clk/SM)
-# the times of K3's, K4's, K5's, K6's, K8's, K9's, K10's and K11's versions
-# before their redesign (K5 sequential over L; the others a warp per query
-# or output gathering every tap or rebuilding every mass), bf16, printed
-# beside this run's (NVIDIA H100 80GB HBM3, 700 W, the last call of
-# chip_smoke.py with those sources): K5 per scan shape and per VSS forward,
-# K3 / K4 / K6 / K8 / K9 / K10 / K11 per encoder layer, K6 in K7's regime
-# at its one grid, and K1's whole backward per encoder layer (the
-# recompute's eager ops, K3, K4) beside the first K3 and K4
+# the times of K1's, K2's, K3's, K4's, K5's, K6's, K8's, K9's, K10's and
+# K11's versions before their redesign (K5 sequential over L; the others a
+# warp per query or output gathering every tap or rebuilding every mass),
+# bf16, printed beside this run's (NVIDIA H100 80GB HBM3, 700 W, the last
+# call of chip_smoke.py with those sources; K1's and K2's from the first
+# call of ``compare_k1_k2``): K5 per scan shape and per VSS forward,
+# K1 / K2 (P = 8 and 4) / K3 / K4 / K6 / K8 / K9 / K10 / K11 per encoder
+# layer, K6 in K7's regime at its one grid, and K1's whole backward per
+# encoder layer (the recompute's eager ops, K3, K4) beside the first K3
+# and K4
 EARLIER_MS = {K5_BACKBONE: 0.4360, K5_ENCODER: 0.0354, "K5": 22.626,
               "K10": 0.1592, "K11": 1.5505, "K6": 0.7099, "K8": 1.1192,
               "K9": 0.6466, "K7 regime": 1.0617, "K3": 0.1076, "K4": 0.0996,
-              "K1 backward": 4.9334}
-# K3's, K4's, K9's and K10's first versions per query grid (64x80 ..
-# 8x10), bf16: the mean of two turns each in one call of
-# ``class_query_vad_tpu_torch.scripts.compare_k3_k4`` (K3, K4) or
-# ``compare_k9_k10`` (K9, K10) against those sources (NVIDIA H100 80GB
-# HBM3, 700 W)
-EARLIER_GRID_MS = {"K3": (0.0712, 0.0218, 0.0092, 0.0063),
+              "K1 backward": 4.9334, "K1": 0.1111, "K2": 0.0642,
+              "K2 P=4": 0.0602}
+# K1's, K2's, K3's, K4's, K9's and K10's first versions per query grid
+# (64x80 .. 8x10), bf16: the mean of two turns each in one call of
+# ``class_query_vad_tpu_torch.scripts.compare_k1_k2`` (K1, K2),
+# ``compare_k3_k4`` (K3, K4) or ``compare_k9_k10`` (K9, K10) against those
+# sources (NVIDIA H100 80GB HBM3, 700 W)
+EARLIER_GRID_MS = {"K1": (0.0683, 0.0198, 0.0130, 0.0101),
+                   "K2": (0.0322, 0.0126, 0.0104, 0.0090),
+                   "K2 P=4": (0.0292, 0.0118, 0.0104, 0.0088),
+                   "K3": (0.0712, 0.0218, 0.0092, 0.0063),
                    "K4": (0.0655, 0.0186, 0.0090, 0.0083),
                    "K9": (0.4504, 0.1243, 0.0438, 0.0279),
                    "K10": (0.0930, 0.0307, 0.0185, 0.0169)}
 
 
-def earlier_at(k: str, grid) -> str:
+def earlier_key(k: str, points: int = K1_KP // 8) -> str:
+    """The ``EARLIER_MS`` / ``EARLIER_GRID_MS`` key of kernel ``k`` at
+    ``points`` per head (the main path's 8 unsuffixed)."""
+    return k if points == K1_KP // 8 else f"{k} P={points}"
+
+
+def earlier_at(k: str, grid, points: int = K1_KP // 8) -> str:
     """`` (earlier version x ms)`` for kernel ``k`` at one of the four
     query grids, where it is known."""
+    k = earlier_key(k, points)
     if k not in EARLIER_GRID_MS or tuple(grid) not in K1_LEVELS:
         return ""
     return (f" (earlier version "

@@ -1,4 +1,5 @@
-// Fused-head windowed blend, radius-1 spatial (2d) window, for Hopper (sm_90a).
+// Fused-head windowed blend, radius-1 spatial (2d) window (K1), for Hopper
+// (sm_90a).
 //
 // Replaces the TPU kernel class_query_vad_tpu/ops/fast_deform_pallas.py:1413
 // `_fused_kernel_2d` (pallas_call in `_fused_pallas_b1_2d`, reached through
@@ -25,24 +26,61 @@
 //   out[c] = sum_j sum_{sy,sx} m[j, c / (C/NH), sy, sx] * vol_j[y+sy, x+sx, c]
 //           with zeros outside the grid.
 //
-// What bounds it: memory.  Each query reads J*C values of its own position
-// (its 3x3 neighbours' rows are shared with the neighbouring queries and come
-// from L1/L2), 3*J*KP head lanes and writes C floats: at the main-path shapes
-// (B=2, T=2, four levels 64x80 .. 8x10, J=4, bf16) one encoder layer moves
-// ~125 MB for ~0.5 GFLOP, far below the ~20 FLOP/byte where float32 CUDA-core
-// arithmetic would take over.
+// The bound: memory.  Each query must read J*C values of its own position,
+// its 3*J*KP head lanes and write C floats: at the main-path shapes (B=2,
+// T=2, four grids 64x80 .. 8x10, J=4, bf16) one encoder layer moves
+// ~125 MB (37 us at 3.35 TB/s) for ~0.5 GFLOP.
 //
-// Design (first, simple version): one warp per query, eight queries (a row
-// segment) per block.  The TPU kernel's two MXU matmuls disappear: the
-// per-head softmax denominator is a warp shuffle-sum (lane = (level, head)
-// pair, so a head's four levels sit on lanes h, h+8, h+16, h+24), and the
-// per-head tap masses are summed over the pair's 8 points in registers and
-// parked in shared memory (J*NH*9 floats per warp).  In the blend each lane
-// owns 8 consecutive channels (one 16-byte bf16 load per tap), all in one
-// head (32 channels = 4 lanes), accumulating in float32.  Borders are masked
-// per tap; H and W need no padding.  No wgmma/TMA: later work.
+// Design: the tiled forward of blend2d_fwd.cuh, with this file's front end.
+// A block owns a TY x TX tile of one frame's queries and all eight heads, a
+// warp per query: all eight, because the softmax subtracts the max over
+// all J*KP weight lanes of the query, which a block per head would have to
+// read whole.  Two shapes (`launch_shape`; ops/blend2d.py `fwd_block` picks
+// one per grid): a 2x4 tile (256 threads; 48 KB of windows in bf16 at
+// J = 4, four blocks per SM) where its blocks fill every SM's four places,
+// else a 2x2 tile (128 threads), twice the blocks for the small grids.
+// The front end's loads go out first, then every level's value window is
+// copied into shared memory, the front end runs while it lands, and after
+// the one barrier each lane blends its 8 channels from the windows.  Front
+// end, lane = (level, head) pair, so that a head's four levels sit on lanes
+// h, h+8, h+16, h+24: its 8 logits and 8 + 8 offsets in three 16-byte
+// loads; the max over all weight lanes a 5-shuffle all-reduce, the
+// per-head denominator 2 shuffles, then one reciprocal; tanh from one
+// exponential and a fast division (`fast_tanh`), the bf16 roundings two
+// values per conversion instruction, 3 hats per axis, and per point 9
+// multiply-adds into the pair's tap masses, which stay in registers and reach the head's 4 lanes
+// by shuffles.  The TPU kernel's two MXU matmuls (head denominators, and
+// the selector spreading masses over a head's lanes) are gone.
+//
+// Departures from the first plan for it, on the card's evidence (H100
+// 80GB HBM3 at 700 W, PERF.md, per encoder layer, each in one call
+// against the version before): every level's window copied up front with
+// one barrier, not double-buffered across levels (K10 lost its gain to two barriers per
+// level; here the front end hides the copies: windows zero-filled instead
+// of read ran under 1 % faster); 2x4 and 2x2 tiles, not 2x8 and 4x4 (once
+// the copies cost little, the small blocks won at every grid: 4x4 5 %
+// slower at 64x80, 2x8 and 4x4 19 % at 32x40); the masses in registers,
+// so that the windows alone fill shared memory; a persistent block per SM
+// walking the tiles with the next tile's copies in flight ran 1.23x slower
+// (16 warps per SM).  tanhf in place of `fast_tanh` costs 5 %, one
+// conversion per rounded value 4 %.  Hats written for |u| <= 1 (max(0, -u),
+// 1 - |u|, max(0, u)) ran 0.6 % faster at radius 1 (0.0678 against 0.0682
+// ms, twice in one call) but needed the general form beside them for
+// radius > 1: one form is kept.
+//
+// What bounds it now (builds with one part compiled out, H100 80GB HBM3
+// at 700 W, PERF.md; the 64x80 grid, 0.0447 ms with the unit hats, 0.0450
+// without, 63 % of its bound):
+// without phase 1 (masses constant, no head lanes read) 0.0330, without
+// phase 2 0.0364, the windows zero-filled instead of read 0.0445, without
+// the stores 0.0439.
+// So issue, the front end first: per lane ~380 instructions for its 8
+// points (two exponentials, two fast divisions, a paired conversion, 6
+// hats, 12 multiplies or multiply-adds each, and the softmax), then the
+// blend's ~650 (per tap a shared load, 8 unpacks, 8 multiply-adds and a
+// shuffle).
 
-#include "blend2d_common.cuh"
+#include "blend2d_fwd.cuh"
 
 using namespace blend2d;
 
@@ -51,141 +89,149 @@ namespace {
 constexpr int kPoints = 8;
 constexpr int kKp = kHeads * kPoints;   // 64 lanes per level and component
 
+// tanh(x) = 1 - 2 / (e^2x + 1), from one exponential and a fast division:
+// off tanhf by a few float32 ulps of 1 at most (the error bounds of __expf
+// and __fdividef; +-1 at +-inf), a fifth of its instructions, no branch
+__device__ __forceinline__ float fast_tanh(float x) {
+  return 1.0f - __fdividef(2.0f, __expf(2.0f * x) + 1.0f);
+}
+
+// x and y rounded to bf16 (to nearest even) by one paired conversion
+__device__ __forceinline__ void round2_bf16(float& x, float& y) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  x = __low2float(h);
+  y = __high2float(h);
+}
+
+// K1's front end: the raw head lanes of the query
 template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
-fused_blend2d_kernel(const T* __restrict__ vol, const T* __restrict__ fused,
-                     float* __restrict__ out, int batch, int levels, int frames,
-                     int height, int width, float radius) {
-  constexpr bool kRound = sizeof(T) == 2;
-  __shared__ float mass[kWarps][kMaxLevels * kHeads * kTaps];
+struct FusedFront {
+  const T* fused;
+  float radius;
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long q = static_cast<long long>(blockIdx.x) * kWarps + warp;
-  const long long n_queries =
-      static_cast<long long>(batch) * frames * height * width;
-  if (q >= n_queries) return;  // whole warp leaves; no block barrier below
+  struct Fetched {
+    Raw8<T> e, dx, dy;            // the lane's 8 logits and 8 + 8 offsets
+  };
 
-  const int x = static_cast<int>(q % width);
-  long long r = q / width;
-  const int y = static_cast<int>(r % height);
-  r /= height;
-  const int t = static_cast<int>(r % frames);
-  const int b = static_cast<int>(r / frames);
-
-  // ---- phase 1: per-(level, head) tap masses; lane = level * 8 + head ----
-  const T* f = fused + q * (3LL * levels * kKp);
-  const int lj = lane >> 3;
-  const int lh = lane & 7;
-  const bool active = lj < levels;
-  float e[kPoints];
-  float mx = -INFINITY;
-  if (active) {
-    load8(f + 2 * levels * kKp + lj * kKp + lh * kPoints, e);
-#pragma unroll
-    for (int p = 0; p < kPoints; ++p) mx = fmaxf(mx, e[p]);
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-  float denom = 0.0f;
-  if (active) {
-#pragma unroll
-    for (int p = 0; p < kPoints; ++p) {
-      e[p] = expf(e[p] - mx);
-      denom += e[p];
+  __device__ __forceinline__ Fetched fetch(const Query& q, int lane, int levels) const {
+    Fetched r;
+    const int lj = lane >> 3, lh = lane & 7;
+    if (lj < levels) {
+      const T* f = fused + q.flat * (3LL * levels * kKp) + lh * kPoints;
+      fetch8(f + (2 * levels + lj) * kKp, r.e);
+      fetch8(f + (2 * lj) * kKp, r.dx);
+      fetch8(f + (2 * lj + 1) * kKp, r.dy);
     }
+    return r;
   }
-  // same head, other levels: lanes h, h+8, h+16, h+24
-  denom += __shfl_xor_sync(0xffffffffu, denom, 8);
-  denom += __shfl_xor_sync(0xffffffffu, denom, 16);
-  if (active) {
-    float dx[kPoints], dy[kPoints];
-    load8(f + (2 * lj) * kKp + lh * kPoints, dx);
-    load8(f + (2 * lj + 1) * kKp + lh * kPoints, dy);
-    float m[kTaps];
+
+  __device__ __forceinline__ void masses(const Fetched& r, const Query&, int lane, int levels,
+                                         float m[kTaps]) const {
+    constexpr bool kRound = sizeof(T) == 2;   // as the TPU kernel's round_bf16
+    const bool active = (lane >> 3) < levels;
+    float e[kPoints];
+    float mx = -INFINITY;
+    if (active) {
+      unpack8(r.e, e);
+#pragma unroll
+      for (int p = 0; p < kPoints; ++p) mx = fmaxf(mx, e[p]);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
+    float denom = 0.0f;
+    if (active) {
+#pragma unroll
+      for (int p = 0; p < kPoints; ++p) {
+        e[p] = expf(e[p] - mx);
+        denom += e[p];
+      }
+    }
+    // same head, other levels: lanes h, h+8, h+16, h+24
+    denom += __shfl_xor_sync(kFull, denom, 8);
+    denom += __shfl_xor_sync(kFull, denom, 16);
 #pragma unroll
     for (int s = 0; s < kTaps; ++s) m[s] = 0.0f;
+    if (!active) return;
+    const float inv = 1.0f / denom;
+    float dx[kPoints], dy[kPoints];
+    unpack8(r.dx, dx);
+    unpack8(r.dy, dy);
+    // e, dx, dy become the weights and offsets, rounded to bf16 in pairs
+    // (one conversion instruction for two) when the inputs are bf16
 #pragma unroll
     for (int p = 0; p < kPoints; ++p) {
-      float a = e[p] / denom;
-      float ox = radius * tanhf(dx[p]);
-      float oy = radius * tanhf(dy[p]);
-      if (kRound) {
-        a = round_bf16(a);
-        ox = round_bf16(ox);
-        oy = round_bf16(oy);
-      }
-#pragma unroll
-      for (int sy = 0; sy < 3; ++sy) {
-        const float ay = a * hat(oy - static_cast<float>(sy - 1));
-#pragma unroll
-        for (int sx = 0; sx < 3; ++sx)
-          m[sy * 3 + sx] += ay * hat(ox - static_cast<float>(sx - 1));
-      }
+      e[p] *= inv;
+      dx[p] = radius * fast_tanh(dx[p]);
+      dy[p] = radius * fast_tanh(dy[p]);
+      if (kRound) round2_bf16(dx[p], dy[p]);
     }
-    float* dst = &mass[warp][(lj * kHeads + lh) * kTaps];
+    if (kRound) {
 #pragma unroll
-    for (int s = 0; s < kTaps; ++s) dst[s] = m[s];
+      for (int p = 0; p < kPoints; p += 2) round2_bf16(e[p], e[p + 1]);
+    }
+#pragma unroll
+    for (int p = 0; p < kPoints; ++p) add_point(m, dx[p], dy[p], e[p]);
   }
-  __syncwarp();
+};
 
-  // ---- phase 2: blend; lane owns channels [8*lane, 8*lane + 8) ----
-  const int c0 = lane * 8;
-  const int head = lane >> 2;  // C / NH = 32 channels = 4 lanes per head
-  float acc[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) acc[i] = 0.0f;
-  const long long plane = static_cast<long long>(height) * width * kChannels;
-  for (int j = 0; j < levels; ++j) {
-    const float* mj = &mass[warp][(j * kHeads + head) * kTaps];
-    const T* vj = vol + ((static_cast<long long>(b) * levels + j) * frames + t) * plane;
-#pragma unroll
-    for (int sy = 0; sy < 3; ++sy) {
-      const int yy = y + sy - 1;
-      if (yy < 0 || yy >= height) continue;
-#pragma unroll
-      for (int sx = 0; sx < 3; ++sx) {
-        const int xx = x + sx - 1;
-        if (xx < 0 || xx >= width) continue;
-        float v[8];
-        load8(vj + (static_cast<long long>(yy) * width + xx) * kChannels + c0, v);
-        const float mm = mj[sy * 3 + sx];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) acc[i] = fmaf(mm, v[i], acc[i]);
-      }
-    }
-  }
-  float* o = out + q * kChannels + c0;
-  *reinterpret_cast<float4*>(o) = make_float4(acc[0], acc[1], acc[2], acc[3]);
-  *reinterpret_cast<float4*>(o + 4) = make_float4(acc[4], acc[5], acc[6], acc[7]);
+template <typename T, int TY, int TX>
+__global__ void __launch_bounds__(FwdShape<TY, TX>::kThreads, 1024 / FwdShape<TY, TX>::kThreads)
+fused_blend2d_kernel(const T* __restrict__ vol, const T* __restrict__ fused,
+                     float* __restrict__ out, int levels, int frames, int height, int width,
+                     float radius, int tiles_x, int n_tiles) {
+  blend2d_fwd_tile<T, TY, TX>(vol, FusedFront<T>{fused, radius}, out, levels, frames, height,
+                              width, tiles_x, n_tiles);
+}
+
+template <typename T, int TY, int TX>
+int launch(const void* vol, const void* fused, void* out, int batch, int levels, int frames,
+           int height, int width, float radius, cudaStream_t s) {
+  const FwdGrid<TY, TX> grid(batch, frames, height, width);
+  if (grid.blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const int bytes = fwd_smem_bytes<T, TY, TX>(levels);
+  const cudaError_t err = cudaFuncSetAttribute(
+      fused_blend2d_kernel<T, TY, TX>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fused_blend2d_kernel<T, TY, TX>
+      <<<static_cast<unsigned>(grid.blocks), FwdShape<TY, TX>::kThreads, bytes, s>>>(
+          static_cast<const T*>(vol), static_cast<const T*>(fused), static_cast<float*>(out),
+          levels, frames, height, width, radius, grid.tiles_x, grid.n_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the block shapes the launcher takes: (TY, TX)
+template <typename T>
+int launch_shape(int tile_h, int tile_w, const void* vol, const void* fused, void* out,
+                 int batch, int levels, int frames, int height, int width, float radius,
+                 cudaStream_t s) {
+#define K1_SHAPE(TY, TX)                                                                  \
+  if (tile_h == TY && tile_w == TX)                                                       \
+    return launch<T, TY, TX>(vol, fused, out, batch, levels, frames, height, width, radius, \
+                             s);
+  K1_SHAPE(2, 4)
+  K1_SHAPE(2, 2)
+#undef K1_SHAPE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (vol and fused share it).  Launches on
-// `stream` and returns the cudaError_t of the launch (0 = success).
+// dtype: 0 = float32, 1 = bfloat16 (vol and fused share it).  tile_h x
+// tile_w queries per block: one of the shapes `launch_shape` lists, which
+// the caller chooses (ops/blend2d.py `fwd_block`).  Launches on `stream`
+// and returns the cudaError_t of the launch (0 = success).
 extern "C" int fused_blend2d_launch(const void* vol, const void* fused, void* out,
                                     int dtype, int batch, int levels, int frames,
-                                    int height, int width, float radius,
-                                    void* stream) {
+                                    int height, int width, float radius, int tile_h,
+                                    int tile_w, void* stream) {
   if (levels < 1 || levels > kMaxLevels) return static_cast<int>(cudaErrorInvalidValue);
-  const long long n_queries =
-      static_cast<long long>(batch) * frames * height * width;
-  if (n_queries == 0) return 0;
-  const dim3 grid(static_cast<unsigned>((n_queries + kWarps - 1) / kWarps));
-  const dim3 block(kWarps * 32);
+  if (static_cast<long long>(batch) * frames * height * width == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    fused_blend2d_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(vol), static_cast<const __nv_bfloat16*>(fused),
-        static_cast<float*>(out), batch, levels, frames, height, width, radius);
-  } else if (dtype == 0) {
-    fused_blend2d_kernel<float><<<grid, block, 0, s>>>(
-        static_cast<const float*>(vol), static_cast<const float*>(fused),
-        static_cast<float*>(out), batch, levels, frames, height, width, radius);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 1)
+    return launch_shape<__nv_bfloat16>(tile_h, tile_w, vol, fused, out, batch, levels,
+                                       frames, height, width, radius, s);
+  if (dtype == 0)
+    return launch_shape<float>(tile_h, tile_w, vol, fused, out, batch, levels, frames,
+                               height, width, radius, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

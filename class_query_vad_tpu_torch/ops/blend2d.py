@@ -16,8 +16,9 @@ output and its cotangent G float32 [B, T, H, W, C].
 Each wrapper takes CPU tensors to its plain version and CUDA tensors to its
 kernel; anything else raises.  There is no fallback: on the card a wrapper
 launches its kernel or raises.  Each counts its launches in ``.launches``.
-The kernels take nh=8, C=256, 1<=J<=4 and any P; K3 and K4 take their
-block shape from the wrapper (``k3_block``, ``k4_block``).  ``blend2d`` with
+The kernels take nh=8, C=256, 1<=J<=4 and any P; K2, K3 and K4 take
+their block shape from the wrapper (``fwd_block``, ``k3_block``,
+``k4_block``; K1's wrapper passes ``fwd_block``'s too).  ``blend2d`` with
 ``kernels=False`` (the configuration's ``MODEL.FAST_USE_PALLAS: false``)
 takes the plain versions on any device, backward included.
 
@@ -45,10 +46,29 @@ K3_SHAPES = ((4, 8, 2), (4, 4, 1))
 K4_SHAPES = ((2, 8, 8), (4, 4, 1))
 
 
+# The block shapes (tile rows, tile columns) that K1's and K2's launchers
+# take (csrc/fused_blend2d.cu, csrc/blend2d.cu ``launch_shape``; their one
+# tiled body, csrc/blend2d_fwd.cuh ``FwdShape``): a block owns a tile of
+# one frame's queries and all eight heads, a warp per query.  The first is
+# for large grids, the second for smaller ones (``fwd_block``).
+# tests/test_torch_blend2d_fwd_tiled.py mirrors the kernels' order at each.
+FWD_SHAPES = ((2, 4), (2, 2))
+
+
 def _blocks(b: int, t: int, h: int, w: int, shape) -> int:
-    """Blocks of K3 or K4 launched with ``shape``."""
-    ty, tx, heads = shape
+    """Blocks of K1, K2, K3 or K4 launched with ``shape``."""
+    ty, tx, heads = (*shape, _HEADS)[:3]
     return b * t * -(-h // ty) * -(-w // tx) * (_HEADS // heads)
+
+
+def fwd_block(b: int, t: int, h: int, w: int, sms: int):
+    """K1's and K2's block shape at a [b, t, h, w] grid on a card of
+    ``sms`` SMs: a 2x4 tile (8 warps; four blocks fit an SM) where its
+    blocks fill every SM's four places at least once, else a 2x2 tile (4
+    warps), twice the blocks, so that more SMs share a small grid."""
+    if _blocks(b, t, h, w, FWD_SHAPES[0]) >= 4 * sms:
+        return FWD_SHAPES[0]
+    return FWD_SHAPES[1]
 
 
 def k3_block(b: int, t: int, h: int, w: int, sms: int):
@@ -240,9 +260,11 @@ def _blend2d_forward(vol, dx, dy, a, nh: int,
     check_kernel_args(nh, c, jl, vol.dtype,
                       {"vol": vol, "dx": dx, "dy": dy, "a": a})
     out = torch.empty((b, t, h, w, c), dtype=torch.float32, device=vol.device)
+    sms = torch.cuda.get_device_properties(vol.device).multi_processor_count
     launch("blend2d", vol.device, vol.data_ptr(), dx.data_ptr(),
            dy.data_ptr(), a.data_ptr(), out.data_ptr(),
-           int(vol.dtype == torch.bfloat16), b, jl, t, h, w, kp // nh)
+           int(vol.dtype == torch.bfloat16), b, jl, t, h, w, kp // nh,
+           *fwd_block(b, t, h, w, sms))
     blend2d.launches += 1
     return out
 

@@ -32,13 +32,15 @@ BUILD_DIR = PKG / "_build"
 # kernel name -> (source under csrc/, C launcher, its ctypes argtypes)
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 KERNELS = {
+    # vol, fused, out, ints, radius, tile rows, tile columns
     "fused_blend2d": (
         "fused_blend2d.cu", "fused_blend2d_launch",
-        [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+        [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     ),
+    # vol, dx, dy, a, out, ints, tile rows, tile columns
     "blend2d": (
         "blend2d.cu", "blend2d_launch",
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        [_P] * 5 + [_I] * 9 + [_P],
     ),
     # dx, dy, a, g, dvol, ints, tile rows, tile columns, heads per block
     "blend2d_bwd_dvol": (

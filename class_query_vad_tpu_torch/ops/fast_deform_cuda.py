@@ -24,7 +24,12 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
-from .blend2d import blend2d_backward, blend2d_reference, check_kernel_args
+from .blend2d import (
+    blend2d_backward,
+    blend2d_reference,
+    check_kernel_args,
+    fwd_block,
+)
 from .cuda_build import device_of, launch
 
 _POINTS = 8
@@ -97,9 +102,10 @@ def _fused_blend2d_forward(vol, fused, nh: int, radius: float,
     if kp != nh * _POINTS:
         raise ValueError(f"the kernel takes kp=64; got kp={kp}")
     out = torch.empty((b, t, h, w, c), dtype=torch.float32, device=vol.device)
+    sms = torch.cuda.get_device_properties(vol.device).multi_processor_count
     launch("fused_blend2d", vol.device, vol.data_ptr(), fused.data_ptr(),
            out.data_ptr(), int(vol.dtype == torch.bfloat16), b, jl, t, h, w,
-           float(radius))
+           float(radius), *fwd_block(b, t, h, w, sms))
     fused_blend2d.launches += 1
     return out
 

@@ -17,6 +17,7 @@ from class_query_vad_tpu_torch.models import build_model
 from class_query_vad_tpu_torch.models.detr import randomize_constants
 from class_query_vad_tpu_torch.models.vit import softmax
 from class_query_vad_tpu_torch.ops.blend2d import (
+    FWD_SHAPES,
     K3_SHAPES,
     K4_SHAPES,
     blend2d,
@@ -193,6 +194,99 @@ def test_blend2d_bwd_every_block_shape(card, dtype, tol, jl, thw, points):
         torch.cuda.synchronize()
         for name, got, w_ in zip(("ddx", "ddy", "da"), outs, want[1:]):
             _close(got, w_, tol, f"K4 {name} {shape}")
+
+
+# K1 and K2 tile the grid (``fwd_block``): 7x9, 13x21, 9x11 and 5x17
+# leave ragged tiles on both axes at every block shape, 1x5 a tile row
+# below the grid; K2 reads its components as vectors at P = 4, point by
+# point at P = 8 and 3.
+FWD_TILED_CASES = [(4, (2, 13, 21)), (3, (1, 9, 11)), (2, (2, 5, 17)),
+                   (1, (1, 7, 9)), (4, (1, 1, 5))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("jl,thw", FWD_TILED_CASES)
+def test_fused_blend2d_every_block_shape(card, dtype, tol, jl, thw):
+    """K1 through its launcher at every block shape it takes
+    (``FWD_SHAPES``), not only those ``fwd_block`` picks, against its plain
+    version; what the kernel never writes starts as NaN."""
+    tt, h, w = thw
+    rng = np.random.default_rng(10 + jl)
+    vol = torch.from_numpy(rng.standard_normal(
+        (2, jl, tt, h, w, 256), np.float32)).to(card, dtype)
+    fused = torch.from_numpy(2.0 * rng.standard_normal(
+        (2, tt, h, w, 3 * jl * 64), np.float32)).to(card, dtype)
+    want = fused_blend2d_reference(vol, fused, 8, 1.0)
+    before = fused_blend2d.launches
+    for shape in FWD_SHAPES:
+        out = torch.full_like(want, float("nan"))
+        launch("fused_blend2d", card, vol.data_ptr(), fused.data_ptr(), out.data_ptr(),
+               int(dtype == torch.bfloat16), 2, jl, tt, h, w, 1.0, *shape)
+        torch.cuda.synchronize()
+        _close(out, want, tol, f"K1 {shape}")
+    assert fused_blend2d.launches == before     # the launcher counts nothing
+
+
+# bf16 only at a power-of-two radius: elsewhere the plain version rounds
+# tanh to bf16 and radius x tanh again (as the JAX package's composite
+# does), the kernel radius x tanh once (as the TPU kernel does)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol,radius", [(torch.float32, 1e-5, 0.5),
+                                              (torch.bfloat16, 1e-2, 0.5),
+                                              (torch.float32, 1e-5, 1.5)])
+def test_fused_blend2d_radius(card, dtype, tol, radius):
+    """K1 at a radius under one pixel and past it, against its plain
+    version."""
+    rng = np.random.default_rng(5)
+    vol = torch.from_numpy(rng.standard_normal((2, 4, 2, 9, 11, 256), np.float32)).to(card, dtype)
+    fused = torch.from_numpy(2.0 * rng.standard_normal(
+        (2, 2, 9, 11, 3 * 4 * 64), np.float32)).to(card, dtype)
+    _close(fused_blend2d(vol, fused, 8, radius),
+           fused_blend2d_reference(vol, fused, 8, radius), tol, f"K1 radius {radius}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("jl,thw", FWD_TILED_CASES)
+@pytest.mark.parametrize("points", [8, 4, 3])
+def test_blend2d_every_block_shape(card, dtype, jl, thw, points):
+    """K2 through its launcher at every block shape it takes
+    (``FWD_SHAPES``) against its plain version (float32 summation order
+    only, in either dtype: 1e-5), then through its wrapper, which counts
+    one launch."""
+    (vol, dx, dy, a), _ = _comps(card, dtype, jl, thw, points, 13, True)
+    want = blend2d_reference(vol, dx, dy, a, 8)
+    b, _, tt, h, w, _ = vol.shape
+    for shape in FWD_SHAPES:
+        out = torch.full_like(want, float("nan"))
+        launch("blend2d", card, *(x.data_ptr() for x in (vol, dx, dy, a, out)),
+               int(dtype == torch.bfloat16), b, jl, tt, h, w, points, *shape)
+        torch.cuda.synchronize()
+        _close(out, want, 1e-5, f"K2 {shape}")
+    before = blend2d.launches
+    _close(blend2d(vol, dx, dy, a, 8), want, 1e-5, "K2 wrapper")
+    assert blend2d.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_fwd_kernels_reject_what_they_do_not_take(card):
+    """K1's and K2's launchers refuse a block shape they were not built
+    for and J outside 1..4, with a CUDA error the wrapper raises."""
+    (vol, dx, dy, a), _ = _comps(card, torch.bfloat16, 2, (1, 4, 4), 8, 1)
+    out = torch.empty((2, 1, 4, 4, 256), device=card)
+    fused = torch.zeros((2, 1, 4, 4, 3 * 2 * 64), device=card, dtype=torch.bfloat16)
+    for bad in ((8, 8), (3, 3)):
+        with pytest.raises(RuntimeError):
+            launch("blend2d", card, *(x.data_ptr() for x in (vol, dx, dy, a, out)),
+                   1, 2, 2, 1, 4, 4, 8, *bad)
+        with pytest.raises(RuntimeError):
+            launch("fused_blend2d", card, vol.data_ptr(), fused.data_ptr(),
+                   out.data_ptr(), 1, 2, 2, 1, 4, 4, 1.0, *bad)
+    with pytest.raises(RuntimeError):
+        launch("blend2d", card, *(x.data_ptr() for x in (vol, dx, dy, a, out)),
+               1, 2, 5, 1, 4, 4, 8, *FWD_SHAPES[0])
 
 
 @pytest.mark.cuda
