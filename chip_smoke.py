@@ -102,8 +102,9 @@ NVIDIA card.
    24 launches each of K6, K8 and K9 per step and of no other kernel;
    median ms/step, peak memory, stage shares, busy share.
 18. One float32 train step of the 3d model on the card and on the CPU, at
-   the YAML's 6 encoder layers (24 launches each of K6, K8, K9): the same
-   assignment, loss and gradients, as in phase 6.
+   2 of the YAML's 6 encoder layers (``RESAMPLE_3D_TRAIN_CPU_LAYERS``; 8
+   launches each of K6, K8, K9): the same assignment, loss and gradients,
+   as in phase 6.
 19. K12 (the ViT's softmax attention from fused qkv) against its plain
    version at one ViT-B block of the main path (B=2, N=2560, 12 x 64), an
    awkward shape (B=1, N=1001) and a long one (B=1, N=4096), float32 and
@@ -135,6 +136,33 @@ NVIDIA card.
    VJP), ms/step, peak memory, stage shares (no profiled step: its trace
    takes minutes); then one float32 native-2d train step card vs CPU at
    cut depth (``NATIVE_TRAIN_CPU_LAYERS``).
+25. ``AVA22_ViT-B`` (the exact deformable encoder, ``ENCODER_TYPE:
+   attention``: its sampler plain PyTorch, as in JAX, no kernel) at full
+   width serves 3 bf16 requests of [2, 16, 256, 320, 3] (the encoder in
+   float32) with no kernel launched: ms/batch, peak memory, stage events,
+   busy share; then the float32 heads card vs CPU at B=1, 6 layers.
+26. Its train path: 1 + 4 full-width bf16 B=1 steps (no kernel), non-zero
+   gradients into every encoder layer's value / offset / weight
+   projections; then one float32 train step card vs CPU at
+   ``EXACT_TRAIN_CPU_LAYERS`` of 6 layers, the sampler's trilinear floors
+   matched by ``KinkSides``.
+27. K1, K3 and K4 against their plain versions at the tube-fast configs'
+   grids (``TUBE_GRIDS``: UCF 56x56 .. 7x7 at T=16, JHMDB 64x64 .. 8x8 at
+   T=20, B=1), float32 and bf16, K3 / K4 with offsets on ties; bf16 device
+   time per grid and layer beside the bound.
+28. ``UCF_ViT-B_fast`` (3 fast layers over all 16 token frames, tube
+   mode) at B=1, 32x224x224: 3 requests through ``postprocess_frames``,
+   12 K1 launches per forward; 1 + 4 train steps on a tube batch (2
+   actor slots, empty boxes, 2 front-padded frames), 12 each of K1, K3,
+   K4 per step and no other kernel.
+29. ``UCF_ViT-B`` (32x224x224) and ``JHMDB_ViT-B`` (40x256x256, 108,800
+   encoder tokens): the exact encoder over every frame, 3 layers; one
+   timed request each and 1 + 2 train steps, no kernel; then UCF's
+   float32 forward card vs CPU at its 3 layers and its train step at
+   ``UCF_EXACT_TRAIN_CPU_LAYERS``.
+30. ``AVA22_ViT-B-train-mamba`` (VideoMamba-tiny with the exact encoder,
+   one level) serves 3 bf16 B=2 requests, 48 K5 launches per forward;
+   then the float32 heads card vs CPU at B=1.
 
 Every phase raises on failure (exit code != 0).  The last two lines are a
 JSON object of per-kernel numbers and ``{"ok": true, "device": ...}``.
@@ -251,27 +279,27 @@ def kernel_device_ms(fn, iters: int = 20) -> float:
                        "the device-side sleep")
 
 
-def k1_work(h: int, w: int, itemsize: int):
-    """(bytes, operations) K1 must spend on one launch: vol and the head
-    lanes read once, the float32 output written once; per (query, level):
-    9 taps x C multiply-adds of the blend + ~45 ops per point for tanh,
-    exp, hats and tap masses."""
-    q = K1_B * K1_T * h * w
-    vol = K1_B * K1_J * K1_T * h * w * K1_C * itemsize
+def k1_work(h: int, w: int, itemsize: int, b: int = K1_B, t: int = K1_T):
+    """(bytes, operations) K1 must spend on one launch at B = ``b``, T =
+    ``t``: vol and the head lanes read once, the float32 output written
+    once; per (query, level): 9 taps x C multiply-adds of the blend + ~45
+    ops per point for tanh, exp, hats and tap masses."""
+    q = b * t * h * w
+    vol = b * K1_J * t * h * w * K1_C * itemsize
     fused = q * 3 * K1_J * K1_KP * itemsize
     out = q * K1_C * 4
     ops = q * K1_J * (9 * K1_C * 2 + 45 * K1_KP)
     return vol + fused + out, ops
 
 
-def k1_inputs(rng, b, h, w, dtype, dev):
-    """K1's vol and raw head lanes at one level shape (T = ``K1_T``,
-    J = ``K1_J``): the logits unshifted, so that the kernel's own
-    global max does work."""
+def k1_inputs(rng, b, h, w, dtype, dev, t: int = K1_T):
+    """K1's vol and raw head lanes at one level shape (``t`` frames, J =
+    ``K1_J``): the logits unshifted, so that the kernel's own global max
+    does work."""
     vol = torch.from_numpy(rng.standard_normal(
-        (b, K1_J, K1_T, h, w, K1_C), np.float32)).to(dev, dtype)
+        (b, K1_J, t, h, w, K1_C), np.float32)).to(dev, dtype)
     fused = torch.from_numpy(2.0 * rng.standard_normal(
-        (b, K1_T, h, w, 3 * K1_J * K1_KP), np.float32)).to(dev, dtype)
+        (b, t, h, w, 3 * K1_J * K1_KP), np.float32)).to(dev, dtype)
     return vol, fused
 
 
@@ -369,15 +397,15 @@ def blend_inputs(rng, b, h, w, dtype, dev, nc: int = 2, t: int = K1_T,
 
 
 def blend_work(kernel: str, b: int, h: int, w: int, itemsize: int,
-               points: int = K1_KP // 8):
+               points: int = K1_KP // 8, t: int = K1_T):
     """(bytes, operations) one launch of K2, K3 or K4 must spend at
-    ``points`` per head: each input read once, each output written once;
-    per (query, level): 9 taps x C multiply-adds (K2, K3: the blend; K4:
-    the per-head dots) + ~12 ops per tap and point for hats and masses
-    (~30 in K4 with hat')."""
+    ``points`` per head and ``t`` frames: each input read once, each output
+    written once; per (query, level): 9 taps x C multiply-adds (K2, K3:
+    the blend; K4: the per-head dots) + ~12 ops per tap and point for hats
+    and masses (~30 in K4 with hat')."""
     kp = 8 * points
-    q = b * K1_T * h * w
-    vol = b * K1_J * K1_T * h * w * K1_C * itemsize
+    q = b * t * h * w
+    vol = b * K1_J * t * h * w * K1_C * itemsize
     comps = 3 * q * K1_J * kp * itemsize
     g32 = q * K1_C * 4
     per_point = 30 if kernel == "K4" else 12
@@ -598,27 +626,44 @@ def phase_blend_kernels(dev, bw, peak):
     return entries, k1_bwd_ms
 
 
-def make_request(seed: int, b: int = 2):
-    """Synthetic clips [b, 16, 256, 320, 3] and pad masks [b, 256, 320]
-    (clip i > 0 padded on the right by a seeded width)."""
+def make_request(seed: int, b: int = 2, shape=(16, 256, 320)):
+    """Synthetic clips [b, T, H, W, 3] (``shape`` = (T, H, W); AVA's
+    16x256x320 by default) and pad masks [b, H, W] (clip i > 0 padded on
+    the right by a seeded width)."""
+    t, h, w = shape
     rng = np.random.default_rng(seed)
-    pixels = rng.standard_normal((b, 16, 256, 320, 3), np.float32)
-    mask = np.zeros((b, 256, 320), bool)
+    pixels = rng.standard_normal((b, t, h, w, 3), np.float32)
+    mask = np.zeros((b, h, w), bool)
     for i in range(1, b):
-        mask[i, :, 320 - int(rng.integers(16, 64)):] = True
+        mask[i, :, w - int(rng.integers(16, 64)):] = True
     return pixels, mask
 
 
+def clip_shape(cfg):
+    """The (T, H, W) of a config's requests: AVA's bench clips (16 frames
+    of 256x320), the tube datasets' square DATA.IMG_SIZE crops over
+    DATA.TEMP_LEN frames (UCF 32x224x224, JHMDB 40x256x256)."""
+    d = cfg.CONFIG.DATA
+    if d.DATASET_NAME == "ava":
+        return (d.TEMP_LEN, 256, 320)
+    return (d.TEMP_LEN, d.IMG_SIZE, d.IMG_SIZE)
+
+
 def serve(model, pixels, mask, dev):
-    from class_query_vad_tpu_torch.losses import postprocess_ava
+    """Forward + the dataset's postprocessing (``postprocess_ava``, or
+    ``postprocess_frames`` for the tubes) under inference mode."""
+    from class_query_vad_tpu_torch.losses import (postprocess_ava,
+                                                  postprocess_frames)
 
     x = torch.from_numpy(pixels).to(dev, non_blocking=True)
     m = torch.from_numpy(mask).to(dev, non_blocking=True)
     valid = ~m
     sizes = torch.stack([valid.any(2).sum(1), valid.any(1).sum(1)], dim=1)
+    post = (postprocess_ava if model.spec.dataset_mode == "ava"
+            else postprocess_frames)
     with torch.inference_mode():
         out = model(x, m)
-        return out, postprocess_ava(out, sizes)
+        return out, post(out, sizes)
 
 
 def trace_holds(device_rows, expected: dict) -> str:
@@ -634,17 +679,33 @@ def trace_holds(device_rows, expected: dict) -> str:
     return ", ".join(held)
 
 
+def model_stages(model) -> dict:
+    """The forward's stages by name: the backbone's (the ViT body and the
+    whole backbone, or VideoMamba and ``mamba_proj``), the encoder, the
+    decoder."""
+    s, body = model.spec, model.backbone[0]
+    if s.is_mamba:
+        head = {f"VideoMamba ({len(body.body.layers)} blocks)": body.body,
+                "mamba_proj": body.mamba_proj}
+    else:
+        head = {"ViT body": body.body, "backbone (ViT + FPN + poses)": body}
+    kind = {"attention": "exact", "fast_attention": "fast"}.get(
+        s.encoder_type, s.encoder_type.upper())
+    return {**head,
+            f"{kind} encoder ({s.enc_layers} layers)": model.transformer.encoder,
+            f"decoder ({s.dec_layers} layer pairs)": model.transformer.decoder}
+
+
 def stage_breakdown(model, pixels, mask, dev, wall_ms: float, iters: int = 5,
-                    expected=None):
+                    expected=None, tag: str = ""):
     """Mean device ms of the forward's stages (CUDA events from forward
     hooks), torch.profiler's top CUDA kernels over one forward, and the
     device's busy share of ``wall_ms`` (the unprofiled median ms/batch);
     ``expected``: the port's launches per forward, by kernel (K1's 24 by
     default)."""
-    stages = {"ViT body": model.backbone[0].body,
-              "backbone (ViT + FPN + poses)": model.backbone[0],
-              "encoder (6 layers)": model.transformer.encoder,
-              "decoder (6 layer pairs)": model.transformer.decoder}
+    stages = model_stages(model)
+    if expected is None:
+        expected = {"fused_blend2d": 24}
     events = {k: [] for k in stages}
     handles = []
     for k, mod in stages.items():
@@ -670,7 +731,7 @@ def stage_breakdown(model, pixels, mask, dev, wall_ms: float, iters: int = 5,
     for h in handles:
         h.remove()
     fwd = statistics.mean(s.elapsed_time(e) for s, e in total)
-    print(f"stage breakdown (device ms, mean of {iters}): forward + "
+    print(f"{tag}stage breakdown (device ms, mean of {iters}): forward + "
           f"postprocess {fwd:.2f}")
     for k, evs in events.items():
         ms = statistics.mean(a.elapsed_time(b) for a, b in evs)
@@ -689,13 +750,13 @@ def stage_breakdown(model, pixels, mask, dev, wall_ms: float, iters: int = 5,
     # as the table's "Self CUDA time total" counts them
     device = [e for e in events if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in device) / 1e3
-    print(f"device busy {busy:.2f} ms per forward (profiled) = "
+    print(f"{tag}device busy {busy:.2f} ms per forward (profiled) = "
           f"{busy / wall_ms:.1%} of the median {wall_ms:.2f} ms/batch; "
           f"idle share {1 - busy / wall_ms:.1%}; the profiler's own "
           f"'Activity Buffer Request' row is "
           f"{'in' if any(e.key == 'Activity Buffer Request' for e in device) else 'not in'}"
           f" the busy sum; the trace holds launches "
-          f"{trace_holds(device, expected or {'fused_blend2d': 24})}")
+          f"{trace_holds(device, expected)}")
 
 
 def phase_main_path(dev, counters):
@@ -753,9 +814,12 @@ def phase_main_path(dev, counters):
     return launches
 
 
-def phase_in_model(dev, config: str = CONFIG, opts=(), tag: str = ""):
-    """The full-width model of ``config`` (with ``opts``) in float32, B=1:
-    the kernels on the card against the plain versions on the CPU."""
+def phase_in_model(dev, config: str = CONFIG, opts=(), tag: str = "",
+                   tol: float = MODEL_TOL):
+    """The full-width model of ``config`` (with ``opts``) in float32, B=1,
+    on a clip of the config's shape (``clip_shape``): the kernels on the
+    card against the plain versions on the CPU, each head within ``tol``
+    x max|CPU head|."""
     from class_query_vad_tpu_torch.config import get_cfg_custom
     from class_query_vad_tpu_torch.models import build_model
     from class_query_vad_tpu_torch.models.detr import randomize_constants
@@ -770,7 +834,7 @@ def phase_in_model(dev, config: str = CONFIG, opts=(), tag: str = ""):
     randomize_constants(m_cpu, torch.Generator().manual_seed(8))
     m_gpu = build_model(cfg, torch.float32, dev)
     m_gpu.load_state_dict(m_cpu.state_dict(), strict=True)
-    pixels, mask = make_request(11, b=1)
+    pixels, mask = make_request(11, b=1, shape=clip_shape(cfg))
     out_g, _ = serve(m_gpu, pixels, mask, dev)
     torch.cuda.synchronize()
     torch.set_num_threads(os.cpu_count() or 1)
@@ -783,29 +847,61 @@ def phase_in_model(dev, config: str = CONFIG, opts=(), tag: str = ""):
         g, c = out_g[k].float().cpu(), out_c[k].float()
         err = (g - c).abs().max().item()
         scale = c.abs().max().item()
-        ok = bool(torch.isfinite(g).all()) and err <= MODEL_TOL * scale
+        ok = bool(torch.isfinite(g).all()) and err <= tol * scale
         print(f"{tag}in-model fp32 card vs CPU {k:14s}: max|err| {err:.3e} = "
-              f"{err / scale:.2e} x max|ref| (tol {MODEL_TOL:.0e}) "
+              f"{err / scale:.2e} x max|ref| (tol {tol:.0e}) "
               f"{'ok' if ok else 'FAIL'}")
         check(ok, f"{tag}card and CPU disagree on {k}")
     return cpu_s
 
 
 def train_batch(cfg, seed: int = 0, b: int = TRAIN_B):
-    """The batch bench.py's train-step metric builds (bench.py:223-237):
-    [b, T, 256, 320, 3] pixels, no padding, MAX_BOXES gt slots with boxes
-    uniform in 0.2-0.7, 5 % multi-hot labels, 3 live boxes."""
-    t, m = cfg.CONFIG.DATA.TEMP_LEN, int(cfg.CONFIG.DATA.MAX_BOXES)
+    """AVA: the batch bench.py's train-step metric builds (bench.py:
+    223-237): [b, T, 256, 320, 3] pixels, no padding, MAX_BOXES gt slots
+    with boxes uniform in 0.2-0.7, 5 % multi-hot labels, 3 live boxes.
+    The tubes: ``tube_targets`` on clips of the config's shape."""
+    t, h, w = clip_shape(cfg)
     nc = cfg.CONFIG.DATA.NUM_CLASSES
     rng = np.random.default_rng(seed)
+    pixels = rng.normal(size=(b, t, h, w, 3)).astype(np.float32)
+    mask = np.zeros((b, h, w), bool)
+    if cfg.CONFIG.DATA.DATASET_NAME != "ava":
+        return {"pixels": pixels, "mask": mask,
+                **tube_targets(rng, b, t, nc,
+                               cfg.CONFIG.DATA.DATASET_NAME == "ucf")}
+    m = int(cfg.CONFIG.DATA.MAX_BOXES)
     return {
-        "pixels": rng.normal(size=(b, t, 256, 320, 3)).astype(np.float32),
-        "mask": np.zeros((b, 256, 320), bool),
+        "pixels": pixels,
+        "mask": mask,
         "boxes": np.clip(rng.uniform(0.2, 0.7, (b, m, 4)), 0.05, 0.95
                          ).astype(np.float32),
         "labels": (rng.uniform(size=(b, m, nc)) < 0.05).astype(np.float32),
         "n_boxes": np.full((b,), min(3, m), np.int32),
     }
+
+
+# tube batches: 2 frames front-padded (the criterion's front-pad shift)
+TUBE_FRONT_PAD = 2
+
+
+def tube_targets(rng, b: int, t: int, nc: int, ucf: bool):
+    """Tube targets as the loader packs them (boxes [b, 2, t, 4], labels
+    [b, 2, t], frame_valid [b, t], n_actors [b]): the first
+    ``TUBE_FRONT_PAD`` frames padded; UCF: actor slot 0 live from frame
+    t/8 to 3t/4 with zero (empty) boxes elsewhere, slot 1 all empty, for
+    the empty-box filter; JHMDB (no filter: every box of a live slot is a
+    gt): slot 0 live in every frame, one actor."""
+    boxes = np.zeros((b, 2, t, 4), np.float32)
+    live = slice(t // 8, 3 * t // 4) if ucf else slice(0, t)
+    n = live.stop - live.start
+    cxcy = rng.uniform(0.3, 0.7, (b, 1, 2)) + np.linspace(0, 0.1, n)[:, None]
+    boxes[:, 0, live, :2] = cxcy
+    boxes[:, 0, live, 2:] = rng.uniform(0.15, 0.4, (b, 1, 2))
+    labels = np.repeat(rng.integers(0, nc, (b, 2, 1)), t, axis=2)
+    frame_valid = np.ones((b, t), bool)
+    frame_valid[:, :TUBE_FRONT_PAD] = False
+    return {"boxes": boxes, "labels": labels, "frame_valid": frame_valid,
+            "n_actors": np.full((b,), 2 if ucf else 1, np.int32)}
 
 
 def check_train_step(trainer, metrics, before):
@@ -820,7 +916,10 @@ def check_train_step(trainer, metrics, before):
           f"only {moved} of {len(before)} parameter tensors moved")
     for i, layer in enumerate(trainer.model.transformer.encoder.layers):
         att = layer.self_attn
-        for name in ("value_proj", "window_offsets", "window_weights"):
+        heads = (("window_offsets", "window_weights")
+                 if hasattr(att, "window_offsets")
+                 else ("sampling_offsets", "attention_weights"))
+        for name in ("value_proj",) + heads:
             g = opt.last_grad(getattr(att, name).weight)
             check(g is not None and bool(g.abs().max() > 0),
                   f"encoder layer {i} {name} got no gradient")
@@ -837,12 +936,13 @@ TRAIN_KERNELS = {"2d": ("fused_blend2d", "blend2d_bwd_dvol",
 
 def phase_train(dev, counters, window: str = "2d", steps: int = 7,
                 tag: str = "", config: str = CONFIG, kernels=None,
-                profile_step: bool = True):
+                profile_step: bool = True, per_step: int = 24):
     """Full-width bf16 train steps of ``config`` (with ``FAST_WINDOW:
-    window``) through build_model + Trainer: 24 launches of each of
-    ``kernels`` (``TRAIN_KERNELS[window]`` by default) per step and of no
-    other kernel; the host LSAP's time on the main path; the stage
-    breakdown (profiled unless ``profile_step`` is off)."""
+    window``) through build_model + Trainer: ``per_step`` launches of each
+    of ``kernels`` (``TRAIN_KERNELS[window]`` when None; () for a path
+    with no kernel) per step and of no other kernel; the host LSAP's time
+    on the main path; the stage breakdown (profiled unless
+    ``profile_step`` is off)."""
     from class_query_vad_tpu_torch.config import get_cfg_custom
     from class_query_vad_tpu_torch.engine import Trainer
     from class_query_vad_tpu_torch.losses.matcher import cost_matrix
@@ -859,7 +959,7 @@ def phase_train(dev, counters, window: str = "2d", steps: int = 7,
           f"{cfg.CONFIG.ViT.DROP_PATH_RATE}, ViT checkpointing "
           f"{cfg.CONFIG.ViT.USE_CHECKPOINT}")
     batch = train_batch(cfg)
-    times, per_step = [], []
+    times, step_counts = [], []
     for c in counters:
         c.launches = 0
     for i in range(steps):
@@ -875,7 +975,7 @@ def phase_train(dev, counters, window: str = "2d", steps: int = 7,
         norm, moved = check_train_step(trainer, metrics, before)
         step_launches = {c.__name__: c.launches - n
                          for c, n in zip(counters, counts)}
-        per_step.append(step_launches)
+        step_counts.append(step_launches)
         if i:
             times.append(ms)
         print(f"{tag}train step {i}{' (warm-up)' if i == 0 else ''}: {ms:.2f} ms, "
@@ -886,20 +986,21 @@ def phase_train(dev, counters, window: str = "2d", steps: int = 7,
               f"launches {step_launches}")
         del before
     launches = {c.__name__: c.launches for c in counters}
-    kernels = kernels or TRAIN_KERNELS[window]
-    check(all(d == {**{k: 0 for k in d}, **{k: 24 for k in kernels}}
-              for d in per_step),
-          f"{tag}train launches per step {per_step}, expected 24 each of "
-          f"{', '.join(kernels)} and no other kernel")
+    kernels = TRAIN_KERNELS[window] if kernels is None else kernels
+    check(all(d == {**{k: 0 for k in d}, **{k: per_step for k in kernels}}
+              for d in step_counts),
+          f"{tag}train launches per step {step_counts}, expected "
+          f"{per_step} each of {', '.join(kernels) or 'no kernel'} and no "
+          f"other kernel")
     med = statistics.median(times)
     print(f"{tag}full-width train, B={TRAIN_B} bf16, forward + matcher + criterion "
           f"+ backward + clip + AdamW, host->device copy included: median "
           f"{med:.2f} ms/step ({1e3 * TRAIN_B / med:.2f} clips/s) over "
           f"{len(times)} steps; min {min(times):.2f}, max {max(times):.2f}; "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-          f" GiB; launches over the {len(per_step)} steps {launches}")
+          f" GiB; launches over the {len(step_counts)} steps {launches}")
     if window != "2d" or config != CONFIG:
-        train_breakdown(trainer, batch, med, kernels, profile_step)
+        train_breakdown(trainer, batch, med, kernels, profile_step, per_step)
         del trainer, model
         torch.cuda.empty_cache()
         return launches
@@ -933,11 +1034,11 @@ def phase_train(dev, counters, window: str = "2d", steps: int = 7,
 
 
 def train_breakdown(trainer, batch, wall_ms: float, kernels,
-                    profile_step: bool = True):
+                    profile_step: bool = True, per_step: int = 24):
     """Device ms of one step's stages (CUDA events) and, with
     ``profile_step``, the card's busy share of the median ms/step
-    (torch.profiler's device rows, which should hold 24 launches of each of
-    ``kernels``)."""
+    (torch.profiler's device rows, which should hold ``per_step`` launches
+    of each of ``kernels``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -949,7 +1050,7 @@ def train_breakdown(trainer, batch, wall_ms: float, kernels,
     outputs = trainer.model(x["pixels"], x["mask"])
     marks[1].record()
     host.append(time.perf_counter())
-    targets = {k: x[k] for k in ("boxes", "labels", "n_boxes")}
+    targets = {k: v for k, v in x.items() if k not in ("pixels", "mask")}
     losses = trainer.criterion(outputs, targets)
     total = sum(losses[k] * w for k, w in trainer.weight_dict.items())
     marks[2].record()
@@ -984,7 +1085,7 @@ def train_breakdown(trainer, batch, wall_ms: float, kernels,
                        max_name_column_width=60))
     device = [e for e in events if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in device) / 1e3
-    held = trace_holds(device, {k: 24 for k in kernels})
+    held = trace_holds(device, {k: per_step for k in kernels})
     print(f"train step: device busy {busy:.2f} ms (profiled) = "
           f"{busy / wall_ms:.1%} of the median {wall_ms:.2f} ms/step; idle "
           f"share {1 - busy / wall_ms:.1%}; the trace holds launches {held}")
@@ -1052,17 +1153,19 @@ class KinkSides:
     and a gradient mask for the ones whose side differs between two runs.
 
     The step's function is piecewise smooth: a ReLU's derivative jumps at
-    0, a max pool's where its window's argmax changes, and the blend's hat
+    0, a max pool's where its window's argmax changes, the blend's hat
     taps where an offset crosses a whole pixel (radius * tanh(lane) in the
-    resample mode; tanh(lane) plus the level's phase in the native one).
+    resample mode; tanh(lane) plus the level's phase in the native one),
+    and the exact encoder's trilinear weights where a sampling coordinate
+    (loc * size - 0.5) crosses a whole pixel or the drop guard's -1.
     Where the card's and the CPU's forwards, which agree to rounding, put
     one element on two sides of such a jump, each side's gradient there is
     right for its own forward and they differ by the jump, not by rounding.
     The hat's arguments are compared as the blends compute them, rounded to
     float32, which puts an offset within an ulp of 0 on the kink of its -1
     tap.  ``watch`` hooks every ReLU input (the FFNs' and the MLP heads'
-    hidden layers), the backbone's max pool and every encoder layer's head
-    lanes;
+    hidden layers), the backbone's max pool, every fast encoder layer's
+    head lanes and every exact encoder layer's sampling locations;
     ``match`` marks the elements whose sides differ, and the hooks then
     zero the gradient there, on both sides alike, before it flows on.
     """
@@ -1074,11 +1177,18 @@ class KinkSides:
     def watch(self, model):
         from class_query_vad_tpu_torch.models.backbone import MaxPool2x
         from class_query_vad_tpu_torch.models.common import MLP
+        from class_query_vad_tpu_torch.models.deform_encoder import (
+            MSDeformAttn3D)
         from class_query_vad_tpu_torch.models.fast_encoder import (
             FastDeformAttn3D)
 
         for name, mod in model.named_modules():
-            if isinstance(mod, FastDeformAttn3D):
+            if isinstance(mod, MSDeformAttn3D):
+                mod.register_forward_pre_hook(self._exact_shapes)
+                mod.sampling_locations.register_forward_hook(
+                    lambda _m, _i, out: self._keep(
+                        out, self._floor_sides(out), "trilinear floors"))
+            elif isinstance(mod, FastDeformAttn3D):
                 mod.register_forward_pre_hook(self._shapes)
                 mod.head_lanes.register_forward_hook(
                     lambda _m, _i, out, a=mod: self._keep(
@@ -1093,6 +1203,20 @@ class KinkSides:
 
     def _shapes(self, _mod, args):
         self.level_shapes = args[2]
+
+    def _exact_shapes(self, _mod, args):
+        self.level_shapes = args[3]
+
+    def _floor_sides(self, loc):
+        """Per sampling coordinate [B, Q, H, L, P, 3] (x, y, t), the floor
+        of loc * size - 0.5 as the sampler computes it (clamped to [-2,
+        size]: farther out every side is alike) and the side of the drop
+        guard's -1."""
+        size = torch.tensor([[w, h, t] for t, h, w in self.level_shapes],
+                            dtype=torch.float32)[:, None, :]  # [L, 1, 3]
+        p = loc.detach().float().cpu() * size - 0.5
+        fl = torch.minimum(torch.floor(p).clamp(min=-2.0), size)
+        return (fl * 2 + (p > -1.0)).to(torch.int16)
 
     def _relu(self, _mod, _inp, out):
         self._keep(out, (out.detach() > 0).cpu(), "ReLU")
@@ -1439,63 +1563,6 @@ def phase_scan_kernel(dev, bw, peak):
     }
 
 
-def vss_stage_breakdown(model, pixels, mask, dev, wall_ms: float,
-                        iters: int = 3):
-    """Mean device ms of the VSS forward's stages (CUDA events from forward
-    hooks) and the card's busy share of ``wall_ms`` (torch.profiler)."""
-    body = model.backbone[0]
-    stages = {"VideoMamba (24 blocks)": body.body,
-              "mamba_proj": body.mamba_proj,
-              "VSS encoder (6 layers)": model.transformer.encoder,
-              "decoder (6 layer pairs)": model.transformer.decoder}
-    events = {k: [] for k in stages}
-    handles = []
-    for k, mod in stages.items():
-        def pre(_m, _a, k=k):
-            e = torch.cuda.Event(enable_timing=True)
-            e.record()
-            events[k].append([e, None])
-
-        def post(_m, _a, _o, k=k):
-            e = torch.cuda.Event(enable_timing=True)
-            e.record()
-            events[k][-1][1] = e
-        handles += [mod.register_forward_pre_hook(pre),
-                    mod.register_forward_hook(post)]
-    total = []
-    for _ in range(iters):
-        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        s.record()
-        serve(model, pixels, mask, dev)
-        e.record()
-        total.append((s, e))
-    torch.cuda.synchronize()
-    for h in handles:
-        h.remove()
-    fwd = statistics.mean(s.elapsed_time(e) for s, e in total)
-    print(f"VSS stage breakdown (device ms, mean of {iters}): forward + "
-          f"postprocess {fwd:.2f}")
-    for k, evs in events.items():
-        ms = statistics.mean(a.elapsed_time(b) for a, b in evs)
-        print(f"  {k:30s} {ms:8.2f} ms  {ms / fwd:6.1%}")
-
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        serve(model, pixels, mask, dev)
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    print(events.table(sort_by="self_cuda_time_total", row_limit=15,
-                       max_name_column_width=60))
-    device = [e for e in events if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in device) / 1e3
-    print(f"VSS device busy {busy:.2f} ms per forward (profiled) = "
-          f"{busy / wall_ms:.1%} of the median {wall_ms:.2f} ms/batch; idle "
-          f"share {1 - busy / wall_ms:.1%}; the trace holds launches "
-          f"{trace_holds(device, {'selective_scan': 96})}")
-
-
 def phase_vss_main_path(dev, counters):
     """The VSS eval path at full width in bf16: 3 requests, 96 K5 launches
     per forward, timings."""
@@ -1548,7 +1615,8 @@ def phase_vss_main_path(dev, counters):
           f"clips/s) over {len(times)} iterations; min {min(times):.2f}, "
           f"max {max(times):.2f}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    vss_stage_breakdown(model, pixels, mask, dev, med)
+    stage_breakdown(model, pixels, mask, dev, med, 3,
+                    {"selective_scan": 96}, "VSS ")
     del model
     torch.cuda.empty_cache()
     return launches
@@ -2065,43 +2133,55 @@ def phase_blend3d_kernels(dev, bw, peak):
     return entries
 
 
-def phase_eval_variant(dev, counters, config: str, window: str, kernel: str,
-                       tag: str, seeds):
-    """``config`` with ``FAST_WINDOW: window`` at full width in bf16, with
-    random offset / weight kernels (every query samples its own window):
-    3 requests, 24 launches per forward of ``kernel`` and of no other
-    kernel, timings, stage events and the card's busy share."""
+def phase_serve(dev, counters, config: str, tag: str, seeds, opts=(),
+                expected=None, b: int = 2, iters: int = 10):
+    """``config`` (with ``opts``) at full width in bf16 (the backbone; the
+    encoder and decoder in the YAML's dtypes), with random offset / weight
+    kernels (every query samples its own locations), on clips of the
+    config's shape at batch ``b``: one request per seed through forward and
+    the dataset's postprocessing, finite scores of the expected shapes,
+    ``expected`` launches per forward of each kernel and of no other one;
+    the median ms/batch of ``iters`` timed requests, peak memory, stage
+    events and the card's busy share.  Returns the launches and the
+    median."""
     from class_query_vad_tpu_torch.config import get_cfg_custom
     from class_query_vad_tpu_torch.models import build_model
     from class_query_vad_tpu_torch.models.detr import randomize_constants
 
-    cfg = get_cfg_custom(config, ["CONFIG.MODEL.FAST_WINDOW", window])
+    cfg = get_cfg_custom(config, list(opts))
     model = build_model(cfg, dtype=torch.bfloat16)
     randomize_constants(model, torch.Generator().manual_seed(14))
+    s = model.spec
     attn = model.transformer.encoder.layers[0].self_attn
-    print(f"--- {tag}: {os.path.basename(config)}, cross level "
-          f"{cfg.CONFIG.MODEL.FAST_CROSS_LEVEL}, "
-          f"window {window}, {attn.nc} offset components, fused K1 route "
-          f"{attn.fused_route}, centre-frame slice "
-          f"{'on' if window == '2d' else 'off'}")
-    requests = [make_request(seed) for seed in seeds]
+    route = (f", cross level {s.fast_cross_level}, window {s.fast_window}, "
+             f"{attn.nc} offset components, fused K1 route "
+             f"{attn.fused_route}" if s.encoder_type == "fast_attention"
+             else "")
+    print(f"--- {tag}: {os.path.basename(config)}, {s.encoder_type} "
+          f"encoder{route}")
+    shape = clip_shape(cfg)
+    lead = (b, s.num_queries) if s.dataset_mode == "ava" else (
+        b, s.model_temp_len, s.num_queries)
+    expected = expected or {}
+    requests = [make_request(seed, b, shape) for seed in seeds]
     for c in counters:
         c.launches = 0
     for i, (pixels, mask) in enumerate(requests):
         out, (scores, boxes, actor) = serve(model, pixels, mask, dev)
         torch.cuda.synchronize()
-        for name, x, shape in (("scores", scores, (2, 15, 80)),
-                               ("boxes", boxes, (2, 15, 4)),
-                               ("actorness", actor, (2, 15, 1))):
-            check(tuple(x.shape) == shape, f"{tag} {name} shape {tuple(x.shape)}")
+        for name, x, width in (("scores", scores, s.num_classes),
+                               ("boxes", boxes, 4), ("actorness", actor, 1)):
+            check(tuple(x.shape) == lead + (width,),
+                  f"{tag} {name} shape {tuple(x.shape)}")
             check(bool(torch.isfinite(x).all()), f"{tag} {name} not finite")
         print(f"{tag} request {i}: scores {tuple(scores.shape)}, finite; top "
               f"score {scores.max().item():.4f}")
     launches = {c.__name__: c.launches for c in counters}
     print(f"{tag} kernel launches over {len(requests)} requests: {launches}")
-    check(launches == {**{k: 0 for k in launches}, kernel: 24 * len(requests)},
-          f"{tag} eval launches {launches}, expected {kernel} alone, 24 per "
-          f"forward")
+    check(launches == {**{k: 0 for k in launches},
+                       **{k: n * len(requests) for k, n in expected.items()}},
+          f"{tag} eval launches {launches}, expected {expected or 'none'} per "
+          f"forward and no other kernel")
 
     pixels, mask = requests[0]
     for _ in range(2):
@@ -2109,22 +2189,31 @@ def phase_eval_variant(dev, counters, config: str, window: str, kernel: str,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times = []
-    for _ in range(10):
+    for _ in range(iters):
         t0 = time.perf_counter()
         serve(model, pixels, mask, dev)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     med = statistics.median(times)
-    print(f"full-width eval {tag} ({os.path.basename(config)}, "
-          f"FAST_WINDOW {window}), B=2 bf16, forward + postprocess, "
+    print(f"full-width eval {tag} ({os.path.basename(config)}), B={b} "
+          f"{'x'.join(map(str, shape))} bf16, forward + postprocess, "
           f"host->device copy included: median {med:.2f} ms/batch "
-          f"({2e3 / med:.2f} clips/s) over {len(times)} iterations; min "
+          f"({1e3 * b / med:.2f} clips/s) over {len(times)} iterations; min "
           f"{min(times):.2f}, max {max(times):.2f}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    stage_breakdown(model, pixels, mask, dev, med, expected={kernel: 24})
+    stage_breakdown(model, pixels, mask, dev, med, min(iters, 5), expected,
+                    f"{tag} ")
     del model
     torch.cuda.empty_cache()
-    return launches
+    return launches, med
+
+
+def phase_eval_variant(dev, counters, config: str, window: str, kernel: str,
+                       tag: str, seeds):
+    """``config`` with ``FAST_WINDOW: window`` served (``phase_serve``):
+    24 launches per forward of ``kernel`` and of no other kernel."""
+    return phase_serve(dev, counters, config, tag, seeds,
+                       ["CONFIG.MODEL.FAST_WINDOW", window], {kernel: 24})[0]
 
 
 # phase 13's card-vs-CPU check runs at 2 of the YAML's 6 encoder layers:
@@ -2135,6 +2224,11 @@ NATIVE_3D_CPU_LAYERS = 2
 
 # the 3d resample window's train path: 1 + 4 steps
 RESAMPLE_3D_TRAIN_STEPS = 5
+# its float32 train step card vs CPU: 2 of the YAML's 6 encoder layers, for
+# the script's time limit (the CPU's step took 153.7 s at 6 layers on the 8
+# host cores beside an H100; the exact encoder's and the tubes' phases
+# need that time)
+RESAMPLE_3D_TRAIN_CPU_LAYERS = 2
 
 
 # ---- K12 (ViT attention), K13 (fused FFN): no model path calls them, as in
@@ -2558,6 +2652,161 @@ NATIVE_TRAIN_STEPS = 5
 NATIVE_TRAIN_CPU_LAYERS = 2
 
 
+# ---- the exact deformable encoder and the tube configs (phases 25-30)
+EXACT_CONFIG = os.path.join(REPO, "configuration", "AVA22_ViT-B.yaml")
+MAMBA_EXACT_CONFIG = os.path.join(REPO, "configuration",
+                                  "AVA22_ViT-B-train-mamba.yaml")
+TUBE_CONFIGS = {k: os.path.join(REPO, "configuration", f"{k}.yaml")
+                for k in ("UCF_ViT-B_fast", "UCF_ViT-B", "JHMDB_ViT-B")}
+# K1, K3 and K4 at the tube-fast configs' query grids (one encoder layer:
+# four grids, each over the four aligned levels), B=1 over every token
+# frame: UCF_ViT-B_fast (32 frames of 224x224: 16 token frames) and
+# JHMDB_ViT-B_fast (40 of 256x256: 20)
+TUBE_GRIDS = {"UCF": (16, ((56, 56), (28, 28), (14, 14), (7, 7))),
+              "JHMDB": (20, ((64, 64), (32, 32), (16, 16), (8, 8)))}
+# the exact paths' train steps (1 warm-up + timed)
+EXACT_TRAIN_STEPS = 5
+TUBE_EXACT_TRAIN_STEPS = 3
+# the float32 card-vs-CPU train checks' encoder depth, cut from the YAML's
+# 6 (AVA22_ViT-B) and 3 (UCF_ViT-B) for the CPU's time: the plain sampler's
+# corner weights and their backward over 54,400 / 66,640 tokens per layer
+EXACT_TRAIN_CPU_LAYERS = 2
+UCF_EXACT_TRAIN_CPU_LAYERS = 1
+
+
+def phase_tube_grid_kernels(dev, bw, peak):
+    """K1, K3 and K4 against their plain versions at ``TUBE_GRIDS``, in
+    float32 and bf16, K3 / K4 with offsets on exact ties; bf16 device time
+    per grid and per encoder layer beside the bound (``k1_work``,
+    ``blend_work`` at these shapes).  Returns {config: {kernel: {"ms",
+    "bound_ms", "by_grid"}}} and the largest error per kernel."""
+    from class_query_vad_tpu_torch.ops.blend2d import (
+        blend2d_bwd_dcomps,
+        blend2d_bwd_dcomps_reference,
+        blend2d_bwd_dvol,
+        blend2d_bwd_dvol_reference,
+    )
+    from class_query_vad_tpu_torch.ops.fast_deform_cuda import (
+        fused_blend2d, fused_blend2d_reference)
+
+    rng = np.random.default_rng(25)
+    out, max_err = {}, {"K1": 0.0, "K3": 0.0, "K4": 0.0}
+    for name, (t, grids) in TUBE_GRIDS.items():
+        out[name] = {k: {"ms": 0.0, "bound_ms": 0.0, "by_grid": {}}
+                     for k in max_err}
+        for dtype in (torch.float32, torch.bfloat16):
+            for h, w in grids:
+                vol, fused = k1_inputs(rng, 1, h, w, dtype, dev, t)
+                (vol2, dx, dy, a), g = blend_inputs(rng, 1, h, w, dtype, dev,
+                                                    t=t)
+                calls = {
+                    "K1": (lambda: fused_blend2d(vol, fused, 8, 1.0),
+                           lambda: fused_blend2d_reference(vol, fused, 8, 1.0),
+                           K1_TOL[dtype]),
+                    "K3": (lambda: blend2d_bwd_dvol(dx, dy, a, g, dtype, 8),
+                           lambda: blend2d_bwd_dvol_reference(dx, dy, a, g,
+                                                              dtype, 8),
+                           BLEND_TOL[dtype]),
+                    "K4": (lambda: blend2d_bwd_dcomps(vol2, dx, dy, a, g, 8),
+                           lambda: blend2d_bwd_dcomps_reference(
+                               vol2, dx, dy, a, g, 8), BLEND_TOL[dtype]),
+                }
+                for k, (kern, plain, tol) in calls.items():
+                    got, want = kern(), plain()
+                    torch.cuda.synchronize()
+                    if k != "K4":
+                        got, want = (got,), (want,)
+                    ok = all(bool(torch.isfinite(x).all()) for x in got)
+                    e = max(rel_err(x, y)[1] for x, y in zip(got, want))
+                    ok = ok and e <= tol
+                    print(f"{name} {k} {str(dtype)[6:]:8s} T={t} {h:2d}x"
+                          f"{w:<2d}: max|err| = {e:.2e} x max|ref| (tol "
+                          f"{tol:.0e}) {'ok' if ok else 'FAIL'}")
+                    check(ok, f"{k} disagrees with its plain version at the "
+                              f"{name} grid {h}x{w}, T={t}, {dtype}")
+                    max_err[k] = max(max_err[k], max(
+                        rel_err(x, y)[0] for x, y in zip(got, want)))
+                    if dtype != torch.bfloat16:
+                        continue
+                    t_k = kernel_device_ms(kern)
+                    nbytes, ops = (k1_work(h, w, 2, 1, t) if k == "K1"
+                                   else blend_work(k, 1, h, w, 2, t=t))
+                    t_b = max(nbytes / bw, ops / peak) * 1e3
+                    n = out[name][k]
+                    n["ms"] += t_k
+                    n["bound_ms"] += t_b
+                    n["by_grid"][f"{h}x{w}"] = [round(t_k, 5), round(t_b, 5)]
+                    print(f"{name} {k} bf16     T={t} {h:2d}x{w:<2d}: kernel "
+                          f"{t_k:.4f} ms (device, queued), bound {t_b:.4f} "
+                          f"ms ({nbytes / 1e6:.1f} MB) -> "
+                          f"{t_b / t_k:.1%} of the bound's speed")
+        for k, n in out[name].items():
+            print(f"{name} {k} per encoder layer (4 launches, bf16, B=1, "
+                  f"T={t}): kernel {n['ms']:.4f} ms, bound {n['bound_ms']:.4f}"
+                  f" ms ({n['bound_ms'] / n['ms']:.1%} of the bound's speed)")
+    return out, max_err
+
+
+def phase_exact_and_tubes(dev, counters, bw, peak):
+    """Phases 25-30: AVA22_ViT-B (the exact encoder) served and trained,
+    card vs CPU; K1, K3, K4 at the tube grids; UCF_ViT-B_fast served and
+    trained (K1, K3, K4); UCF_ViT-B and JHMDB_ViT-B (the exact encoder over
+    every frame) served and trained, UCF card vs CPU; VideoMamba with the
+    exact encoder served (K5), card vs CPU.  Returns the tube grids'
+    kernel times and the new paths' launches."""
+    zero = {c.__name__: 0 for c in counters}
+    t0 = time.perf_counter()
+    # 25: no hand kernel on the exact ViT path, as in the JAX package
+    phase_serve(dev, counters, EXACT_CONFIG, "exact", (51, 52, 53))
+    cpu_s = phase_in_model(dev, EXACT_CONFIG, tag="exact ")
+    print(f"exact card-vs-CPU forward at the YAML's 6 encoder layers; its "
+          f"CPU forward {cpu_s:.1f} s")
+    # 26
+    phase_train(dev, counters, steps=EXACT_TRAIN_STEPS, tag="exact ",
+                config=EXACT_CONFIG, kernels=())
+    phase_train_card_vs_cpu(
+        dev, ["CONFIG.MODEL.ENC_LAYERS", EXACT_TRAIN_CPU_LAYERS], "exact ",
+        counters, zero, EXACT_CONFIG)
+    print(f"phases 25-26 (AVA22_ViT-B): {time.perf_counter() - t0:.1f} s")
+    # 27
+    tube, tube_err = phase_tube_grid_kernels(dev, bw, peak)
+    # 28: 3 encoder layers x 4 query grids
+    t0 = time.perf_counter()
+    ucf_eval, _ = phase_serve(dev, counters, TUBE_CONFIGS["UCF_ViT-B_fast"],
+                              "UCF fast", (61, 62, 63),
+                              expected={"fused_blend2d": 12}, b=1)
+    ucf_train = phase_train(dev, counters, steps=5, tag="UCF fast ",
+                            config=TUBE_CONFIGS["UCF_ViT-B_fast"], per_step=12)
+    # 29: the exact encoder over every frame, 3 layers
+    for key, seed in (("UCF_ViT-B", 71), ("JHMDB_ViT-B", 73)):
+        phase_serve(dev, counters, TUBE_CONFIGS[key], f"{key} exact",
+                    (seed,), b=1, iters=3)
+        phase_train(dev, counters, steps=TUBE_EXACT_TRAIN_STEPS,
+                    tag=f"{key} exact ", config=TUBE_CONFIGS[key], kernels=())
+    cpu_s = phase_in_model(dev, TUBE_CONFIGS["UCF_ViT-B"], tag="UCF exact ")
+    print(f"UCF exact card-vs-CPU forward at the YAML's 3 encoder layers; "
+          f"its CPU forward {cpu_s:.1f} s")
+    phase_train_card_vs_cpu(
+        dev, ["CONFIG.MODEL.ENC_LAYERS", UCF_EXACT_TRAIN_CPU_LAYERS],
+        "UCF exact ", counters, zero, TUBE_CONFIGS["UCF_ViT-B"])
+    print(f"phases 28-29 (the tube configs): {time.perf_counter() - t0:.1f} s")
+    # 30: VideoMamba (48 K5 scans) + the exact encoder, eval
+    t0 = time.perf_counter()
+    mamba, _ = phase_serve(dev, counters, MAMBA_EXACT_CONFIG,
+                           "VideoMamba + exact", (81, 82, 83),
+                           expected={"selective_scan": 48})
+    phase_in_model(dev, MAMBA_EXACT_CONFIG, tag="VideoMamba + exact ",
+                   tol=VSS_MODEL_TOL)
+    print(f"phase 30 (AVA22_ViT-B-train-mamba): "
+          f"{time.perf_counter() - t0:.1f} s")
+    launches = {
+        "UCF_ViT-B_fast eval, 3 requests": ucf_eval,
+        "UCF_ViT-B_fast train, 5 steps": ucf_train,
+        "AVA22_ViT-B-train-mamba eval, 3 requests": mamba,
+    }
+    return tube, tube_err, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2656,9 +2905,10 @@ def main() -> int:
     for k in blend3d:
         k["launches"] = t3d[k["name"]]
     phase_train_card_vs_cpu(
-        dev, ["CONFIG.MODEL.FAST_WINDOW", "3d"], "resample-3d ", counters,
+        dev, ["CONFIG.MODEL.FAST_WINDOW", "3d", "CONFIG.MODEL.ENC_LAYERS",
+              RESAMPLE_3D_TRAIN_CPU_LAYERS], "resample-3d ", counters,
         {**{c.__name__: 0 for c in counters},
-         **{k: 24 for k in TRAIN_KERNELS["3d"]}})
+         **{k: 4 * RESAMPLE_3D_TRAIN_CPU_LAYERS for k in TRAIN_KERNELS["3d"]}})
     kernels += blend3d
     # K12 and K13 at the main path's shapes and on the model's own tensors,
     # then K12's bench entry point
@@ -2684,6 +2934,18 @@ def main() -> int:
         counters, {**{c.__name__: 0 for c in counters},
                    "native_blend2d": 4 * NATIVE_TRAIN_CPU_LAYERS},
         NATIVE_CONFIG, unmatched_too=True)
+    tube, tube_err, tube_launches = phase_exact_and_tubes(dev, counters, bw,
+                                                         peak)
+    for k in kernels:
+        key = {"fused_blend2d": "K1", "blend2d_bwd_dvol": "K3",
+               "blend2d_bwd_dcomps": "K4"}.get(k["name"])
+        if key:
+            k["tube_grids"] = {name: {**v[key], "max_abs_err": tube_err[key]}
+                               for name, v in tube.items()}
+        new_paths = {path: n[k["name"]] for path, n in tube_launches.items()
+                     if n.get(k["name"])}
+        if new_paths:
+            k["launches_new_paths"] = new_paths
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

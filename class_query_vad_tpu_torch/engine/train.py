@@ -1,4 +1,5 @@
-"""The AVA train step (counterpart of ``class_query_vad_tpu/engine/train.py``).
+"""The train step, AVA and the tubes (counterpart of
+``class_query_vad_tpu/engine/train.py``).
 
 Reference semantics, as the JAX package keeps them:
 
@@ -125,14 +126,15 @@ def make_optimizer(params: Iterable[nn.Parameter],
     return MasterAdamW(params, lr, grad_accum, clip_norm)
 
 
-_TARGET_KEYS = ("boxes", "labels", "n_boxes")
+_TARGET_KEYS = ("boxes", "labels", "n_boxes", "frame_valid", "n_actors")
 
 
 class Trainer:
-    """Train steps of the port on ``AVA`` configs: forward in ``train()``
-    mode, the matcher and criterion, backward (through K1's backward, K3
-    and K4, on the card), then ``MasterAdamW``.  The counterpart of the JAX
-    package's ``create_train_state`` + ``make_train_step``.
+    """Train steps of the port: forward in ``train()`` mode, the matcher
+    and criterion of the config's dataset (AVA, UCF or JHMDB), backward
+    (through the encoder's kernels' backward on the card, e.g. K1's, K3 and
+    K4), then ``MasterAdamW``.  The counterpart of the JAX package's
+    ``create_train_state`` + ``make_train_step``.
 
     ``device`` (CUDA by default) must hold ``model``; with no card and no
     ``device="cpu"`` it raises rather than train on the CPU.  Dropout and
@@ -184,7 +186,9 @@ class Trainer:
 
     def step(self, batch) -> Dict[str, torch.Tensor]:
         """One micro-batch (numpy arrays or tensors: pixels [B, T, H, W, 3],
-        mask [B, H, W], boxes [B, M, 4], labels [B, M, NC], n_boxes [B]):
+        mask [B, H, W] and the targets, AVA boxes [B, M, 4], labels [B, M,
+        NC], n_boxes [B], or tube boxes [B, A, T, 4], labels [B, A, T],
+        frame_valid [B, T], n_actors [B]):
         forward, backward and, every GRAD_ACCUM calls, the update.  Returns
         the total and the last layer's four losses (detached), plus
         ``grad_norm`` when it stepped."""

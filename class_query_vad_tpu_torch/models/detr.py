@@ -24,6 +24,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.deform_attn import (
+    directional_offset_init,
     directional_offset_init_l2hp,
     directional_offset_init_l3hp,
 )
@@ -82,9 +83,13 @@ class DETR(nn.Module):
             return self._heads_and_outputs(hs, cls_hs, references,
                                            pixels.shape[0])
         t_tokens = pixels.shape[1] // s.vit.tubelet_size
-        plan = center_slice_plan(s.fast_eff_slice, s.single_frame,
-                                 s.fast_window, s.num_feature_levels,
-                                 s.temp_len, t_tokens)
+        plan = None
+        if s.encoder_type == "fast_attention":
+            # only the fast encoder reads nothing but the plan's frames:
+            # the exact encoder's lower layers sample every frame
+            plan = center_slice_plan(s.fast_eff_slice, s.single_frame,
+                                     s.fast_window, s.num_feature_levels,
+                                     s.temp_len, t_tokens)
         if plan is not None:
             # centre-frame slice pushed into the backbone: the ViT's last
             # block, the FPN and the poses only compute the plan's frames
@@ -164,7 +169,9 @@ def init_weights(model: DETR, generator: torch.Generator) -> None:
     on every device): Dense/Conv kernels lecun-normal with zero bias, the
     ViT qkv xavier-uniform, LayerNorm ones/zeros, the embeddings N(0, 1),
     the fast encoder's offset/weight kernels zero with the directional
-    offset bias (its x, y components, or x, y, t under the 3d window); in
+    offset bias (its x, y components, or x, y, t under the 3d window), the
+    exact encoder's ``sampling_offsets`` / ``attention_weights`` likewise
+    (the bias in (head, level, point, x/y/t) order); in
     the Mamba family the dt projections as mamba_simple's
     (``dt_proj_init_``), A_log = log(1..N), D = 1, VideoMamba's position
     tables N(0, 0.02) and cls token 0, SS2D's x_proj_weight lecun-normal,
@@ -196,7 +203,12 @@ def init_weights(model: DETR, generator: torch.Generator) -> None:
                     else directional_offset_init_l2hp)
             mod.bias.copy_(init(s.nhead, s.num_feature_levels,
                                 s.enc_n_points))
-        elif name.endswith("self_attn.window_weights"):
+        elif name.endswith("self_attn.sampling_offsets"):
+            mod.weight.zero_()
+            mod.bias.copy_(directional_offset_init(
+                s.nhead, s.num_feature_levels, s.enc_n_points))
+        elif name.endswith(("self_attn.window_weights",
+                            "self_attn.attention_weights")):
             mod.weight.zero_()
             mod.bias.zero_()
         elif isinstance(mod, nn.LayerNorm):
@@ -225,12 +237,18 @@ def init_weights(model: DETR, generator: torch.Generator) -> None:
         torch.randn(model.transformer.level_embed.shape, generator=g))
 
 
+# the encoders' offset / weight heads, whose kernels the init zeroes
+_HEADS_AT_ZERO = tuple(f"self_attn.{k}" for k in (
+    "window_offsets", "window_weights", "sampling_offsets",
+    "attention_weights"))
+
+
 @torch.no_grad()
 def randomize_constants(model: DETR, generator: torch.Generator) -> None:
     """Redraw the parameters that ``init_weights`` sets to constants, as the
     parity tests' random params do: LayerNorm scales 1 + N(0, 0.1), the
     biases N(0, 0.1) (the directional offset bias and the dt biases stay),
-    the fast encoder's offset/weight kernels N(0, 1/fan_in); in the Mamba
+    the encoders' offset/weight kernels N(0, 1/fan_in); in the Mamba
     family FrozenBatchNorm's scale 1 + N(0, 0.1), mean N(0, 0.1) and
     variance U(0.5, 1.5), A_log(s) and D(s) + N(0, 0.1) and the cls token
     N(0, 0.02).
@@ -238,7 +256,7 @@ def randomize_constants(model: DETR, generator: torch.Generator) -> None:
     For checks with random weights only: at the JAX init the class logits
     (the mean over the feature axis of a LayerNorm output with unit scale
     and zero bias) are identically 0, and every query of the fast encoder
-    gets the same offsets and weights."""
+    gets the same offsets and weights (of either deformable encoder)."""
     g = generator
     noise = lambda x, std: (std * torch.randn(x.shape, generator=g)).to(x.device)
     for name, mod in model.named_modules():
@@ -250,14 +268,15 @@ def randomize_constants(model: DETR, generator: torch.Generator) -> None:
                 0.5 + torch.rand(mod.running_var.shape, generator=g))
         elif isinstance(mod, VideoMamba):
             mod.cls_token.copy_(noise(mod.cls_token, 0.02))
-        elif name.endswith(("self_attn.window_offsets", "self_attn.window_weights")):
+        elif name.endswith(_HEADS_AT_ZERO):
             w = mod.weight
             w.copy_(torch.randn(w.shape, generator=g) / math.sqrt(w.shape[1]))
     for name, p in model.named_parameters():
         if name.endswith(("A_log", "A_b_log", "A_logs", ".D", ".D_b", ".Ds")):
             p.add_(noise(p, 0.1))
         elif (name.endswith("bias") and "dt_proj" not in name
-              and not name.endswith("window_offsets.bias")):
+              and not name.endswith(("window_offsets.bias",
+                                     "sampling_offsets.bias"))):
             p.copy_(noise(p, 0.1))
 
 
@@ -270,7 +289,8 @@ def build_model(cfg, dtype: torch.dtype = torch.float32, device=None,
     ``dtype`` is the backbone's compute dtype (the JAX package's DETR
     ``dtype``; VideoMamba keeps its LayerNorms, dt projections, A, D and
     position tables float32, and ``mamba_proj`` runs in float32); the fast
-    encoder takes ``MODEL.FAST_DTYPE``, the SSM / VSS encoder float32, the
+    encoder takes ``MODEL.FAST_DTYPE``, the exact and the SSM / VSS
+    encoders float32, the
     decoder ``MODEL.DECODER_DTYPE``, with the decoder's float32 islands
     (sine-embed MLPs, box refinement, class queries) and the heads kept
     float32.  ``input_hw`` is the clip size a VideoMamba model is built
@@ -294,6 +314,7 @@ def build_model(cfg, dtype: torch.dtype = torch.float32, device=None,
         to_compute_dtype(model.backbone[0].body, dtype)
     else:
         model.backbone.to(dtype)
+    if spec.encoder_type == "fast_attention":
         model.transformer.encoder.to(torch_dtype(spec.fast_dtype))
     dec = model.transformer.decoder
     for part in (dec.layers, dec.cls_layers, dec.norm, dec.cls_norm2):

@@ -1,7 +1,6 @@
 """DAB transformer: encoder, common-grid interpolation, decoder
-(counterpart of ``class_query_vad_tpu/models/transformer.py``: the
-fast-attention and the SSM / VSS encoder branches; the exact deformable
-encoder is not ported yet).
+(counterpart of ``class_query_vad_tpu/models/transformer.py``: the exact
+deformable, the fast-attention and the SSM / VSS encoder branches).
 
 * every level gets a learned ``level_embed`` on its positional encoding;
 * the encoder output levels are resampled onto the grid of level index -2
@@ -13,7 +12,13 @@ encoder is not ported yet).
   runs the encoder on just those frames — exactly.  On the main path the
   backbone already delivers the sliced frames (``pre_sliced``);
 * the SSM / VSS encoders (one level) return the key frame's memory and
-  pose, decoded as a single frame.
+  pose, decoded as a single frame;
+* the exact deformable encoder (``ENCODER_TYPE: attention``) runs over the
+  flattened levels in float32; in single-frame mode only its last layer's
+  queries are cut to the rows of the centre-lerp frames (its sampling still
+  reads every frame of the layer before), and the decode is the sliced
+  one; otherwise (the tube configs) the levels are un-flattened onto the
+  common grid.
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ import torch.nn as nn
 
 from ..utils.misc import inverse_sigmoid
 from .decoder import TransformerDecoder
+from .deform_encoder import DeformableEncoder, get_valid_ratio
+from .fast_encoder import FastDeformableEncoder, split_levels
 from .resize import grid_resize_2d, grid_resize_3d, grid_resize_3d_at_frame
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -111,9 +118,11 @@ class DABTransformer(nn.Module):
         s = self.spec = spec
         self.level_embed = nn.Parameter(
             torch.zeros(s.num_feature_levels, s.d_model))
-        if s.encoder_type == "fast_attention":
-            from .fast_encoder import FastDeformableEncoder
-
+        if s.encoder_type == "attention":
+            self.encoder = DeformableEncoder(
+                s.enc_layers, s.d_model, s.dim_feedforward,
+                s.num_feature_levels, s.nhead, s.enc_n_points, s.dropout)
+        elif s.encoder_type == "fast_attention":
             self.encoder = FastDeformableEncoder(
                 s.enc_layers, s.d_model, s.dim_feedforward,
                 s.num_feature_levels, s.nhead, s.enc_n_points, s.fast_radius,
@@ -127,9 +136,7 @@ class DABTransformer(nn.Module):
                                       s.dim_feedforward, s.encoder_type,
                                       s.dropout)
         else:
-            raise NotImplementedError(
-                f"ENCODER_TYPE={s.encoder_type} is not ported yet (ROADMAP.md "
-                "Queue 1 step 12: the exact encoder)")
+            raise ValueError(f"unknown ENCODER_TYPE={s.encoder_type}")
         self.decoder = TransformerDecoder(
             s.dec_layers, s.d_model, s.nhead, s.dim_feedforward,
             s.num_classes, query_dim=4,
@@ -146,6 +153,8 @@ class DABTransformer(nn.Module):
         s = self.spec
         if s.encoder_type in ("ssm", "vssm"):
             return self._ssm_forward(srcs, masks, poses, refpoint_embed)
+        if s.encoder_type == "attention":
+            return self._exact_forward(srcs, masks, poses, refpoint_embed)
         fdt = torch_dtype(s.fast_dtype)
         shapes = tuple(tuple(x.shape[1:4]) for x in srcs)
         if pre_sliced is not None:
@@ -205,6 +214,50 @@ class DABTransformer(nn.Module):
         return self._decode([memory.reshape(b, 1, h0, w0, d)],
                             key_pos.reshape(b, 1, h0, w0, d),
                             masks[0][:, :1], refpoint_embed)
+
+    def _exact_forward(self, srcs, masks, poses, refpoint_embed):
+        """Exact deformable encoder path (JAX ``transformer.py:246-341``):
+        levels, masks and poses (plus ``level_embed``) flattened in
+        float32, the valid ratios, then either the last-layer query slice
+        with the sliced centre-frame decode (single frame, levels of one T:
+        ``center_slice_plan`` with the window forced to "2d", since only
+        the last layer's queries are cut), or the common-grid decode."""
+        s = self.spec
+        b, d = srcs[0].shape[0], s.d_model
+        shapes = tuple(tuple(x.shape[1:4]) for x in srcs)
+        src_flat = torch.cat([x.reshape(b, -1, d) for x in srcs], 1).float()
+        mask_flat = torch.cat([m.reshape(b, -1) for m in masks], 1)
+        pos_flat = torch.cat([p.reshape(b, -1, d) + self.level_embed[l]
+                              for l, p in enumerate(poses)], 1).float()
+        valid_ratios = torch.stack([get_valid_ratio(m) for m in masks], 1)
+        plan = None
+        if (s.single_frame and len(shapes) > 1
+                and len({x[0] for x in shapes}) == 1):
+            plan = center_slice_plan(s.fast_eff_slice, True, "2d",
+                                     s.num_feature_levels, s.temp_len,
+                                     shapes[0][0])
+        if plan is None:
+            memory = self.encoder(src_flat, shapes, valid_ratios, pos_flat,
+                                  mask_flat)
+            return self._common_grid_decode(
+                split_levels(memory, shapes), split_levels(pos_flat, shapes),
+                masks, shapes, refpoint_embed)
+        uniq = sorted(set(plan[0]))
+        rows, start = [], 0
+        for t, h, w in shapes:
+            rows.append((start + uniq[0] * h * w,
+                         start + (uniq[-1] + 1) * h * w))
+            start += t * h * w
+        memory = self.encoder(src_flat, shapes, valid_ratios, pos_flat,
+                              mask_flat, last_layer_rows=tuple(rows))
+        mem_levels = split_levels(
+            memory, tuple((len(uniq), h, w) for _, h, w in shapes))
+        ref_lvl = len(shapes) - 2
+        fdec = (s.temp_len // 2) % shapes[ref_lvl][0]
+        pos_dec = poses[ref_lvl][:, fdec : fdec + 1].float()
+        return self._center_frame_decode_presliced(
+            mem_levels, masks, refpoint_embed, plan, pos_dec, torch.float32,
+            torch.float32)
 
     def _center_frame_decode(self, mem_levels, poses, masks, shapes,
                              refpoint_embed, plan, fdt, hdt):

@@ -48,3 +48,17 @@ def generalized_box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Ten
 def pairwise_l1(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
     """cdist(.., p=1): [..., N, 4] x [..., M, 4] -> [..., N, M]."""
     return (boxes1[..., :, None, :] - boxes2[..., None, :, :]).abs().sum(-1)
+
+
+def batched_box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor):
+    """IoU with a leading batch axis, [B, N, 4] x [B, M, 4] -> (iou, union)
+    [B, N, M] (the JAX package's ``batched_box_iou``, box_ops.py:71):
+    ``box_iou`` already broadcasts over leading axes."""
+    return box_iou(boxes1, boxes2)
+
+
+def batched_generalized_box_iou(boxes1: torch.Tensor,
+                                boxes2: torch.Tensor) -> torch.Tensor:
+    """Batched GIoU [B, N, M] (the JAX package's
+    ``batched_generalized_box_iou``, box_ops.py:84)."""
+    return generalized_box_iou(boxes1, boxes2)

@@ -23,7 +23,9 @@ from class_query_vad_tpu_torch.ops.blend2d import (
     blend2d,
     blend2d_backward_reference,
     blend2d_bwd_dcomps,
+    blend2d_bwd_dcomps_reference,
     blend2d_bwd_dvol,
+    blend2d_bwd_dvol_reference,
     blend2d_reference,
 )
 from class_query_vad_tpu_torch.ops.blend3d import (
@@ -1067,3 +1069,179 @@ def test_fast_use_pallas_false_runs_no_kernel_on_the_card(card, window, cross,
     for k, r in outs[0].items():
         g = outs[1][k]
         assert (g - r).abs().max().item() <= 1e-4 * max(1.0, r.abs().max().item()), k
+
+
+# ---- the exact deformable encoder and the tube configs -------------------
+
+_ALL_COUNTERS = _BLEND_COUNTERS + (selective_scan, vit_attention,
+                                   fused_ffn_kernel)
+
+
+def _yaml_cfg(yaml, enc_layers=2):
+    """A configuration YAML cut as the CPU parity tests cut it
+    (``torch_parity.cut_cfg``), dropout and drop path off."""
+    from pathlib import Path
+
+    from class_query_vad_tpu_torch.config import get_cfg_custom
+    from torch_parity import cut_cfg
+
+    path = Path(__file__).resolve().parents[1] / "configuration" / yaml
+    cfg = cut_cfg(get_cfg_custom(str(path)), enc_layers=enc_layers)
+    cfg.CONFIG.MODEL.DROPOUT, cfg.CONFIG.ViT.DROP_PATH_RATE = 0.0, 0.0
+    return cfg
+
+
+def _card_and_cpu(cfg, card):
+    m_cpu = build_model(cfg, device="cpu",
+                        generator=torch.Generator().manual_seed(1))
+    randomize_constants(m_cpu, torch.Generator().manual_seed(2))
+    m_gpu = build_model(cfg, device=card)
+    m_gpu.load_state_dict(m_cpu.state_dict(), strict=True)
+    return m_cpu, m_gpu
+
+
+def _tiny_request(b=2):
+    rng = np.random.default_rng(0)
+    pixels = torch.from_numpy(rng.standard_normal((b, 8, 64, 64, 3), np.float32))
+    mask = torch.zeros((b, 64, 64), dtype=torch.bool)
+    mask[b - 1, :, 48:] = True
+    return pixels, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("yaml", ["AVA22_ViT-B.yaml", "UCF_ViT-B.yaml",
+                                  "JHMDB_ViT-B.yaml"])
+def test_tiny_exact_model_card_matches_cpu(card, yaml):
+    """The exact encoder's plain sampler on the card and on the CPU, tiny
+    float32 models of the YAML, same weights and input: the same heads, and
+    no kernel launched (the JAX package has none on this path)."""
+    m_cpu, m_gpu = _card_and_cpu(_yaml_cfg(yaml), card)
+    pixels, mask = _tiny_request()
+    before = [k.launches for k in _ALL_COUNTERS]
+    with torch.inference_mode():
+        out_g = m_gpu(pixels.to(card), mask.to(card))
+        out_c = m_cpu(pixels, mask)
+    assert [k.launches for k in _ALL_COUNTERS] == before
+    for k in ("pred_logits", "pred_boxes", "pred_logits_b"):
+        g, r = out_g[k].cpu(), out_c[k]
+        assert (g - r).abs().max().item() <= 1e-4 * max(1.0, r.abs().max().item()), k
+
+
+def _train_card_vs_cpu(cfg, card, batch, counters):
+    """One tiny float32 train step on the CPU and on the card; returns the
+    card's launches of ``counters`` and checks the losses, the matcher's
+    assignment and every gradient as ``test_tiny_train_step_on_the_card``."""
+    m_cpu, m_gpu = _card_and_cpu(cfg, card)
+    res = []
+    for model, dev in ((m_cpu, "cpu"), (m_gpu, card)):
+        model.head_dropout.p = 0.0
+        trainer = Trainer(model, cfg, device=dev)
+        before = [k.launches for k in counters]
+        total, _, match = trainer.loss(
+            {k: torch.as_tensor(v).to(dev) for k, v in batch.items()})
+        total.backward()
+        torch.cuda.synchronize()
+        res.append((total.item(), match, {k: p.grad.cpu() for k, p in
+                                          model.named_parameters()},
+                    [k.launches - b for k, b in zip(counters, before)]))
+    (t_c, m_c, g_c, n_c), (t_g, m_g, g_g, n_g) = res
+    assert not any(n_c)
+    ok = m_c.match_ok
+    assert ok.any() and torch.equal(ok, m_g.match_ok.cpu())
+    assert torch.equal(m_c.gt_idx[ok], m_g.gt_idx.cpu()[ok])
+    assert abs(t_g - t_c) <= 1e-4 * abs(t_c)
+    floor = 1e-5 * max(g.abs().max().item() for g in g_c.values())
+    for k in g_c:
+        err = (g_g[k] - g_c[k]).abs().max().item()
+        assert err <= 1e-2 * g_c[k].abs().max().item() + floor, (k, err)
+    return n_g
+
+
+@pytest.mark.cuda
+def test_tiny_exact_train_step_on_the_card(card):
+    """One tiny AVA22_ViT-B float32 train step (the exact encoder's plain
+    sampler and its autograd) on the card and on the CPU: no kernel."""
+    cfg = _yaml_cfg("AVA22_ViT-B.yaml")
+    cfg.CONFIG.DATA.NUM_CLASSES = 12
+    rng = np.random.default_rng(0)
+    batch = {"pixels": rng.standard_normal((2, 8, 64, 64, 3), np.float32),
+             "mask": np.zeros((2, 64, 64), bool),
+             "boxes": rng.uniform(0.2, 0.7, (2, 6, 4)).astype(np.float32),
+             "labels": (rng.random((2, 6, 12)) < 0.2).astype(np.float32),
+             "n_boxes": np.array([3, 2], np.int32)}
+    assert _train_card_vs_cpu(cfg, card, batch, _ALL_COUNTERS) == [0] * len(
+        _ALL_COUNTERS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("yaml", ["UCF_ViT-B_fast.yaml", "UCF_ViT-B.yaml"])
+def test_tiny_tube_train_step_on_the_card(card, yaml):
+    """One tiny UCF train step (per-frame matcher, criterion_frames) on the
+    card and on the CPU; the fast config runs K1 forward and K3, K4
+    backward once per encoder layer and query level, the exact one none."""
+    from torch_parity import tube_targets
+
+    cfg = _yaml_cfg(yaml)
+    pixels, mask = _tiny_request()
+    batch = {"pixels": pixels.numpy(), "mask": mask.numpy(),
+             **tube_targets(6, 2, 8, a_slots=2, num_classes=24)}
+    counters = (fused_blend2d, blend2d_bwd_dvol, blend2d_bwd_dcomps)
+    want = [2 * 4] * 3 if "fast" in yaml else [0] * 3
+    assert _train_card_vs_cpu(cfg, card, batch, counters) == want
+
+
+# K1, K3 and K4 at the tube-fast configs' grids: UCF 28x28, 14x14, 7x7 (the
+# ragged ones; 56x56 in chip_smoke.py) and JHMDB 8x8, T = 16 / 20 frames,
+# B=1, four aligned levels.  K3 / K4 on components with offsets on the
+# ties, against the plain backward (float32: summation order only; bf16:
+# sums rounded to bf16, one ulp); K1 forward against its plain version and
+# its autograd (the recompute, K3, K4) against the plain recompute fed the
+# plain K3 / K4, as chip_smoke.py's phase 2 holds it (bf16: K1's offsets
+# and weights round to bf16 on both sides, tanh / exp may round across a
+# boundary)
+K1_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol,grad_tol", [(torch.float32, 1e-5, 1e-5),
+                                                (torch.bfloat16, 1e-2, 2e-2)])
+@pytest.mark.parametrize("thw", [(16, 28, 28), (16, 14, 14), (16, 7, 7),
+                                 (20, 8, 8)])
+def test_k1_k3_k4_at_the_tube_grids(card, dtype, tol, grad_tol, thw):
+    g = torch.Generator().manual_seed(sum(thw))
+    shape = (1, 4) + thw + (64,)
+    vol = torch.randn((1, 4) + thw + (256,), generator=g).to(card, dtype)
+    offs = []
+    for _ in range(2):
+        x = torch.rand(shape, generator=g) * 2 - 1
+        pick = torch.rand(shape, generator=g) < 1 / 3
+        x[pick] = torch.randint(-1, 2, shape, generator=g).float()[pick]
+        offs.append(x.to(card, dtype))
+    a = (torch.rand(shape, generator=g) * 0.3).to(card, dtype)
+    grad = torch.randn((1,) + thw + (256,), generator=g).to(card)
+    counters = (fused_blend2d, blend2d_bwd_dvol, blend2d_bwd_dcomps)
+    before = [k.launches for k in counters]
+    got = (blend2d_bwd_dvol(*offs, a, grad, dtype, 8),
+           *blend2d_bwd_dcomps(vol, *offs, a, grad, 8))
+    want = blend2d_backward_reference(vol, *offs, a, grad, 8)
+    for name, x, w in zip(("K3 dvol", "K4 ddx", "K4 ddy", "K4 da"), got, want):
+        _close(x, w, tol, name)
+
+    fused = (2 * torch.randn((1,) + thw + (768,), generator=g)).to(card, dtype)
+    a1 = [vol.clone().requires_grad_(), fused.clone().requires_grad_()]
+    out = fused_blend2d(*a1, 8, 1.0)
+    out.backward(grad)
+    torch.cuda.synchronize()
+    assert [k.launches for k in counters] == [before[0] + 1, before[1] + 2,
+                                              before[2] + 2]
+    _close(out, fused_blend2d_reference(vol, fused, 8, 1.0), K1_TOL[dtype],
+           "K1")
+    f = fused.clone().requires_grad_()
+    comps = fused_components(f, 4)
+    cd = [c.detach() for c in comps]
+    d_fused = torch.autograd.grad(comps, f, blend2d_bwd_dcomps_reference(
+        vol, *cd, grad, 8))[0]
+    _close(a1[0].grad, blend2d_bwd_dvol_reference(*cd, grad, dtype, 8),
+           grad_tol, "K1 d vol")
+    _close(a1[1].grad, d_fused, grad_tol, "K1 d fused")
+

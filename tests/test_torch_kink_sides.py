@@ -12,6 +12,7 @@ from torch import nn
 
 from chip_smoke import KinkSides, hat_codes
 from class_query_vad_tpu_torch.models.backbone import MaxPool2x
+from class_query_vad_tpu_torch.models.deform_encoder import MSDeformAttn3D
 from class_query_vad_tpu_torch.models.fast_encoder import FastDeformAttn3D
 
 TAPS = (-1, 0, 1)
@@ -141,6 +142,47 @@ def test_kink_sides_zero_a_head_lane_crossing_its_tap(cross_level):
     xb[0, 0, 0] = -1e-7
     counts, ga, gb = _matched_grads(model, xa, xb)
     assert counts == {"head lanes": 1}
+    torch.testing.assert_close(ga, gb, rtol=1e-5, atol=1e-6)
+    _, ga, gb = _matched_grads(model, xa, xb, active=False)
+    assert (ga - gb).abs().max() > 1e-3
+
+
+class _Exact(nn.Module):
+    """The exact encoder's attention over a 4x4 and a 2x2 level: every
+    sampling coordinate on a whole pixel (loc * size - 0.5 = 1), and the x
+    offset of token 0's head 0, level 0, point 0 reading channel 0 of the
+    token alone (divided by T = 1, the reference's (T, W, H) normaliser)."""
+
+    SHAPES = ((1, 4, 4), (1, 2, 2))
+
+    def __init__(self):
+        super().__init__()
+        self.attn = MSDeformAttn3D(32, 2, 8, 2)
+        with torch.no_grad():
+            self.attn.sampling_offsets.weight.zero_()
+            self.attn.sampling_offsets.bias.zero_()
+            self.attn.sampling_offsets.weight[0, 0] = 1.0
+        ref = torch.tensor([[1.5 / 4, 1.5 / 4, 0.5], [1.5 / 2, 1.5 / 2, 0.5]])
+        self.register_buffer("ref", ref.expand(1, 20, 2, 3).contiguous())
+        self.register_buffer("cot", torch.randn(1, 20, 32))
+
+    def forward(self, src):
+        out = self.attn(src, self.ref, src, self.SHAPES)
+        return (out * self.cot).sum()
+
+
+def test_kink_sides_zero_a_sampling_coordinate_crossing_a_pixel():
+    """Token 0's x coordinate 1 + 4e-7 floors to 1 in one run, 1 - 4e-7 to
+    0 in the other: its gradient (the trilinear weight's kink) is zeroed on
+    both, and without the matching the two runs differ there."""
+    torch.manual_seed(3)
+    model = _Exact()
+    xa = torch.randn(1, 20, 32)
+    xa[0, 0, 0] = 1e-7
+    xb = xa.clone()
+    xb[0, 0, 0] = -1e-7
+    counts, ga, gb = _matched_grads(model, xa, xb)
+    assert counts == {"trilinear floors": 1}
     torch.testing.assert_close(ga, gb, rtol=1e-5, atol=1e-6)
     _, ga, gb = _matched_grads(model, xa, xb, active=False)
     assert (ga - gb).abs().max() > 1e-3

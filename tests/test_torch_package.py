@@ -1,6 +1,7 @@
 """Guards of the PyTorch port: it imports nothing of JAX or of the JAX
-package, it never falls back silently to the CPU, and its kernel wrapper
-takes only CPU tensors to the plain version.  The kernel-vs-plain checks
+package, it never falls back silently to the CPU, its kernel wrapper
+takes only CPU tensors to the plain version, and every configuration but
+the two CSN ones builds.  The kernel-vs-plain checks
 on a card are in tests/test_torch_cuda.py."""
 
 import ast
@@ -14,8 +15,14 @@ from class_query_vad_tpu.config import get_cfg_custom as jax_get_cfg_custom
 from class_query_vad_tpu.models.spec import spec_from_cfg as jax_spec_from_cfg
 from class_query_vad_tpu_torch.config import get_cfg_custom, get_cfg_defaults
 from class_query_vad_tpu_torch.engine import Trainer
-from class_query_vad_tpu_torch.losses import build_criterion_and_postprocessor, build_matcher
+from class_query_vad_tpu_torch.losses import (
+    build_criterion_and_postprocessor,
+    build_matcher,
+    postprocess_ava,
+    postprocess_frames,
+)
 from class_query_vad_tpu_torch.models import build_model
+from class_query_vad_tpu_torch.models.deform_encoder import MSDeformAttn3D
 from class_query_vad_tpu_torch.models.detr import randomize_constants
 from class_query_vad_tpu_torch.models.fast_encoder import FastDeformAttn3D
 from class_query_vad_tpu_torch.models.spec import spec_from_cfg
@@ -205,13 +212,18 @@ def test_unported_training_options_raise():
         model(pixels, mask)                  # eval: no remat to do
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             model.train()(pixels, mask)
-    for name in ("ucf", "jhmdb"):
+    # the tube datasets' matchers and criteria are ported (step 11)
+    for name in ("ava", "ucf", "jhmdb"):
         cfg = _tiny_cfg()
         cfg.CONFIG.DATA.DATASET_NAME = name
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_matcher(cfg)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_criterion_and_postprocessor(cfg, None)
+        crit, post, weights = build_criterion_and_postprocessor(
+            cfg, build_matcher(cfg))
+        assert callable(crit) and sorted(weights) == [
+            "loss_bbox", "loss_ce", "loss_ce_b", "loss_giou"]
+        assert post is (postprocess_ava if name == "ava" else postprocess_frames)
+    cfg.CONFIG.DATA.DATASET_NAME = "kinetics"
+    with pytest.raises(ValueError, match="unknown dataset"):
+        build_matcher(cfg)
 
 
 def test_randomize_constants_gives_nonzero_class_logits():
@@ -240,9 +252,14 @@ def test_unported_modes_raise():
     # takes K1's fused route, which is radius 1 only
     attn = FastDeformAttn3D(radius=2, window="2d", cross_level="resample")
     assert attn.nc == 2 and not attn.fused_route and attn.radius == 2
+    # the exact encoder is ported (step 12): it builds; an unknown
+    # encoder type raises as in JAX
     cfg = _tiny_cfg()
     cfg.CONFIG.MODEL.ENCODER_TYPE = "attention"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    attn = build_model(cfg, device="cpu").transformer.encoder.layers[0].self_attn
+    assert isinstance(attn, MSDeformAttn3D)
+    cfg.CONFIG.MODEL.ENCODER_TYPE = "dense"
+    with pytest.raises(ValueError, match="ENCODER_TYPE"):
         build_model(cfg, device="cpu")
 
 
@@ -260,7 +277,9 @@ def test_native_mode_guards_raise_value_error_as_jax(window):
 
 @pytest.mark.parametrize("yaml", ["AVA22_ViT-B_fast.yaml", "AVA22_ViT-B.yaml",
                                   "AVA22_ViT-B_fast_native.yaml",
-                                  "UCF_ViT-B_fast.yaml",
+                                  "UCF_ViT-B_fast.yaml", "UCF_ViT-B.yaml",
+                                  "JHMDB_ViT-B.yaml", "JHMDB_ViT-B_fast.yaml",
+                                  "AVA22_ViT-B-train-mamba.yaml",
                                   "AVA22_train-mamba_VSS.yaml"])
 def test_config_copy_reads_yaml_like_the_jax_package(yaml):
     path = str(REPO / "configuration" / yaml)
@@ -304,12 +323,56 @@ def test_mamba_family_is_eval_only():
 
 def test_videomamba_with_the_exact_encoder_raises():
     """AVA22_ViT-B-train-mamba.yaml: VideoMamba with the exact deformable
-    encoder, which waits on ROADMAP step 12."""
+    encoder builds and serves since step 12; its ``train()`` still raises,
+    naming step 19 (training the Mamba family)."""
     cfg = get_cfg_custom(str(REPO / "configuration" /
                              "AVA22_ViT-B-train-mamba.yaml"))
     assert spec_from_cfg(cfg).is_mamba
     assert spec_from_cfg(cfg).encoder_type == "attention"
-    with pytest.raises(NotImplementedError, match="step 12"):
+    _cut(cfg)
+    model = build_model(cfg, device="cpu", input_hw=(64, 64))
+    pixels = torch.zeros((1, 8, 64, 64, 3))
+    mask = torch.zeros((1, 64, 64), dtype=torch.bool)
+    with torch.no_grad():
+        out = model(pixels, mask)
+        assert out["pred_boxes"].shape == (1, 2, 4)
+        with pytest.raises(NotImplementedError, match="step 19"):
+            model.train()(pixels, mask)
+
+
+def _cut(cfg):
+    """A YAML's configuration at a tiny depth: ViT depth 1, one encoder and
+    one decoder layer, d_ffn 32, 2 queries, 8 frames."""
+    c = cfg.CONFIG
+    c.DATA.TEMP_LEN, c.MODEL.TEMP_LEN = 8, 8
+    c.ViT.DEPTH = 1
+    c.MODEL.ENC_LAYERS, c.MODEL.DEC_LAYERS = 1, 1
+    c.MODEL.DIM_FEEDFORWARD, c.MODEL.QUERY_NUM = 32, 2
+    return cfg
+
+
+YAMLS = sorted(p.name for p in (REPO / "configuration").glob("*.yaml"))
+CSN_YAMLS = ("AVA22_CSN152.yaml", "AVA22_CSN50.yaml")
+
+
+@pytest.mark.parametrize("yaml", [y for y in YAMLS if y not in CSN_YAMLS])
+def test_every_non_csn_yaml_builds_and_serves_on_the_cpu(yaml):
+    cfg = _cut(get_cfg_custom(str(REPO / "configuration" / yaml)))
+    model = build_model(cfg, device="cpu", input_hw=(64, 64))
+    with torch.no_grad():
+        out = model(torch.zeros((1, 8, 64, 64, 3)),
+                    torch.zeros((1, 64, 64), dtype=torch.bool))
+    nc = cfg.CONFIG.DATA.NUM_CLASSES
+    lead = (1, 2) if cfg.CONFIG.MODEL.SINGLE_FRAME else (1, 8, 2)
+    assert out["pred_logits"].shape == lead + (nc,)
+    assert all(bool(torch.isfinite(out[k]).all())
+               for k in ("pred_logits", "pred_boxes", "pred_logits_b"))
+
+
+@pytest.mark.parametrize("yaml", CSN_YAMLS)
+def test_csn_yamls_raise_naming_step_13(yaml):
+    cfg = _cut(get_cfg_custom(str(REPO / "configuration" / yaml)))
+    with pytest.raises(NotImplementedError, match="step 13"):
         build_model(cfg, device="cpu")
 
 

@@ -154,3 +154,48 @@ def tiny_vss_cfg(cfg):
     c.MODEL.QUERY_NUM = 4
     c.MAMBA.OUT_CHANNELS.videomamba_tiny = 48
     return cfg
+
+
+CONFIG_DIR = Path(__file__).resolve().parents[1] / "configuration"
+
+
+def cut_cfg(cfg, temp_len: int = 8, enc_layers: int = 2, dec_layers: int = 2,
+            queries: int = 3):
+    """A YAML's configuration cut to the parity tests' size, on a config
+    tree of either package: ViT depth 1, ``enc_layers`` + ``dec_layers``
+    layers, d_ffn 64, ``queries`` queries, ``temp_len`` frames, float32
+    encoder and decoder, no ViT checkpointing; the widths (ViT-B, D_MODEL,
+    heads, levels, points, classes) stay the YAML's."""
+    c = cfg.CONFIG
+    c.DATA.TEMP_LEN = temp_len
+    c.MODEL.TEMP_LEN = temp_len
+    c.ViT.DEPTH = 1
+    c.ViT.USE_CHECKPOINT = False
+    c.MODEL.ENC_LAYERS = enc_layers
+    c.MODEL.DEC_LAYERS = dec_layers
+    c.MODEL.DIM_FEEDFORWARD = 64
+    c.MODEL.QUERY_NUM = queries
+    c.MODEL.FAST_DTYPE = "float32"
+    c.MODEL.DECODER_DTYPE = "float32"
+    return cfg
+
+
+def tube_targets(seed: int, b: int, t: int, a_slots: int = 2,
+                 num_classes: int = 24, front_pad=(2, 0), end_pad=(0, 1),
+                 n_actors=(2, 1)):
+    """Seeded tube targets as the loader packs them (boxes [B, A, T, 4],
+    labels [B, A, T], frame_valid [B, T], n_actors [B]): clip i has
+    ``front_pad[i]`` / ``end_pad[i]`` padded frames; slot 0 is live over
+    part of the clip, with empty (zero) boxes elsewhere; slot 1 is live in
+    every other frame, as are the slots after it; slots >= n_actors are
+    loader padding."""
+    rng = np.random.default_rng(seed)
+    boxes = rng.uniform(0.25, 0.6, (b, a_slots, t, 4)).astype(np.float32)
+    labels = rng.integers(0, num_classes, (b, a_slots, t)).astype(np.int64)
+    boxes[:, 0, : t // 4] = 0.0
+    boxes[:, 1:, ::2] = 0.0
+    frame_valid = np.zeros((b, t), bool)
+    for i in range(b):
+        frame_valid[i, front_pad[i] : t - end_pad[i]] = True
+    return {"boxes": boxes, "labels": labels, "frame_valid": frame_valid,
+            "n_actors": np.array(n_actors[:b], np.int32)}
