@@ -41,8 +41,9 @@ NVIDIA card.
    peak memory, stage shares, the host LSAP's ms.  Then the encoder's
    components route (NUM_ENC_N_POINTS 4) takes 2 steps: 24 launches each of
    K2, K3 and K4 per step.
-6. One float32 train step of the full-width model on the card and on the
-   CPU, same weights and batch, dropout off: the same matcher assignment,
+6. One float32 train step of the full-width model (its ViT at
+   ``MAIN_TRAIN_CPU_VIT_DEPTH``, 4, of 12 blocks for the CPU's time) on the
+   card and on the CPU, same weights and batch, dropout off: the same matcher assignment,
    the loss and every parameter's gradient agree.  Both forwards run
    first; the few activations that the two put on two sides of a kink (a
    ReLU's 0, a max pool's argmax, a blend tap's hat) get their gradient
@@ -79,8 +80,8 @@ NVIDIA card.
    (plain version), B=1: all three heads must agree.
 13. Its ``FAST_WINDOW: 3d`` variant (no slice: the encoder runs over all 8
    backbone frames): 3 bf16 requests with 24 K11 launches per forward,
-   then the float32 card-vs-CPU check, at 2 encoder layers (the CPU's
-   plain 3d blend takes minutes at 6).
+   then the float32 card-vs-CPU check, at ``NATIVE_3D_CPU_LAYERS`` (1)
+   encoder layer (the CPU's plain 3d blend takes minutes at 6).
 14. K6 (the 27-tap (x, y, t) blend of the resample mode's 3d window; the
    same CUDA kernel serves the TPU's K7), K8 (its d vol) and K9 (its d
    components) against their plain versions, offsets on exact ties
@@ -102,7 +103,7 @@ NVIDIA card.
    24 launches each of K6, K8 and K9 per step and of no other kernel;
    median ms/step, peak memory, stage shares, busy share.
 18. One float32 train step of the 3d model on the card and on the CPU, at
-   2 of the YAML's 6 encoder layers (``RESAMPLE_3D_TRAIN_CPU_LAYERS``; 8
+   1 of the YAML's 6 encoder layers (``RESAMPLE_3D_TRAIN_CPU_LAYERS``; 4
    launches each of K6, K8, K9): the same assignment, loss and gradients,
    as in phase 6.
 19. K12 (the ViT's softmax attention from fused qkv) against its plain
@@ -128,8 +129,8 @@ NVIDIA card.
    phase above checks that they launch 0 times.
 23. ``AVA22_ViT-B_fast`` with ``FAST_RADIUS 2`` (the general-radius blend,
    plain PyTorch) in the 2d and the 3d window: one timed bf16 request at
-   full width with no kernel launched, then float32 card vs CPU (at 2 of
-   the 6 encoder layers in the 2d window, 1 in the 3d).
+   full width with no kernel launched, then float32 card vs CPU (at 1 of
+   the 6 encoder layers in either window).
 24. ``AVA22_ViT-B_fast_native`` trains: 1 + 4 full-width bf16 B=1 steps
    through ``Trainer`` in the 2d and the 3d window (24 K10 or K11 launches
    per step and no other kernel: the backward is the plain version's
@@ -140,7 +141,8 @@ NVIDIA card.
    attention``: its sampler plain PyTorch, as in JAX, no kernel) at full
    width serves 3 bf16 requests of [2, 16, 256, 320, 3] (the encoder in
    float32) with no kernel launched: ms/batch, peak memory, stage events,
-   busy share; then the float32 heads card vs CPU at B=1, 6 layers.
+   busy share; then the float32 heads card vs CPU at B=1,
+   ``EXACT_FWD_CPU_LAYERS`` (2) of 6 layers.
 26. Its train path: 1 + 4 full-width bf16 B=1 steps (no kernel), non-zero
    gradients into every encoder layer's value / offset / weight
    projections; then one float32 train step card vs CPU at
@@ -158,11 +160,37 @@ NVIDIA card.
 29. ``UCF_ViT-B`` (32x224x224) and ``JHMDB_ViT-B`` (40x256x256, 108,800
    encoder tokens): the exact encoder over every frame, 3 layers; one
    timed request each and 1 + 2 train steps, no kernel; then UCF's
-   float32 forward card vs CPU at its 3 layers and its train step at
-   ``UCF_EXACT_TRAIN_CPU_LAYERS``.
+   float32 forward card vs CPU at ``UCF_EXACT_FWD_CPU_LAYERS`` (2) of its
+   3 layers and its train step at
+   ``UCF_EXACT_TRAIN_CPU_LAYERS`` and ``UCF_EXACT_TRAIN_CPU_DEC_LAYERS``.
 30. ``AVA22_ViT-B-train-mamba`` (VideoMamba-tiny with the exact encoder,
    one level) serves 3 bf16 B=2 requests, 48 K5 launches per forward;
    then the float32 heads card vs CPU at B=1.
+31. The eval loop as ``python -m class_query_vad_tpu_torch.evaluate`` runs
+   it, on ``AVA22_ViT-B_fast`` at full width in bf16: a ``SyntheticClips``
+   AVA dataset (items shaped as the datasets' ``__getitem__``, nothing
+   decoded) packed by the port's ``DataLoader`` into 4 batches of B=2 on a
+   256x320 canvas; the seeded weights through ``save_checkpoint`` ->
+   ``load_pretrained_params`` into a fresh model (bit for bit); then
+   ``run_validation`` with the criterion and bf16 pixel shipping: 24 K1
+   launches per batch and no other kernel, the detection rows equal to
+   phase 3's ``serve`` + ``postprocess_ava`` on the same batches, finite
+   eval losses, an mAP in [0, 1]; the loop's ms/batch with and without
+   the criterion (interleaved rounds: median, min, max) beside phase 3's,
+   the card's idle share over the loop (the trace held to its 24 K1
+   launches per batch), the save / load seconds.
+32. The tube loop: ``UCF_ViT-B_fast`` over 2 batches of B=1, 32x224x224,
+   through ``buffer_frames`` and the UCF evaluator: 12 K1 launches per
+   batch, a finite video mAP.
+33. The train CLI's loop: ``AVA22_ViT-B_fast`` bf16, B=1, GRAD_ACCUM 1,
+   dropout on: 3 uninterrupted ``Trainer.step``s against 2 steps,
+   ``save_checkpoint``, ``load_checkpoint`` into a fresh model and trainer
+   and 1 step: masters, AdamW state and RNG streams restored exactly, the
+   third step's loss within 1e-4, 24 launches each of K1, K3, K4 per step.
+
+Each phase's seconds are printed on a line of their own (``[seconds]``).
+The float32 card-vs-CPU train checks of phases 18, 24, 26 and 29 run the
+ViT at ``CPU_TRAIN_VIT_DEPTH`` (1) of its 12 blocks, for the CPU's time.
 
 Every phase raises on failure (exit code != 0).  The last two lines are a
 JSON object of per-kernel numbers and ``{"ok": true, "device": ...}``.
@@ -171,6 +199,7 @@ Exits non-zero, printing no result, when no CUDA device is present.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -218,6 +247,14 @@ def check(ok: bool, what: str) -> None:
     """Fail the run (an ``assert`` would vanish under ``python -O``)."""
     if not ok:
         raise RuntimeError(what)
+
+
+@contextlib.contextmanager
+def phase_seconds(label: str):
+    """Print the seconds the block took, on a line of its own."""
+    t0 = time.perf_counter()
+    yield
+    print(f"[seconds] {label}: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def card_info():
@@ -679,6 +716,37 @@ def trace_holds(device_rows, expected: dict) -> str:
     return ", ".join(held)
 
 
+def profiled_busy(fn, wall_ms: float, expected: dict, tag: str,
+                  per: int = 1, unit: str = "forward", rows: int = 0) -> float:
+    """Run ``fn()`` once under torch.profiler and print the card's busy ms
+    per ``unit`` (the device rows' self time over ``per`` units), its
+    share of ``wall_ms`` (the unprofiled median ms per ``unit``), and how
+    many of ``expected``'s launches (by wrapper, over the whole run) the
+    trace holds; ``rows``: the profiler's top rows to print first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    if rows:
+        print(events.table(sort_by="self_cuda_time_total", row_limit=rows,
+                           max_name_column_width=60))
+    # device-side rows only (an aten op's "self CUDA" repeats its kernels'),
+    # as the table's "Self CUDA time total" counts them
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in device) / 1e3 / per
+    print(f"{tag}device busy {busy:.2f} ms per {unit} (profiled) = "
+          f"{busy / wall_ms:.1%} of the median {wall_ms:.2f} ms per {unit}; "
+          f"idle share {1 - busy / wall_ms:.1%}; the profiler's own "
+          f"'Activity Buffer Request' row is "
+          f"{'in' if any(e.key == 'Activity Buffer Request' for e in device) else 'not in'}"
+          f" the busy sum; the trace holds launches "
+          f"{trace_holds(device, expected)}")
+    return busy
+
+
 def model_stages(model) -> dict:
     """The forward's stages by name: the backbone's (the ViT body and the
     whole backbone, or VideoMamba and ``mamba_proj``), the encoder, the
@@ -736,27 +804,8 @@ def stage_breakdown(model, pixels, mask, dev, wall_ms: float, iters: int = 5,
     for k, evs in events.items():
         ms = statistics.mean(a.elapsed_time(b) for a, b in evs)
         print(f"  {k:30s} {ms:8.2f} ms  {ms / fwd:6.1%}")
-
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        serve(model, pixels, mask, dev)
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    print(events.table(sort_by="self_cuda_time_total", row_limit=20,
-                       max_name_column_width=60))
-    # device-side rows only (an aten op's "self CUDA" repeats its kernels'),
-    # as the table's "Self CUDA time total" counts them
-    device = [e for e in events if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in device) / 1e3
-    print(f"{tag}device busy {busy:.2f} ms per forward (profiled) = "
-          f"{busy / wall_ms:.1%} of the median {wall_ms:.2f} ms/batch; "
-          f"idle share {1 - busy / wall_ms:.1%}; the profiler's own "
-          f"'Activity Buffer Request' row is "
-          f"{'in' if any(e.key == 'Activity Buffer Request' for e in device) else 'not in'}"
-          f" the busy sum; the trace holds launches "
-          f"{trace_holds(device, expected)}")
+    profiled_busy(lambda: serve(model, pixels, mask, dev), wall_ms, expected,
+                  tag, rows=20)
 
 
 def phase_main_path(dev, counters):
@@ -811,7 +860,7 @@ def phase_main_path(dev, counters):
     stage_breakdown(model, pixels, mask, dev, med)
     del model
     torch.cuda.empty_cache()
-    return launches
+    return launches, med
 
 
 def phase_in_model(dev, config: str = CONFIG, opts=(), tag: str = "",
@@ -1039,9 +1088,6 @@ def train_breakdown(trainer, batch, wall_ms: float, kernels,
     ``profile_step``, the card's busy share of the median ms/step
     (torch.profiler's device rows, which should hold ``per_step`` launches
     of each of ``kernels``)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     x = {k: torch.as_tensor(v).to(trainer.device) for k, v in batch.items()}
     marks = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
     host = []
@@ -1077,18 +1123,9 @@ def train_breakdown(trainer, batch, wall_ms: float, kernels,
         print("  (no profiled step: the trace of the native mode's eager "
               "plain backward took minutes; busy share not measured)")
         return
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        trainer.step(batch)
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    print(events.table(sort_by="self_cuda_time_total", row_limit=15,
-                       max_name_column_width=60))
-    device = [e for e in events if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in device) / 1e3
-    held = trace_holds(device, {k: per_step for k in kernels})
-    print(f"train step: device busy {busy:.2f} ms (profiled) = "
-          f"{busy / wall_ms:.1%} of the median {wall_ms:.2f} ms/step; idle "
-          f"share {1 - busy / wall_ms:.1%}; the trace holds launches {held}")
+    profiled_busy(lambda: trainer.step(batch), wall_ms,
+                  {k: per_step for k in kernels}, "train step: ", unit="step",
+                  rows=15)
 
 
 def phase_components_route(dev, counters):
@@ -2216,19 +2253,20 @@ def phase_eval_variant(dev, counters, config: str, window: str, kernel: str,
                        ["CONFIG.MODEL.FAST_WINDOW", window], {kernel: 24})[0]
 
 
-# phase 13's card-vs-CPU check runs at 2 of the YAML's 6 encoder layers:
+# phase 13's card-vs-CPU check runs at 1 of the YAML's 6 encoder layers:
 # on the CPU the plain 3d blend over 8 frames is the slow part (the CPU
-# forward took 113.7 s at 6 layers on the 8 host cores beside an H100)
-NATIVE_3D_CPU_LAYERS = 2
+# forward took 113.7 s at 6 layers on the 8 host cores beside an H100,
+# 10.8 s at 2)
+NATIVE_3D_CPU_LAYERS = 1
 
 
 # the 3d resample window's train path: 1 + 4 steps
 RESAMPLE_3D_TRAIN_STEPS = 5
-# its float32 train step card vs CPU: 2 of the YAML's 6 encoder layers, for
+# its float32 train step card vs CPU: 1 of the YAML's 6 encoder layers, for
 # the script's time limit (the CPU's step took 153.7 s at 6 layers on the 8
-# host cores beside an H100; the exact encoder's and the tubes' phases
-# need that time)
-RESAMPLE_3D_TRAIN_CPU_LAYERS = 2
+# host cores beside an H100, 29.3 s at 2 with 2 ViT blocks; the later
+# phases need that time)
+RESAMPLE_3D_TRAIN_CPU_LAYERS = 1
 
 
 # ---- K12 (ViT attention), K13 (fused FFN): no model path calls them, as in
@@ -2588,7 +2626,7 @@ RADIUS2_OPTS = {w: ["CONFIG.MODEL.FAST_RADIUS", 2, "CONFIG.MODEL.FAST_WINDOW", w
 # the card-vs-CPU checks' encoder depth, cut from the YAML's 6 for the
 # CPU's time: the plain blend takes (2R+1)^3 = 125 shifts per level under
 # the 3d window
-RADIUS2_CPU_LAYERS = {"2d": 2, "3d": 1}
+RADIUS2_CPU_LAYERS = {"2d": 1, "3d": 1}
 
 
 def phase_radius2(dev, counters, window: str):
@@ -2643,7 +2681,8 @@ def phase_radius2(dev, counters, window: str):
     return times[1]
 
 
-# ---- the native train step at full width (B=1 bf16) and card vs CPU
+# ---- the native train step at full width (B=1 bf16) and card vs CPU: 1 +
+# 4 steps (its backward is the plain version's VJP, 2-5 s per step)
 NATIVE_TRAIN_STEPS = 5
 # the float32 native-2d train step's card-vs-CPU check: 2 of the YAML's 6
 # encoder layers, for the CPU's time (its step took 31.9 s at 2 layers on
@@ -2669,9 +2708,22 @@ EXACT_TRAIN_STEPS = 5
 TUBE_EXACT_TRAIN_STEPS = 3
 # the float32 card-vs-CPU train checks' encoder depth, cut from the YAML's
 # 6 (AVA22_ViT-B) and 3 (UCF_ViT-B) for the CPU's time: the plain sampler's
-# corner weights and their backward over 54,400 / 66,640 tokens per layer
-EXACT_TRAIN_CPU_LAYERS = 2
+# corner weights and their backward over 54,400 / 66,640 tokens per layer;
+# UCF's decoder (3 layer pairs over 32 frames) cut to 2 pairs; and the
+# float32 forward checks' (phases 25, 29)
+EXACT_TRAIN_CPU_LAYERS = 1
 UCF_EXACT_TRAIN_CPU_LAYERS = 1
+UCF_EXACT_TRAIN_CPU_DEC_LAYERS = 2
+EXACT_FWD_CPU_LAYERS = 2
+UCF_EXACT_FWD_CPU_LAYERS = 2
+# the ViT depth of the card-vs-CPU train checks of phases 18, 24, 26 and 29,
+# cut from 12 blocks for the CPU's time (the whole script must end well
+# inside its 1200 s; it took 853-927 s on an H100 before); phase 6, the main
+# path's, keeps 4 (``MAIN_TRAIN_CPU_VIT_DEPTH``).  The blocks left are the
+# same code at the same width, the FPN and everything after it unchanged
+CPU_TRAIN_VIT_DEPTH = 1
+CPU_TRAIN_VIT = ["CONFIG.ViT.DEPTH", CPU_TRAIN_VIT_DEPTH]
+MAIN_TRAIN_CPU_VIT_DEPTH = 4
 
 
 def phase_tube_grid_kernels(dev, bw, peak):
@@ -2755,56 +2807,520 @@ def phase_exact_and_tubes(dev, counters, bw, peak):
     exact encoder served (K5), card vs CPU.  Returns the tube grids'
     kernel times and the new paths' launches."""
     zero = {c.__name__: 0 for c in counters}
-    t0 = time.perf_counter()
     # 25: no hand kernel on the exact ViT path, as in the JAX package
-    phase_serve(dev, counters, EXACT_CONFIG, "exact", (51, 52, 53))
-    cpu_s = phase_in_model(dev, EXACT_CONFIG, tag="exact ")
-    print(f"exact card-vs-CPU forward at the YAML's 6 encoder layers; its "
-          f"CPU forward {cpu_s:.1f} s")
-    # 26
-    phase_train(dev, counters, steps=EXACT_TRAIN_STEPS, tag="exact ",
-                config=EXACT_CONFIG, kernels=())
-    phase_train_card_vs_cpu(
-        dev, ["CONFIG.MODEL.ENC_LAYERS", EXACT_TRAIN_CPU_LAYERS], "exact ",
-        counters, zero, EXACT_CONFIG)
-    print(f"phases 25-26 (AVA22_ViT-B): {time.perf_counter() - t0:.1f} s")
-    # 27
-    tube, tube_err = phase_tube_grid_kernels(dev, bw, peak)
+    with phase_seconds("phase 25 (AVA22_ViT-B served, card vs CPU)"):
+        phase_serve(dev, counters, EXACT_CONFIG, "exact", (51, 52, 53))
+        cpu_s = phase_in_model(
+            dev, EXACT_CONFIG, ["CONFIG.MODEL.ENC_LAYERS",
+                                EXACT_FWD_CPU_LAYERS], tag="exact ")
+    print(f"exact card-vs-CPU forward at {EXACT_FWD_CPU_LAYERS} of the "
+          f"YAML's 6 encoder layers; its CPU forward {cpu_s:.1f} s")
+    with phase_seconds("phase 26 (its train path, card vs CPU)"):
+        phase_train(dev, counters, steps=EXACT_TRAIN_STEPS, tag="exact ",
+                    config=EXACT_CONFIG, kernels=())
+        phase_train_card_vs_cpu(
+            dev, ["CONFIG.MODEL.ENC_LAYERS", EXACT_TRAIN_CPU_LAYERS,
+                  *CPU_TRAIN_VIT], "exact ", counters, zero, EXACT_CONFIG)
+    with phase_seconds("phase 27 (K1, K3, K4 at the tube grids)"):
+        tube, tube_err = phase_tube_grid_kernels(dev, bw, peak)
     # 28: 3 encoder layers x 4 query grids
-    t0 = time.perf_counter()
-    ucf_eval, _ = phase_serve(dev, counters, TUBE_CONFIGS["UCF_ViT-B_fast"],
-                              "UCF fast", (61, 62, 63),
-                              expected={"fused_blend2d": 12}, b=1)
-    ucf_train = phase_train(dev, counters, steps=5, tag="UCF fast ",
-                            config=TUBE_CONFIGS["UCF_ViT-B_fast"], per_step=12)
+    with phase_seconds("phase 28 (UCF_ViT-B_fast served and trained)"):
+        ucf_eval, _ = phase_serve(
+            dev, counters, TUBE_CONFIGS["UCF_ViT-B_fast"], "UCF fast",
+            (61, 62, 63), expected={"fused_blend2d": 12}, b=1)
+        ucf_train = phase_train(dev, counters, steps=5, tag="UCF fast ",
+                                config=TUBE_CONFIGS["UCF_ViT-B_fast"],
+                                per_step=12)
     # 29: the exact encoder over every frame, 3 layers
-    for key, seed in (("UCF_ViT-B", 71), ("JHMDB_ViT-B", 73)):
-        phase_serve(dev, counters, TUBE_CONFIGS[key], f"{key} exact",
-                    (seed,), b=1, iters=3)
-        phase_train(dev, counters, steps=TUBE_EXACT_TRAIN_STEPS,
-                    tag=f"{key} exact ", config=TUBE_CONFIGS[key], kernels=())
-    cpu_s = phase_in_model(dev, TUBE_CONFIGS["UCF_ViT-B"], tag="UCF exact ")
-    print(f"UCF exact card-vs-CPU forward at the YAML's 3 encoder layers; "
-          f"its CPU forward {cpu_s:.1f} s")
-    phase_train_card_vs_cpu(
-        dev, ["CONFIG.MODEL.ENC_LAYERS", UCF_EXACT_TRAIN_CPU_LAYERS],
-        "UCF exact ", counters, zero, TUBE_CONFIGS["UCF_ViT-B"])
-    print(f"phases 28-29 (the tube configs): {time.perf_counter() - t0:.1f} s")
+    with phase_seconds("phase 29 (UCF_ViT-B, JHMDB_ViT-B; UCF card vs CPU)"):
+        for key, seed in (("UCF_ViT-B", 71), ("JHMDB_ViT-B", 73)):
+            phase_serve(dev, counters, TUBE_CONFIGS[key], f"{key} exact",
+                        (seed,), b=1, iters=3)
+            phase_train(dev, counters, steps=TUBE_EXACT_TRAIN_STEPS,
+                        tag=f"{key} exact ", config=TUBE_CONFIGS[key],
+                        kernels=())
+        cpu_s = phase_in_model(
+            dev, TUBE_CONFIGS["UCF_ViT-B"], ["CONFIG.MODEL.ENC_LAYERS",
+                                             UCF_EXACT_FWD_CPU_LAYERS],
+            tag="UCF exact ")
+        print(f"UCF exact card-vs-CPU forward at {UCF_EXACT_FWD_CPU_LAYERS} "
+              f"of the YAML's 3 encoder layers; its CPU forward "
+              f"{cpu_s:.1f} s")
+        phase_train_card_vs_cpu(
+            dev, ["CONFIG.MODEL.ENC_LAYERS", UCF_EXACT_TRAIN_CPU_LAYERS,
+                  "CONFIG.MODEL.DEC_LAYERS", UCF_EXACT_TRAIN_CPU_DEC_LAYERS,
+                  *CPU_TRAIN_VIT], "UCF exact ", counters, zero,
+            TUBE_CONFIGS["UCF_ViT-B"])
     # 30: VideoMamba (48 K5 scans) + the exact encoder, eval
-    t0 = time.perf_counter()
-    mamba, _ = phase_serve(dev, counters, MAMBA_EXACT_CONFIG,
-                           "VideoMamba + exact", (81, 82, 83),
-                           expected={"selective_scan": 48})
-    phase_in_model(dev, MAMBA_EXACT_CONFIG, tag="VideoMamba + exact ",
-                   tol=VSS_MODEL_TOL)
-    print(f"phase 30 (AVA22_ViT-B-train-mamba): "
-          f"{time.perf_counter() - t0:.1f} s")
+    with phase_seconds("phase 30 (AVA22_ViT-B-train-mamba, card vs CPU)"):
+        mamba, _ = phase_serve(dev, counters, MAMBA_EXACT_CONFIG,
+                               "VideoMamba + exact", (81, 82, 83),
+                               expected={"selective_scan": 48})
+        phase_in_model(dev, MAMBA_EXACT_CONFIG, tag="VideoMamba + exact ",
+                       tol=VSS_MODEL_TOL)
     launches = {
         "UCF_ViT-B_fast eval, 3 requests": ucf_eval,
         "UCF_ViT-B_fast train, 5 steps": ucf_train,
         "AVA22_ViT-B-train-mamba eval, 3 requests": mamba,
     }
     return tube, tube_err, launches
+
+
+# ---- the eval loop, checkpoints and the train CLI's loop (phases 31-33)
+# phase 31: the AVA eval loop over 4 batches of B=2 clips of 16x256x320 (the
+# second clip of each pair 288 wide, padded on the canvas); phase 32: the
+# UCF loop over 2 batches of B=1, 32x224x224
+LOOP_BATCHES = 4
+LOOP_CANVAS = (256, 320)
+LOOP_WIDTHS = (320, 288)
+TUBE_LOOP_BATCHES = 2
+TUBE_LOOP_CANVAS = (224, 224)
+# phase 31's timing rounds, each one loop with the criterion and one
+# without, interleaved
+LOOP_REPS = 6
+# phase 33: 2 steps, a checkpoint, 1 step of a resumed trainer, against 3
+# uninterrupted steps
+RESUME_STEPS = 3
+
+
+class SyntheticClips:
+    """An in-memory dataset of ``n`` items shaped as the port's datasets'
+    ``__getitem__(index, rng)`` returns them, with nothing decoded (the
+    card's machine has no PIL): a normalized clip [T, h, w, 3] float32 and
+    its target.  AVA: keyframe boxes (the keyframe index, then normalized
+    cxcywh), ``raw_boxes`` in pixels, 80-class multi-hot labels, ``size``.
+    UCF: tube targets over the clip's frames (one actor, live inside the
+    clip, background frames label ``NUM_CLASSES``), front / end pads.
+    Every item is drawn from ``seed`` once, in the constructor, so that the
+    loop does not time the drawing."""
+
+    def __init__(self, cfg, n: int, seed: int, widths):
+        d = cfg.CONFIG.DATA
+        t, nc, h = d.TEMP_LEN, d.NUM_CLASSES, int(d.CANVAS[0])
+        rng = np.random.default_rng(seed)
+        self.items = []
+        for i in range(n):
+            w = widths[i % len(widths)]
+            clip = rng.standard_normal((t, h, w, 3), np.float32)
+            if d.DATASET_NAME == "ava":
+                self.items.append((clip, self._ava(rng, i, t, h, w, nc)))
+            else:
+                self.items.append((clip, self._tube(rng, i, t, h, w, nc)))
+
+    @staticmethod
+    def _ava(rng, i, t, h, w, nc):
+        n = 2 + i % 3
+        xy = rng.uniform(0.05, 0.45, (n, 2))
+        xyxy = np.concatenate([xy, xy + rng.uniform(0.2, 0.5, (n, 2))], 1)
+        xyxy = (np.minimum(xyxy, 1.0) * [w, h, w, h]).astype(np.float32)
+        cxcywh = np.concatenate([(xyxy[:, :2] + xyxy[:, 2:]) / 2,
+                                 xyxy[:, 2:] - xyxy[:, :2]], 1) / [w, h, w, h]
+        labels = (rng.random((n, nc)) < 0.05).astype(np.float32)
+        labels[np.arange(n), rng.integers(0, nc, n)] = 1.0
+        p_t = t // 2
+        return {"image_id": [f"vid{i:03d}_{902 + i:04d}", p_t],
+                "boxes": np.concatenate([np.full((n, 1), p_t), cxcywh],
+                                        1).astype(np.float32),
+                "raw_boxes": np.concatenate(
+                    [np.full((n, 1), i), np.full((n, 1), p_t), xyxy],
+                    1).astype(np.float32),
+                "labels": labels, "orig_size": np.array([h, w]),
+                "size": np.array([h, w])}
+
+    @staticmethod
+    def _tube(rng, i, t, h, w, nc):
+        fp, ep = (2, 0) if i % 2 == 0 else (0, 3)
+        frames = i * t + np.arange(1, t + 1)
+        xy = rng.uniform(0.1, 0.4, 2) * [w, h] + np.cumsum(
+            rng.normal(0, 1.0, (t, 2)), 0)
+        xyxy = np.concatenate([xy, xy + [0.3 * w, 0.4 * h]], 1)
+        label = int(rng.integers(0, nc))
+        labels = np.full(t, label, np.int64)
+        labels[:fp] = nc
+        labels[t - ep:] = nc
+        cxcywh = np.concatenate([(xyxy[:, :2] + xyxy[:, 2:]) / 2,
+                                 xyxy[:, 2:] - xyxy[:, :2]], 1) / [w, h, w, h]
+        return {"image_id": [f"Cls_v_{i:04d}"],
+                "boxes": np.concatenate([frames[:, None], cxcywh],
+                                        1).astype(np.float32),
+                "raw_boxes": np.concatenate(
+                    [np.full((t, 1), i), frames[:, None], xyxy],
+                    1).astype(np.float32),
+                "labels": labels, "front_pad": fp, "end_pad": ep,
+                "orig_size": np.array([h, w]), "size": np.array([h, w])}
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, index, rng=None):
+        clip, target = self.items[index]
+        return clip, dict(target)
+
+
+def write_labelmap(path: str) -> str:
+    """An AVA-style pbtxt label map: 60 of the 80 class ids, as AVA v2.2
+    evaluates (the evaluator's whitelist at ``NUM_CLASSES`` 80)."""
+    ids = [i for i in range(1, 81) if i % 4]
+    with open(path, "w") as f:
+        f.writelines(f'item {{\n  name: "action {i}"\n  id: {i}\n}}\n'
+                     for i in ids)
+    return path
+
+
+def loop_cfg(config: str, tmp: str, canvas, batch: int):
+    from class_query_vad_tpu_torch.config import get_cfg_custom
+
+    cfg = get_cfg_custom(config)
+    cfg.CONFIG.DATA.CANVAS = list(canvas)
+    cfg.CONFIG.VAL.BATCH_SIZE = batch
+    cfg.CONFIG.LOG.BASE_PATH = tmp
+    cfg.CONFIG.LOG.EXP_NAME = "loop"
+    cfg.CONFIG.LOG.RES_DIR = "res"
+    return cfg
+
+
+def timed_loop(runs: dict, n_batches: int, tag: str, expected: dict,
+               reps: int = 3):
+    """Wall ms/batch of each of ``runs`` (name -> one whole
+    ``run_validation``), the variants interleaved over ``reps`` rounds
+    (every other round in reverse order): median, min and max of each.
+    Then one profiled run of the first variant: the card's busy share of
+    its median, the trace held to ``expected`` launches over the run."""
+    walls = {k: [] for k in runs}
+    for r in range(reps):
+        for k in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[k]()
+            torch.cuda.synchronize()
+            walls[k].append((time.perf_counter() - t0) * 1e3 / n_batches)
+    meds = {}
+    for k, w in walls.items():
+        meds[k] = statistics.median(w)
+        print(f"{tag}, {k}: median {meds[k]:.2f} ms/batch over {reps} runs "
+              f"of {n_batches} batches (min {min(w):.2f}, max {max(w):.2f}; "
+              f"all {[round(x, 2) for x in w]})")
+    first = next(iter(runs))
+    busy = profiled_busy(runs[first], meds[first], expected,
+                         f"{tag}, {first}: ", per=n_batches, unit="batch")
+    return meds, busy
+
+
+def phase_eval_loop(dev, counters, main_ms: float):
+    """Phase 31: ``AVA22_ViT-B_fast`` at full width in bf16 through the
+    port's eval loop: a ``SyntheticClips`` AVA dataset packed by the port's
+    ``DataLoader`` (4 batches of B=2 on a 256x320 canvas), the weights
+    through ``save_checkpoint`` -> ``load_pretrained_params`` into a fresh
+    model (the state_dict equal bit for bit), then ``run_validation`` with
+    the criterion and bf16 pixel shipping: 24 K1 launches per batch and no
+    other kernel, the buffered detection rows equal to ``serve`` +
+    ``postprocess_ava`` (phase 3's path) on the same batches, finite eval
+    losses, an mAP in [0, 1]; the loop's ms/batch beside phase 3's and the
+    card's idle share over the loop."""
+    import tempfile
+
+    from class_query_vad_tpu_torch.datasets import DataLoader
+    from class_query_vad_tpu_torch.engine.checkpoint import (
+        load_pretrained_params, save_checkpoint)
+    from class_query_vad_tpu_torch.engine.evaluate import (
+        EvalBuffers, buffer_ava, run_validation)
+    from class_query_vad_tpu_torch.evaluates import STDetectionEvaluaterAVA
+    from class_query_vad_tpu_torch.losses import (
+        build_criterion_and_postprocessor, build_matcher)
+    from class_query_vad_tpu_torch.models import build_model
+    from class_query_vad_tpu_torch.models.detr import randomize_constants
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = loop_cfg(CONFIG, tmp, LOOP_CANVAS, 2)
+        cfg.CONFIG.DATA.LABEL_PATH = write_labelmap(
+            os.path.join(tmp, "labelmap.pbtxt"))
+        loader = DataLoader(SyntheticClips(cfg, 2 * LOOP_BATCHES, 31,
+                                           LOOP_WIDTHS), 2, cfg, num_workers=4)
+        src = build_model(cfg, dtype=torch.bfloat16)
+        randomize_constants(src, torch.Generator().manual_seed(31))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_checkpoint(cfg, src, 0)
+        save_s = time.perf_counter() - t0
+        model = build_model(cfg, dtype=torch.bfloat16,
+                            generator=torch.Generator().manual_seed(32))
+        t0 = time.perf_counter()
+        load_pretrained_params(cfg, path, model)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        want = src.state_dict()
+        same = all(torch.equal(v, want[k])
+                   for k, v in model.state_dict().items())
+        print(f"eval loop: save_checkpoint of the bf16 model "
+              f"({os.path.getsize(path) / 2**20:.1f} MiB) {save_s:.2f} s, "
+              f"load_pretrained_params into a fresh model {load_s:.2f} s; "
+              f"state_dict {'equal' if same else 'DIFFERENT'} bit for bit")
+        check(same, "the checkpoint's weights differ after the round trip")
+        del src
+        criterion, post, _ = build_criterion_and_postprocessor(
+            cfg, build_matcher(cfg))
+
+        def run():
+            return run_validation(cfg, model, post, loader,
+                                  criterion=criterion,
+                                  transfer_dtype=torch.bfloat16)
+
+        for c in counters:
+            c.launches = 0
+        res = run()
+        torch.cuda.synchronize()
+        launches = {c.__name__: c.launches for c in counters}
+        print(f"eval loop launches over {LOOP_BATCHES} batches: {launches}")
+        check(launches == {**{k: 0 for k in launches},
+                           "fused_blend2d": 24 * LOOP_BATCHES},
+              f"eval loop launches {launches}, expected K1 alone, 24 per "
+              f"batch")
+        losses = res["eval_losses"]
+        print(f"eval loop: mAP {res['mAP']:.6f}, eval losses "
+              f"{ {k: round(v, 5) for k, v in losses.items()} }")
+        check(0.0 <= res["mAP"] <= 1.0, f"mAP {res['mAP']}")
+        check(all(np.isfinite(v) for v in losses.values()),
+              f"eval losses not finite: {losses}")
+        with open(os.path.join(tmp, "res", "0.txt")) as f:
+            loop_rows = f.readlines()
+        buffers = EvalBuffers()
+        for batch, meta in loader:
+            _, outs = serve(model, batch["pixels"], batch["mask"], dev)
+            buffer_ava(buffers, *(x.float().cpu().numpy() for x in outs), meta)
+        same = buffers.det_lines == loop_rows
+        print(f"eval loop: {len(loop_rows)} detection rows "
+              f"{'equal' if same else 'DIFFERENT'} to serve + postprocess_ava"
+              f" on the same batches")
+        check(same, "the eval loop's detection rows differ from phase 3's "
+                    "path")
+        meds, busy = timed_loop(
+            {"with the criterion": run,
+             "without": lambda: run_validation(
+                 cfg, model, post, loader, transfer_dtype=torch.bfloat16)},
+            LOOP_BATCHES, "AVA eval loop (B=2, bf16 shipping, txt protocol, "
+            "AVA evaluator)", {"fused_blend2d": 24 * LOOP_BATCHES},
+            LOOP_REPS)
+        med = meds["with the criterion"]
+        t0 = time.perf_counter()
+        ev = STDetectionEvaluaterAVA(cfg.CONFIG.DATA.LABEL_PATH, [0.5], 80)
+        ev.load_GT_from_path([os.path.join(tmp, "res", "GT_0.txt")])
+        ev.load_detection_from_path([os.path.join(tmp, "res", "0.txt")])
+        ev.evaluate()
+        ev_ms = (time.perf_counter() - t0) * 1e3 / LOOP_BATCHES
+        print(f"eval loop {med:.2f} ms/batch against phase 3's forward + "
+              f"postprocess {main_ms:.2f} ms/batch ({med / main_ms:.2f}x); "
+              f"without the criterion {meds['without']:.2f} ms/batch; "
+              f"the AVA evaluator (txt files -> mAP) {ev_ms:.2f} ms per batch "
+              f"of the run")
+    del model
+    torch.cuda.empty_cache()
+    return launches, med, busy, save_s, load_s
+
+
+def phase_tube_loop(dev, counters):
+    """Phase 32: ``UCF_ViT-B_fast`` at full width in bf16 through the eval
+    loop over 2 batches of B=1 (32x224x224): ``buffer_frames`` and the UCF
+    evaluator, 12 K1 launches per batch, a finite video mAP."""
+    import tempfile
+
+    from class_query_vad_tpu_torch.datasets import DataLoader
+    from class_query_vad_tpu_torch.engine.evaluate import run_validation
+    from class_query_vad_tpu_torch.losses import (
+        build_criterion_and_postprocessor, build_matcher)
+    from class_query_vad_tpu_torch.models import build_model
+    from class_query_vad_tpu_torch.models.detr import randomize_constants
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = loop_cfg(TUBE_CONFIGS["UCF_ViT-B_fast"], tmp, TUBE_LOOP_CANVAS,
+                       1)
+        loader = DataLoader(SyntheticClips(cfg, TUBE_LOOP_BATCHES, 32,
+                                           TUBE_LOOP_CANVAS[1:]),
+                            1, cfg, num_workers=2)
+        model = build_model(cfg, dtype=torch.bfloat16)
+        randomize_constants(model, torch.Generator().manual_seed(33))
+        criterion, post, _ = build_criterion_and_postprocessor(
+            cfg, build_matcher(cfg))
+
+        def run():
+            return run_validation(cfg, model, post, loader,
+                                  criterion=criterion,
+                                  transfer_dtype=torch.bfloat16)
+
+        for c in counters:
+            c.launches = 0
+        res = run()
+        torch.cuda.synchronize()
+        launches = {c.__name__: c.launches for c in counters}
+        print(f"UCF loop launches over {TUBE_LOOP_BATCHES} batches: "
+              f"{launches}; frame mAP {res['mAP']:.6f}, video mAP "
+              f"{res['v_mAP']:.6f}, eval loss "
+              f"{res['eval_losses']['total_loss']:.5f}")
+        check(launches == {**{k: 0 for k in launches},
+                           "fused_blend2d": 12 * TUBE_LOOP_BATCHES},
+              f"UCF loop launches {launches}, expected K1 alone, 12 per "
+              f"batch")
+        check(np.isfinite(res["v_mAP"]) and 0.0 <= res["v_mAP"] <= 1.0,
+              f"video mAP {res['v_mAP']}")
+        check(np.isfinite(res["eval_losses"]["total_loss"]),
+              "UCF eval loss not finite")
+        meds, _ = timed_loop({"with the criterion": run}, TUBE_LOOP_BATCHES,
+                             "UCF eval loop (B=1)",
+                             {"fused_blend2d": 12 * TUBE_LOOP_BATCHES}, 2)
+        med = meds["with the criterion"]
+    del model
+    torch.cuda.empty_cache()
+    return launches, med
+
+
+def _masters_equal(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a.optimizer.masters,
+                                                 b.optimizer.masters))
+
+
+def _kernels_repeat(dev) -> dict:
+    """Whether K3 and K4 give the same bits twice on the same inputs (the
+    main path's level shapes, B=1, bf16)."""
+    from class_query_vad_tpu_torch.ops.blend2d import (blend2d_bwd_dcomps,
+                                                       blend2d_bwd_dvol)
+
+    rng = np.random.default_rng(33)
+    same = {"blend2d_bwd_dvol": True, "blend2d_bwd_dcomps": True}
+    for h, w in K1_LEVELS:
+        (vol, dx, dy, a), g = blend_inputs(rng, 1, h, w, torch.bfloat16, dev)
+        for name, fn in (
+                ("blend2d_bwd_dvol",
+                 lambda: (blend2d_bwd_dvol(dx, dy, a, g, torch.bfloat16, 8),)),
+                ("blend2d_bwd_dcomps",
+                 lambda: blend2d_bwd_dcomps(vol, dx, dy, a, g, 8))):
+            x, y = fn(), fn()
+            same[name] &= all(torch.equal(p, q) for p, q in zip(x, y))
+    return same
+
+
+def phase_train_resume(dev, counters):
+    """Phase 33: the train CLI's loop at full width: ``AVA22_ViT-B_fast``
+    in bf16, B=1, GRAD_ACCUM 1, dropout and drop path on.  3 uninterrupted
+    ``Trainer.step``s against 2 steps, ``save_checkpoint``, a fresh model
+    and trainer (another init) restored by ``load_checkpoint`` and 1 more
+    step: the masters, AdamW's state and the RNG streams restored exactly,
+    the third step's loss within ``TRAIN_LOSS_TOL`` relative, 24 launches
+    each of K1, K3 and K4 per step and of no other kernel; whether the two
+    runs' first two steps gave the same bits (and, if not, whether K3 / K4
+    repeat their bits), and the third step's parameters within phase 6's
+    gradient tolerance of the update."""
+    import tempfile
+
+    from class_query_vad_tpu_torch.config import get_cfg_custom
+    from class_query_vad_tpu_torch.engine import Trainer
+    from class_query_vad_tpu_torch.engine.checkpoint import (
+        load_checkpoint, save_checkpoint)
+    from class_query_vad_tpu_torch.models import build_model
+
+    cfg = get_cfg_custom(CONFIG)
+    cfg.CONFIG.TRAIN.GRAD_ACCUM = 1
+    check(cfg.CONFIG.MODEL.DROPOUT > 0 and cfg.CONFIG.ViT.DROP_PATH_RATE > 0,
+          "phase 33 needs dropout and drop path on")
+    batches = [train_batch(cfg, seed=40 + i) for i in range(RESUME_STEPS)]
+
+    def trainer(seed: int):
+        return Trainer(build_model(cfg, dtype=torch.bfloat16,
+                                   generator=torch.Generator().manual_seed(seed)),
+                       cfg)
+
+    step_counts, losses = [], {"uninterrupted": [], "resumed": []}
+
+    def step(t, batch, run):
+        counts = [c.launches for c in counters]
+        m = t.step(batch)
+        torch.cuda.synchronize()
+        step_counts.append({c.__name__: c.launches - n
+                            for c, n in zip(counters, counts)})
+        losses[run].append(m["total_loss"].item())
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg.CONFIG.LOG.BASE_PATH = tmp
+        cfg.CONFIG.LOG.EXP_NAME = "resume"
+        u = trainer(33)
+        for b in batches[:-1]:
+            step(u, b, "uninterrupted")
+        u_prev = [m.clone() for m in u.optimizer.masters]
+        step(u, batches[-1], "uninterrupted")
+        r = trainer(33)
+        for b in batches[:-1]:
+            step(r, b, "resumed")
+        deterministic = all(torch.equal(x, y) for x, y in
+                            zip(r.optimizer.masters, u_prev))
+        torch.cuda.synchronize()
+        rng_at_save = (torch.get_rng_state(), torch.cuda.get_rng_state_all())
+        t0 = time.perf_counter()
+        path = save_checkpoint(cfg, r, 1)
+        save_s = time.perf_counter() - t0
+        q = trainer(34)                # another init, the RNG reseeded
+        t0 = time.perf_counter()
+        meta = load_checkpoint(path, q)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        size = os.path.getsize(path) / 2**20
+    rng_same = (torch.equal(torch.get_rng_state(), rng_at_save[0])
+                and all(torch.equal(x, y) for x, y in
+                        zip(torch.cuda.get_rng_state_all(), rng_at_save[1])))
+    so, sr = q.optimizer.opt.state_dict(), r.optimizer.opt.state_dict()
+    opt_same = (q.optimizer.steps == r.optimizer.steps
+                and q.optimizer.micro == r.optimizer.micro
+                and all(torch.equal(so["state"][i][k], v)
+                        for i, st in sr["state"].items()
+                        for k, v in st.items()))
+    restored = _masters_equal(q, r) and opt_same and rng_same
+    print(f"resume: checkpoint of the trainer ({size:.1f} MiB: bf16 model, "
+          f"float32 masters, AdamW moments) saved in {save_s:.2f} s, loaded "
+          f"into a fresh model and trainer in {load_s:.2f} s (epoch "
+          f"{meta['epoch']}); masters, AdamW state, counters and RNG "
+          f"streams {'restored exactly' if restored else 'DIFFERENT'}")
+    check(restored, f"resume did not restore the state (masters "
+                    f"{_masters_equal(q, r)}, optimizer {opt_same}, RNG "
+                    f"{rng_same})")
+    del r
+    step(q, batches[-1], "resumed")
+    check(all(d == {**{k: 0 for k in d}, **{k: 24 for k in TRAIN_KERNELS["2d"]}}
+              for d in step_counts),
+          f"resume launches per step {step_counts}, expected 24 each of "
+          f"K1, K3, K4 and no other kernel")
+    lu, lr = losses["uninterrupted"], losses["resumed"]
+    e = abs(lr[-1] - lu[-1]) / abs(lu[-1])
+    print(f"resume: losses uninterrupted {lu}, resumed {lr}; third step rel "
+          f"err {e:.2e} (tol {TRAIN_LOSS_TOL:.0e}); the two runs' first "
+          f"{RESUME_STEPS - 1} steps {'bit-identical' if deterministic else 'NOT bit-identical'}")
+    check(e <= TRAIN_LOSS_TOL, "the resumed step's loss disagrees")
+    if not deterministic:
+        print(f"resume: K3 / K4 repeat their bits on the same inputs: "
+              f"{_kernels_repeat(dev)} (the rest of the backward is "
+              f"PyTorch's, whose scatter-adds use atomics)")
+    # the third step's parameters: within TRAIN_GRAD_TOL of each tensor's
+    # update (+ the floor), bit for bit where the runs were
+    worst, exact = (0.0, ""), True
+    upd_max = max((a - b).abs().max().item()
+                  for a, b in zip(u.optimizer.masters, u_prev))
+    names = [n for n, p in q.model.named_parameters() if p.requires_grad]
+    for name, a, b, p in zip(names, q.optimizer.masters, u.optimizer.masters,
+                             u_prev):
+        exact &= torch.equal(a, b)
+        lim = (TRAIN_GRAD_TOL * (b - p).abs().max().item()
+               + TRAIN_GRAD_FLOOR * upd_max)
+        err = (a - b).abs().max().item()
+        if lim > 0 and err / lim > worst[0]:
+            worst = (err / lim, name)
+        check(err <= lim or err == 0, f"resumed parameter {name} differs by "
+                                      f"{err:.3e} > {lim:.3e}")
+    print(f"resume: parameters after the third step "
+          f"{'equal bit for bit' if exact else 'within tolerance'}; closest "
+          f"to its limit: {worst[1] or '-'} at {worst[0]:.1%}")
+    if deterministic:
+        check(exact, "the resumed run's parameters differ from a "
+                     "deterministic uninterrupted run's")
+    del q, u
+    torch.cuda.empty_cache()
+    launches = {k: sum(d[k] for d in step_counts) for k in step_counts[0]}
+    return launches, save_s, load_s
 
 
 def main() -> int:
@@ -2860,33 +3376,45 @@ def main() -> int:
                                        "spill")):
                 print(f"  {k}: {line.strip()}")
 
-    kernels = [phase_kernels(dev, bw, peak)]
-    blend, _ = phase_blend_kernels(dev, bw, peak)
-    kernels += blend
-    main_eval = phase_main_path(dev, counters)
-    phase_in_model(dev)
-    launches = phase_train(dev, counters)
-    comps = phase_components_route(dev, counters)
+    with phase_seconds("phase 2 (K1-K4 against their plain versions)"):
+        kernels = [phase_kernels(dev, bw, peak)]
+        blend, _ = phase_blend_kernels(dev, bw, peak)
+        kernels += blend
+    with phase_seconds("phase 3 (the main path served)"):
+        main_eval, main_ms = phase_main_path(dev, counters)
+    with phase_seconds("phase 4 (its float32 forward, card vs CPU)"):
+        phase_in_model(dev)
+    with phase_seconds("phase 5 (its train path, the components route)"):
+        launches = phase_train(dev, counters)
+        comps = phase_components_route(dev, counters)
     # launches on the train path; K2 runs on the components route only
     for k in kernels:
         k["launches"] = (comps if k["name"] == "blend2d" else launches)[k["name"]]
-    phase_train_card_vs_cpu(dev)
-    kernels.append(phase_scan_kernel(dev, bw, peak))
-    vss = phase_vss_main_path(dev, counters)
+    with phase_seconds("phase 6 (a float32 train step, card vs CPU)"):
+        phase_train_card_vs_cpu(dev, ["CONFIG.ViT.DEPTH",
+                                      MAIN_TRAIN_CPU_VIT_DEPTH])
+    with phase_seconds("phase 7 (K5 against its plain version)"):
+        kernels.append(phase_scan_kernel(dev, bw, peak))
+    with phase_seconds("phase 8 (the VSS path served)"):
+        vss = phase_vss_main_path(dev, counters)
     kernels[-1]["launches"] = vss["selective_scan"]
-    phase_vss_card_vs_cpu(dev)
-    native = phase_native_kernels(dev, bw, peak)
+    with phase_seconds("phase 9 (its float32 forward, card vs CPU)"):
+        phase_vss_card_vs_cpu(dev)
+    with phase_seconds("phase 10 (K10, K11 against their plain version)"):
+        native = phase_native_kernels(dev, bw, peak)
     # AVA22_ViT-B_fast_native as written (2d window: K10), then its 3d
     # variant (K11)
-    n2d = phase_eval_variant(dev, counters, NATIVE_CONFIG, "2d",
-                             "native_blend2d", "native-2d", (21, 22, 23))
-    phase_in_model(dev, NATIVE_CONFIG, tag="native-2d ")
-    n3d = phase_eval_variant(dev, counters, NATIVE_CONFIG, "3d",
-                             "native_blend3d", "native-3d", (21, 22, 23))
-    cpu_s = phase_in_model(
-        dev, NATIVE_CONFIG, ["CONFIG.MODEL.FAST_WINDOW", "3d",
-                             "CONFIG.MODEL.ENC_LAYERS", NATIVE_3D_CPU_LAYERS],
-        tag="native-3d ")
+    with phase_seconds("phases 11-12 (native 2d served, card vs CPU)"):
+        n2d = phase_eval_variant(dev, counters, NATIVE_CONFIG, "2d",
+                                 "native_blend2d", "native-2d", (21, 22, 23))
+        phase_in_model(dev, NATIVE_CONFIG, tag="native-2d ")
+    with phase_seconds("phase 13 (native 3d served, card vs CPU)"):
+        n3d = phase_eval_variant(dev, counters, NATIVE_CONFIG, "3d",
+                                 "native_blend3d", "native-3d", (21, 22, 23))
+        cpu_s = phase_in_model(
+            dev, NATIVE_CONFIG, ["CONFIG.MODEL.FAST_WINDOW", "3d",
+                                 "CONFIG.MODEL.ENC_LAYERS",
+                                 NATIVE_3D_CPU_LAYERS], tag="native-3d ")
     print(f"native-3d card-vs-CPU check at {NATIVE_3D_CPU_LAYERS} encoder "
           f"layers, cut from the YAML's 6 for the CPU's time (tol "
           f"{MODEL_TOL:.0e} x max|ref|); its CPU forward {cpu_s:.1f} s")
@@ -2894,48 +3422,76 @@ def main() -> int:
     native[1]["launches"] = n3d["native_blend3d"]
     kernels += native
     # the 3d resample window: K6 (serving K7), K8, K9
-    blend3d = phase_blend3d_kernels(dev, bw, peak)
-    phase_eval_variant(dev, counters, CONFIG, "3d", "blend3d_fwd",
-                       "resample-3d", (31, 32, 33))
-    # card vs CPU at the YAML's full depth (6 encoder layers)
-    phase_in_model(dev, CONFIG, ["CONFIG.MODEL.FAST_WINDOW", "3d"],
-                   tag="resample-3d ")
-    t3d = phase_train(dev, counters, "3d", RESAMPLE_3D_TRAIN_STEPS,
-                      "resample-3d ")
+    with phase_seconds("phase 14 (K6-K9 against their plain versions)"):
+        blend3d = phase_blend3d_kernels(dev, bw, peak)
+    with phase_seconds("phases 15-16 (resample 3d served, card vs CPU)"):
+        phase_eval_variant(dev, counters, CONFIG, "3d", "blend3d_fwd",
+                           "resample-3d", (31, 32, 33))
+        # card vs CPU at the YAML's full depth (6 encoder layers)
+        phase_in_model(dev, CONFIG, ["CONFIG.MODEL.FAST_WINDOW", "3d"],
+                       tag="resample-3d ")
+    with phase_seconds("phase 17 (its train path)"):
+        t3d = phase_train(dev, counters, "3d", RESAMPLE_3D_TRAIN_STEPS,
+                          "resample-3d ")
     for k in blend3d:
         k["launches"] = t3d[k["name"]]
-    phase_train_card_vs_cpu(
-        dev, ["CONFIG.MODEL.FAST_WINDOW", "3d", "CONFIG.MODEL.ENC_LAYERS",
-              RESAMPLE_3D_TRAIN_CPU_LAYERS], "resample-3d ", counters,
-        {**{c.__name__: 0 for c in counters},
-         **{k: 4 * RESAMPLE_3D_TRAIN_CPU_LAYERS for k in TRAIN_KERNELS["3d"]}})
+    with phase_seconds("phase 18 (its float32 train step, card vs CPU)"):
+        phase_train_card_vs_cpu(
+            dev, ["CONFIG.MODEL.FAST_WINDOW", "3d", "CONFIG.MODEL.ENC_LAYERS",
+                  RESAMPLE_3D_TRAIN_CPU_LAYERS, *CPU_TRAIN_VIT],
+            "resample-3d ", counters,
+            {**{c.__name__: 0 for c in counters},
+             **{k: 4 * RESAMPLE_3D_TRAIN_CPU_LAYERS
+                for k in TRAIN_KERNELS["3d"]}})
     kernels += blend3d
     # K12 and K13 at the main path's shapes and on the model's own tensors,
     # then K12's bench entry point
-    k12 = phase_vit_attention(dev, bw, bf16_peak)
-    k13 = phase_fused_ffn(dev, bw, bf16_peak)
-    phase_model_attention_ffn(dev)
-    bench = phase_bench_entry()
+    with phase_seconds("phases 19-22 (K12, K13, their entry point)"):
+        k12 = phase_vit_attention(dev, bw, bf16_peak)
+        k13 = phase_fused_ffn(dev, bw, bf16_peak)
+        phase_model_attention_ffn(dev)
+        bench = phase_bench_entry()
     for k, c in ((k12, vit_attention), (k13, fused_ffn_kernel)):
         # main-path launches (eval and train): 0, as in the JAX package
         k["launches"] = main_eval[c.__name__] + launches[c.__name__]
     k12["bench_launches"] = bench
     kernels += [k12, k13]
     # FAST_RADIUS 2 (the general blend) in both windows
-    for window in ("2d", "3d"):
-        phase_radius2(dev, counters, window)
+    with phase_seconds("phase 23 (FAST_RADIUS 2 served, card vs CPU)"):
+        for window in ("2d", "3d"):
+            phase_radius2(dev, counters, window)
     # the native train step: 2d and 3d windows, then card vs CPU
-    for window, kernel in (("2d", "native_blend2d"), ("3d", "native_blend3d")):
-        phase_train(dev, counters, window, NATIVE_TRAIN_STEPS,
-                    f"native-{window} ", NATIVE_CONFIG, (kernel,),
-                    profile_step=False)
-    phase_train_card_vs_cpu(
-        dev, ["CONFIG.MODEL.ENC_LAYERS", NATIVE_TRAIN_CPU_LAYERS], "native-2d ",
-        counters, {**{c.__name__: 0 for c in counters},
-                   "native_blend2d": 4 * NATIVE_TRAIN_CPU_LAYERS},
-        NATIVE_CONFIG, unmatched_too=True)
+    with phase_seconds("phase 24 (native train steps, card vs CPU)"):
+        for window, kernel in (("2d", "native_blend2d"),
+                               ("3d", "native_blend3d")):
+            phase_train(dev, counters, window, NATIVE_TRAIN_STEPS,
+                        f"native-{window} ", NATIVE_CONFIG, (kernel,),
+                        profile_step=False)
+        phase_train_card_vs_cpu(
+            dev, ["CONFIG.MODEL.ENC_LAYERS", NATIVE_TRAIN_CPU_LAYERS,
+                  *CPU_TRAIN_VIT], "native-2d ",
+            counters, {**{c.__name__: 0 for c in counters},
+                       "native_blend2d": 4 * NATIVE_TRAIN_CPU_LAYERS},
+            NATIVE_CONFIG, unmatched_too=True)
     tube, tube_err, tube_launches = phase_exact_and_tubes(dev, counters, bw,
                                                          peak)
+    # the eval loop, checkpoints and the train CLI's loop
+    with phase_seconds("phase 31 (the AVA eval loop)"):
+        ava_loop, loop_ms, loop_busy, save_s, load_s = phase_eval_loop(
+            dev, counters, main_ms)
+    with phase_seconds("phase 32 (the UCF eval loop)"):
+        ucf_loop, ucf_loop_ms = phase_tube_loop(dev, counters)
+    with phase_seconds("phase 33 (the train loop, checkpoint and resume)"):
+        resume, rsave_s, rload_s = phase_train_resume(dev, counters)
+    tube_launches.update({
+        f"AVA eval loop, {LOOP_BATCHES} batches": ava_loop,
+        f"UCF eval loop, {TUBE_LOOP_BATCHES} batches": ucf_loop,
+        f"train loop with resume, {2 * RESUME_STEPS} steps": resume,
+    })
+    print(f"eval loop (phase 31) {loop_ms:.2f} ms/batch (busy {loop_busy:.2f}"
+          f") vs phase 3 {main_ms:.2f}; UCF loop {ucf_loop_ms:.2f} ms/batch; "
+          f"checkpoint save / load: model {save_s:.2f} / {load_s:.2f} s, "
+          f"trainer {rsave_s:.2f} / {rload_s:.2f} s")
     for k in kernels:
         key = {"fused_blend2d": "K1", "blend2d_bwd_dvol": "K3",
                "blend2d_bwd_dcomps": "K4"}.get(k["name"])

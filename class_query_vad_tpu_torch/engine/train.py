@@ -114,6 +114,27 @@ class MasterAdamW:
         self.steps += 1
         return norm
 
+    def state_dict(self) -> dict:
+        """Everything a resumed run needs: the float32 masters, the inner
+        AdamW's state, the sums of a half-done accumulation window and the
+        counters (the learning rate is a function of ``steps``)."""
+        return {"masters": [m.detach().clone() for m in self.masters],
+                "adamw": self.opt.state_dict(),
+                "acc": [a if a is None else a.clone() for a in self.acc],
+                "micro": self.micro, "steps": self.steps}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        if len(state["masters"]) != len(self.masters):
+            raise ValueError(f"{len(state['masters'])} master tensors in the "
+                             f"state, {len(self.masters)} here")
+        for m, s in zip(self.masters, state["masters"]):
+            m.copy_(s)
+        self.opt.load_state_dict(state["adamw"])
+        self.acc = [a if a is None else a.to(m.device)
+                    for a, m in zip(state["acc"], self.masters)]
+        self.micro, self.steps = int(state["micro"]), int(state["steps"])
+
     def last_grad(self, p: nn.Parameter) -> Optional[torch.Tensor]:
         """The clipped float32 gradient the last update applied to ``p``."""
         return self.masters[self._index[id(p)]].grad
@@ -160,7 +181,8 @@ class Trainer:
                                  f"trainer on {self.device}")
         torch.manual_seed(seed)
         self.model = model.train()
-        self.criterion, _, self.weight_dict = build_criterion_and_postprocessor(
+        (self.criterion, self.postprocess,
+         self.weight_dict) = build_criterion_and_postprocessor(
             cfg, build_matcher(cfg))
         labels = backbone_freeze_labels(model, cfg)
         for name, p in model.named_parameters():

@@ -199,3 +199,79 @@ def tube_targets(seed: int, b: int, t: int, a_slots: int = 2,
         frame_valid[i, front_pad[i] : t - end_pad[i]] = True
     return {"boxes": boxes, "labels": labels, "frame_valid": frame_valid,
             "n_actors": np.array(n_actors[:b], np.int32)}
+
+
+JHMDB_YAML = """
+CONFIG:
+  DATA:
+    DATASET_NAME: jhmdb
+    ANNO_PATH: {root}
+    DATA_PATH: {root}
+    NUM_CLASSES: 21
+    TEMP_LEN: 12
+    IMG_SIZE: 32
+    MAX_BOXES: 4
+  MODEL:
+    SINGLE_FRAME: False
+    TEMP_LEN: 12
+    QUERY_NUM: 5
+    ENC_LAYERS: 1
+    DEC_LAYERS: 2
+    D_MODEL: 64
+    DIM_FEEDFORWARD: 64
+    BACKBONE_NAME: ViT
+  ViT:
+    DEPTH: 1
+    EMBED_DIM: 64
+    NUM_HEADS: 2
+    USE_CHECKPOINT: False
+  TRAIN:
+    BATCH_SIZE: 1
+    NUM_EPOCHS: {epochs}
+    GRAD_ACCUM: 2
+    EVAL_FREQ: 1
+    LR: 0.0001
+  VAL:
+    BATCH_SIZE: 1
+  LOG:
+    BASE_PATH: {root}
+    EXP_NAME: e2e
+    RES_DIR: {res}
+"""
+
+
+def jhmdb_world(root: Path) -> Path:
+    """``tests/test_e2e_cli.py``'s synthetic JHMDB51-21 world under ``root``
+    (two videos of 10 and 8 PNG frames at 60x80, ``JHMDB-GT.pkl``) with
+    ``config1.yaml`` / ``config2.yaml`` (1 / 2 epochs): ``JHMDB_YAML``, a
+    tiny exact-encoder model (ViT depth 1, width 64; D_MODEL 64; one
+    encoder and two decoder layers) on 32-pixel frames."""
+    import os
+    import pickle
+
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    vids = [f"run/v_{i:04d}" for i in range(2)]
+    nframes = {vids[0]: 10, vids[1]: 8}
+    gttubes = {}
+    for v in vids:
+        rows = []
+        for f in range(1, nframes[v] + 1):
+            x1, y1 = rng.uniform(2, 30, 2)
+            rows.append([f, x1, y1, x1 + 25, y1 + 20])
+        gttubes[v] = {int(rng.integers(0, 21)): [np.array(rows)]}
+        os.makedirs(root / v)
+        for i in range(1, nframes[v] + 1):
+            arr = rng.integers(0, 255, (60, 80, 3), dtype=np.uint8)
+            Image.fromarray(arr).save(root / v / f"{i:05d}.png")
+    with open(root / "JHMDB-GT.pkl", "wb") as f:
+        pickle.dump({"labels": [str(i) for i in range(21)],
+                     "train_videos": [vids] * 3, "test_videos": [vids] * 3,
+                     "nframes": nframes,
+                     "resolution": {v: (60, 80) for v in vids},
+                     "gttubes": gttubes}, f)
+    for epochs in (1, 2):
+        (root / f"config{epochs}.yaml").write_text(
+            JHMDB_YAML.format(root=root, epochs=epochs, res="res"))
+    return root
