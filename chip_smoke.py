@@ -161,7 +161,8 @@ NVIDIA card.
    encoder tokens): the exact encoder over every frame, 3 layers; one
    timed request each and 1 + 2 train steps, no kernel; then UCF's
    float32 forward card vs CPU at ``UCF_EXACT_FWD_CPU_LAYERS`` (2) of its
-   3 layers and its train step at
+   3 layers and ``UCF_EXACT_FWD_CPU_DEC_LAYERS`` (2) of its 3 decoder
+   layer pairs, and its train step at
    ``UCF_EXACT_TRAIN_CPU_LAYERS`` and ``UCF_EXACT_TRAIN_CPU_DEC_LAYERS``.
 30. ``AVA22_ViT-B-train-mamba`` (VideoMamba-tiny with the exact encoder,
    one level) serves 3 bf16 B=2 requests, 48 K5 launches per forward;
@@ -187,6 +188,37 @@ NVIDIA card.
    ``save_checkpoint``, ``load_checkpoint`` into a fresh model and trainer
    and 1 step: masters, AdamW state and RNG streams restored exactly, the
    third step's loss within 1e-4, 24 launches each of K1, K3, K4 per step.
+34. ``AVA22_CSN152`` (ir-CSN-152, 50 bottlenecks, cuDNN convolutions and
+   plain batch norms; ``input_proj``; the exact encoder over CSN's four
+   levels of unequal T, 24,640 tokens per clip, with the common-grid
+   decode) serves 3 bf16 requests of [2, 32, 256, 320, 3] with no hand
+   kernel launched (none in JAX either): ms/batch, stage events (CSN,
+   input_proj, encoder, decoder), busy share; the CSN trunk's forward
+   timed in NCDHW and in ``channels_last_3d``; then ``AVA22_CSN50``'s
+   float32 heads card vs CPU at B=1, ``EXACT_FWD_CPU_LAYERS`` (2) of 6
+   encoder layers.
+35. CSN-152 trains: 1 + 4 full-width bf16 B=1 steps (batch statistics,
+   the running statistics unchanged, no kernel), ms/step, peak memory,
+   stage shares, busy share; then one float32 CSN-50 train step card vs
+   CPU at ``CSN_TRAIN_CPU_LAYERS`` (1) encoder layer, ``KinkSides``
+   hooked on CSN's ReLUs and max pool (where they take a gradient: the
+   YAML's TUNE_POINT freezes the first stages).
+36. ``CONFIG.GRADIENT_CHECKPOINTING`` off and on for the main path,
+   ``AVA22_ViT-B`` and ``AVA22_CSN152``: 1 + 2 full-width bf16 B=1 steps
+   each way on one built model (ms/step, peak memory, launches per step:
+   K1 48 under remat, its recompute in each fast encoder layer's, K3 and
+   K4 24), then one float32 step each way with dropout on: the loss and
+   every gradient within ``REMAT_TOL`` (1e-5) x max.
+37. On-device preprocessing (``datasets.device_preprocess``, the JAX
+   bench's ``--device-preprocess`` route): the eval graph's uint8 resize
+   of [2, 16, 400, 500, 3] frames to 256x320 on the card equal bit for bit
+   to the CPU's (and to ``native_decode``'s where it builds: printed), its
+   float32 output within 1e-6; the main path through ``run_validation``
+   from uint8 frames (shipped raw, the graph in ``forward_fn``) against
+   phase 31's route (float32 clips, bf16 shipping) on the same 4 batches,
+   interleaved (ms/batch, bytes shipped per batch, busy share, 24 K1
+   launches per batch); the train graph card vs CPU, then one main-path
+   train step on its pixels (24 each of K1, K3, K4).
 
 Each phase's seconds are printed on a line of their own (``[seconds]``).
 The float32 card-vs-CPU train checks of phases 18, 24, 26 and 29 run the
@@ -209,6 +241,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(REPO, "configuration", "AVA22_ViT-B_fast.yaml")
@@ -755,6 +788,10 @@ def model_stages(model) -> dict:
     if s.is_mamba:
         head = {f"VideoMamba ({len(body.body.layers)} blocks)": body.body,
                 "mamba_proj": body.mamba_proj}
+    elif not s.is_vit:
+        n = sum(len(getattr(body.body, f"layer{i}")) for i in range(1, 5))
+        head = {f"{s.backbone_name} ({n} bottlenecks)": body.body,
+                "input_proj (4 levels, float32)": model.input_proj}
     else:
         head = {"ViT body": body.body, "backbone (ViT + FPN + poses)": body}
     kind = {"attention": "exact", "fast_attention": "fast"}.get(
@@ -985,13 +1022,14 @@ TRAIN_KERNELS = {"2d": ("fused_blend2d", "blend2d_bwd_dvol",
 
 def phase_train(dev, counters, window: str = "2d", steps: int = 7,
                 tag: str = "", config: str = CONFIG, kernels=None,
-                profile_step: bool = True, per_step: int = 24):
+                profile_step: bool = True, per_step: int = 24, after=None):
     """Full-width bf16 train steps of ``config`` (with ``FAST_WINDOW:
     window``) through build_model + Trainer: ``per_step`` launches of each
     of ``kernels`` (``TRAIN_KERNELS[window]`` when None; () for a path
     with no kernel) per step and of no other kernel; the host LSAP's time
     on the main path; the stage breakdown (profiled unless
-    ``profile_step`` is off)."""
+    ``profile_step`` is off); ``after(model)`` checks the model after the
+    steps."""
     from class_query_vad_tpu_torch.config import get_cfg_custom
     from class_query_vad_tpu_torch.engine import Trainer
     from class_query_vad_tpu_torch.losses.matcher import cost_matrix
@@ -1048,6 +1086,8 @@ def phase_train(dev, counters, window: str = "2d", steps: int = 7,
           f"{len(times)} steps; min {min(times):.2f}, max {max(times):.2f}; "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB; launches over the {len(step_counts)} steps {launches}")
+    if after is not None:
+        after(model)
     if window != "2d" or config != CONFIG:
         train_breakdown(trainer, batch, med, kernels, profile_step, per_step)
         del trainer, model
@@ -1108,7 +1148,8 @@ def train_breakdown(trainer, batch, wall_ms: float, kernels,
     marks[4].record()
     host.append(time.perf_counter())
     torch.cuda.synchronize()
-    names = ("forward (train mode, ViT checkpointed)",
+    names = ("forward (train mode"
+             + (", ViT checkpointed)" if trainer.model.spec.is_vit else ")"),
              "matcher + criterion (host LSAP)",
              f"backward ({', '.join(kernels[1:]) or 'plain VJP'})",
              "clip + AdamW + master copy")
@@ -1202,7 +1243,8 @@ class KinkSides:
     float32, which puts an offset within an ulp of 0 on the kink of its -1
     tap.  ``watch`` hooks every ReLU input (the FFNs' and the MLP heads'
     hidden layers), the backbone's max pool, every fast encoder layer's
-    head lanes and every exact encoder layer's sampling locations;
+    head lanes and every exact encoder layer's sampling locations, and
+    CSN's ReLUs and max pool (where their outputs take a gradient);
     ``match`` marks the elements whose sides differ, and the hooks then
     zero the gradient there, on both sides alike, before it flows on.
     """
@@ -1214,6 +1256,7 @@ class KinkSides:
     def watch(self, model):
         from class_query_vad_tpu_torch.models.backbone import MaxPool2x
         from class_query_vad_tpu_torch.models.common import MLP
+        from class_query_vad_tpu_torch.models.csn import CSN, CSNBottleneck
         from class_query_vad_tpu_torch.models.deform_encoder import (
             MSDeformAttn3D)
         from class_query_vad_tpu_torch.models.fast_encoder import (
@@ -1232,6 +1275,11 @@ class KinkSides:
                         out, self._lane_sides(a, out), "head lanes"))
             elif isinstance(mod, MaxPool2x):
                 mod.register_forward_hook(self._argmax)
+            elif isinstance(mod, (CSN, CSNBottleneck)):
+                # one ReLU module per block, called three times
+                mod.relu.register_forward_hook(self._relu)
+                if isinstance(mod, CSN):
+                    mod.maxpool.register_forward_hook(self._pool_argmax)
             elif isinstance(mod, MLP):
                 for layer in mod.layers[:-1]:
                     layer.register_forward_hook(self._relu)
@@ -1265,7 +1313,18 @@ class KinkSides:
         self._keep(out, win.reshape(*out.shape, 4).argmax(-1).to(
             torch.int8).cpu(), "max pool")
 
+    def _pool_argmax(self, mod, inp, out):
+        """CSN's max pool (NCDHW): each window's argmax where its max is
+        positive (an all-zero window of ReLU outputs passes no gradient
+        back through the ReLU, whichever element it picks)."""
+        _, idx = F.max_pool3d(inp[0].detach(), mod.kernel_size, mod.stride,
+                              mod.padding, return_indices=True)
+        self._keep(out, torch.where(out.detach() > 0, idx, -1).to(
+            torch.int32).cpu(), "max pool")
+
     def _keep(self, out, side, kind):
+        if not out.requires_grad:      # a frozen stage: no gradient to mask
+            return
         i = len(self.sides)
         self.sides.append(side)
         self.kinds.append(kind)
@@ -1392,7 +1451,8 @@ def phase_train_card_vs_cpu(dev, opts=(), tag: str = "", counters=(),
               f"{secs[name] + time.perf_counter() - t0:.1f} s")
         res[name] = (total.item(), {k: v.item() for k, v in losses.items()},
                      match, {k: p.grad.float().cpu()
-                             for k, p in model.named_parameters()})
+                             for k, p in model.named_parameters()
+                             if p.requires_grad})
     (t_g, l_g, m_g, g_g), (t_c, l_c, m_c, g_c) = res["card"], res["CPU"]
     if unmatched_too:
         plain = {}
@@ -1401,7 +1461,8 @@ def phase_train_card_vs_cpu(dev, opts=(), tag: str = "", counters=(),
             fwd[name][3].active = False
             fwd[name][0].backward()
             plain[name] = {k: p.grad.float().cpu()
-                           for k, p in model.named_parameters()}
+                           for k, p in model.named_parameters()
+                           if p.requires_grad}
         far = grad_distances(plain["card"], plain["CPU"])[0]
         print(f"{tag}without the kink matching (not checked), the farthest "
               f"gradient would be {far[1]} at {far[0]:.1%} of its limit")
@@ -2171,7 +2232,7 @@ def phase_blend3d_kernels(dev, bw, peak):
 
 
 def phase_serve(dev, counters, config: str, tag: str, seeds, opts=(),
-                expected=None, b: int = 2, iters: int = 10):
+                expected=None, b: int = 2, iters: int = 10, probe=None):
     """``config`` (with ``opts``) at full width in bf16 (the backbone; the
     encoder and decoder in the YAML's dtypes), with random offset / weight
     kernels (every query samples its own locations), on clips of the
@@ -2179,8 +2240,8 @@ def phase_serve(dev, counters, config: str, tag: str, seeds, opts=(),
     the dataset's postprocessing, finite scores of the expected shapes,
     ``expected`` launches per forward of each kernel and of no other one;
     the median ms/batch of ``iters`` timed requests, peak memory, stage
-    events and the card's busy share.  Returns the launches and the
-    median."""
+    events and the card's busy share; then ``probe(model, pixels, mask)``
+    if given.  Returns the launches and the median."""
     from class_query_vad_tpu_torch.config import get_cfg_custom
     from class_query_vad_tpu_torch.models import build_model
     from class_query_vad_tpu_torch.models.detr import randomize_constants
@@ -2240,6 +2301,8 @@ def phase_serve(dev, counters, config: str, tag: str, seeds, opts=(),
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     stage_breakdown(model, pixels, mask, dev, med, min(iters, 5), expected,
                     f"{tag} ")
+    if probe is not None:
+        probe(model, pixels, mask)
     del model
     torch.cuda.empty_cache()
     return launches, med
@@ -2709,13 +2772,18 @@ TUBE_EXACT_TRAIN_STEPS = 3
 # the float32 card-vs-CPU train checks' encoder depth, cut from the YAML's
 # 6 (AVA22_ViT-B) and 3 (UCF_ViT-B) for the CPU's time: the plain sampler's
 # corner weights and their backward over 54,400 / 66,640 tokens per layer;
-# UCF's decoder (3 layer pairs over 32 frames) cut to 2 pairs; and the
-# float32 forward checks' (phases 25, 29)
+# UCF's decoder (3 layer pairs over 32 frames) cut to 1 pair (2 until
+# phases 34-37 came); and the float32 forward checks' (phases 25, 29)
 EXACT_TRAIN_CPU_LAYERS = 1
 UCF_EXACT_TRAIN_CPU_LAYERS = 1
-UCF_EXACT_TRAIN_CPU_DEC_LAYERS = 2
+UCF_EXACT_TRAIN_CPU_DEC_LAYERS = 1
 EXACT_FWD_CPU_LAYERS = 2
 UCF_EXACT_FWD_CPU_LAYERS = 2
+# UCF's float32 checks cut in decoder layer pairs when phases 34-37 came:
+# the decoder over 32 frames sets their CPU time (its forward took 20.8,
+# 20.4 and 18.3 s at 3, 2 and 1 encoder layers; the train step 49.7-53.0 s
+# at 2 pairs)
+UCF_EXACT_FWD_CPU_DEC_LAYERS = 2
 # the ViT depth of the card-vs-CPU train checks of phases 18, 24, 26 and 29,
 # cut from 12 blocks for the CPU's time (the whole script must end well
 # inside its 1200 s; it took 853-927 s on an H100 before); phase 6, the main
@@ -2840,11 +2908,13 @@ def phase_exact_and_tubes(dev, counters, bw, peak):
                         tag=f"{key} exact ", config=TUBE_CONFIGS[key],
                         kernels=())
         cpu_s = phase_in_model(
-            dev, TUBE_CONFIGS["UCF_ViT-B"], ["CONFIG.MODEL.ENC_LAYERS",
-                                             UCF_EXACT_FWD_CPU_LAYERS],
+            dev, TUBE_CONFIGS["UCF_ViT-B"], [
+                "CONFIG.MODEL.ENC_LAYERS", UCF_EXACT_FWD_CPU_LAYERS,
+                "CONFIG.MODEL.DEC_LAYERS", UCF_EXACT_FWD_CPU_DEC_LAYERS],
             tag="UCF exact ")
         print(f"UCF exact card-vs-CPU forward at {UCF_EXACT_FWD_CPU_LAYERS} "
-              f"of the YAML's 3 encoder layers; its CPU forward "
+              f"of the YAML's 3 encoder layers, {UCF_EXACT_FWD_CPU_DEC_LAYERS}"
+              f" of its 3 decoder layer pairs; its CPU forward "
               f"{cpu_s:.1f} s")
         phase_train_card_vs_cpu(
             dev, ["CONFIG.MODEL.ENC_LAYERS", UCF_EXACT_TRAIN_CPU_LAYERS,
@@ -3323,6 +3393,370 @@ def phase_train_resume(dev, counters):
     return launches, save_s, load_s
 
 
+# ---- CSN, gradient checkpointing and on-device preprocessing (phases
+# 34-37)
+CSN_CONFIGS = {k: os.path.join(REPO, "configuration", f"AVA22_{k}.yaml")
+               for k in ("CSN50", "CSN152")}
+CSN_TRAIN_STEPS = 5
+# the float32 card-vs-CPU checks of CSN-50 (its 16 bottlenecks whole): the
+# forward at EXACT_FWD_CPU_LAYERS (2) of the YAML's 6 encoder layers, as
+# phase 25 cuts AVA22_ViT-B; the train step at 1 encoder layer and the
+# YAML's 6 decoder layer pairs (its TUNE_POINT 4 freezes the stem, layer1
+# and layer2, so the backward stops at layer3)
+CSN_TRAIN_CPU_LAYERS = 1
+# phase 36: 1 + 2 bf16 train steps with GRADIENT_CHECKPOINTING off and on,
+# and one float32 step each way: loss and gradients within REMAT_TOL x max
+REMAT_STEPS = 3
+REMAT_TOL = 1e-5
+REMAT_CONFIGS = {"AVA22_ViT-B_fast (main path)": CONFIG,
+                 "AVA22_ViT-B": EXACT_CONFIG,
+                 "AVA22_CSN152": CSN_CONFIGS["CSN152"]}
+# phase 37: decoded frames of 400x500 (the JAX bench's --device-preprocess
+# size: a short side of 256 and the centre crop give 256x320)
+PREP_RAW_HW = (400, 500)
+PREP_BATCHES = 4
+PREP_REPS = 3
+PREP_TOL = 1e-6
+PCA_EIGVAL = np.array([0.2175, 0.0188, 0.0045], np.float32)
+PCA_EIGVEC = np.array([[-0.5675, 0.7192, 0.4009],
+                       [-0.5808, -0.0045, -0.8140],
+                       [-0.5836, -0.6948, 0.4203]], np.float32)
+
+
+def csn_probe(dev):
+    """For ``phase_serve``: the exact encoder's tokens per clip (CSN's four
+    levels after ``input_proj``), and the device ms of the CSN trunk's bf16
+    forward with its convolutions in NCDHW and in ``channels_last_3d``
+    (weights and activations), timed in turns (A B B A)."""
+    def probe(model, pixels, mask):
+        body = model.backbone[0].body
+        shapes = []
+        hook = model.input_proj.register_forward_hook(
+            lambda _m, _i, out: shapes.extend(tuple(x.shape[1:4])
+                                              for x in out))
+        serve(model, pixels[:1], mask[:1], dev)
+        hook.remove()
+        tokens = sum(t * h * w for t, h, w in shapes)
+        print(f"CSN levels (T, H, W) after input_proj {shapes}: {tokens} "
+              f"exact-encoder tokens per clip")
+        x = torch.from_numpy(pixels).to(dev)
+        ms = {torch.contiguous_format: [], torch.channels_last_3d: []}
+        with torch.inference_mode():
+            for fmt in (torch.contiguous_format, torch.channels_last_3d,
+                        torch.channels_last_3d, torch.contiguous_format):
+                body.to(memory_format=fmt)
+                body.memory_format = fmt
+                ms[fmt].append(cuda_ms(lambda: body(x), 5))
+        body.to(memory_format=torch.contiguous_format)
+        del body.memory_format
+        a, b = (statistics.mean(v) for v in ms.values())
+        print(f"CSN trunk bf16 forward, B={x.shape[0]} "
+              f"{'x'.join(map(str, x.shape[1:4]))}: NCDHW {a:.2f} ms, "
+              f"channels_last_3d {b:.2f} ms (device, means of 2 turns of 5; "
+              f"all {[round(v, 3) for v in sum(ms.values(), [])]}) -> "
+              f"channels_last_3d {a / b:.2f}x")
+    return probe
+
+
+def csn_stats_unchanged(model):
+    """After ``Trainer.step``s: every CSN batch norm's running statistics
+    still at their init (mean 0, variance 1)."""
+    from class_query_vad_tpu_torch.models.csn import CSNBatchNorm
+
+    norms = [m for m in model.modules() if isinstance(m, CSNBatchNorm)]
+    same = all(bool((m.running_mean == 0).all() and (m.running_var == 1).all())
+               for m in norms)
+    print(f"CSN running statistics of {len(norms)} batch norms "
+          f"{'unchanged' if same else 'CHANGED'} by the train steps")
+    check(same, "a train step moved CSN's running statistics")
+
+
+def phase_csn(dev, counters):
+    """Phases 34-35: ``AVA22_CSN152`` served (B=2, 32x256x320, bf16; no
+    hand kernel, as in JAX) with the trunk's memory-format timing, the
+    float32 forward of ``AVA22_CSN50`` card vs CPU; CSN-152 trained (1 + 4
+    bf16 B=1 steps, its running statistics unchanged) and one float32
+    CSN-50 train step card vs CPU.  Returns the launches."""
+    zero = {c.__name__: 0 for c in counters}
+    with phase_seconds("phase 34 (AVA22_CSN152 served, CSN-50 card vs CPU)"):
+        served, _ = phase_serve(dev, counters, CSN_CONFIGS["CSN152"],
+                                "CSN-152", (91, 92, 93), probe=csn_probe(dev))
+        cpu_s = phase_in_model(
+            dev, CSN_CONFIGS["CSN50"], ["CONFIG.MODEL.ENC_LAYERS",
+                                        EXACT_FWD_CPU_LAYERS], tag="CSN-50 ")
+    print(f"CSN-50 card-vs-CPU forward at {EXACT_FWD_CPU_LAYERS} of the "
+          f"YAML's 6 encoder layers; its CPU forward {cpu_s:.1f} s")
+    with phase_seconds("phase 35 (AVA22_CSN152 trained, CSN-50 card vs CPU)"):
+        trained = phase_train(dev, counters, steps=CSN_TRAIN_STEPS,
+                              tag="CSN-152 ", config=CSN_CONFIGS["CSN152"],
+                              kernels=(), after=csn_stats_unchanged)
+        phase_train_card_vs_cpu(
+            dev, ["CONFIG.MODEL.ENC_LAYERS", CSN_TRAIN_CPU_LAYERS],
+            "CSN-50 ", counters, zero, CSN_CONFIGS["CSN50"])
+    return {"AVA22_CSN152 eval, 3 requests": served,
+            f"AVA22_CSN152 train, {CSN_TRAIN_STEPS} steps": trained}
+
+
+def set_gradient_checkpointing(model, on: bool) -> None:
+    """``CONFIG.GRADIENT_CHECKPOINTING`` switched on a built model, as
+    ``build_model`` sets it from the config: every container that remats
+    (the encoder, the decoder, CSN's trunk, the ViT) follows it; a ViT
+    also remats on its own ``USE_CHECKPOINT``."""
+    from class_query_vad_tpu_torch.models.vit import ViT
+
+    for m in model.modules():
+        if hasattr(m, "remat"):
+            m.remat = on or (isinstance(m, ViT) and m.spec.use_checkpoint)
+
+
+def remat_steps(counters, trainer, batch, remat: bool):
+    """``REMAT_STEPS`` bf16 ``Trainer.step``s with ``GRADIENT_CHECKPOINTING``
+    ``remat``: (median ms/step after the first, peak GiB from the second
+    step on, launches per step)."""
+    set_gradient_checkpointing(trainer.model, remat)
+    times, per_step = [], []
+    for i in range(REMAT_STEPS):
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        counts = [c.launches for c in counters]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = trainer.step(batch)
+        torch.cuda.synchronize()
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+        check(all(bool(torch.isfinite(v).all()) for v in metrics.values()),
+              f"remat={remat}: a loss is not finite")
+        per_step.append({c.__name__: c.launches - n
+                         for c, n in zip(counters, counts)})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    return statistics.median(times), peak, per_step
+
+
+def remat_grads(trainer, batch, remat: bool):
+    """One train step's loss and gradients (no update) with
+    ``GRADIENT_CHECKPOINTING`` ``remat``, dropout and drop path on, the
+    RNG seeded alike (the recompute replays its state)."""
+    model = trainer.model
+    set_gradient_checkpointing(model, remat)
+    torch.manual_seed(5)
+    total, _, _ = trainer.loss(batch)
+    total.backward()
+    grads = {k: p.grad.float().cpu() for k, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return total.item(), grads
+
+
+def phase_remat(dev, counters):
+    """Phase 36: ``CONFIG.GRADIENT_CHECKPOINTING`` off and on for the main
+    path, ``AVA22_ViT-B`` and ``AVA22_CSN152``, switched on one built model
+    (``set_gradient_checkpointing``, held to the build's own flags):
+    full-width bf16 train steps (ms/step, peak GiB, launches per step: under
+    remat K1 runs again in the recompute of each fast encoder layer, K3 and
+    K4 do not), then one float32 step each way, dropout on: the same loss
+    and gradients within ``REMAT_TOL`` x max.  Returns the launches under
+    remat."""
+    from class_query_vad_tpu_torch.config import get_cfg_custom
+    from class_query_vad_tpu_torch.engine import Trainer
+    from class_query_vad_tpu_torch.models import build_model
+    from class_query_vad_tpu_torch.models.detr import randomize_constants
+
+    out = {}
+    for name, config in REMAT_CONFIGS.items():
+        cfg = get_cfg_custom(config)
+        trainer = Trainer(build_model(cfg, dtype=torch.bfloat16), cfg)
+        built = [m.remat for m in trainer.model.modules()
+                 if hasattr(m, "remat")]
+        set_gradient_checkpointing(trainer.model, False)
+        check(built == [m.remat for m in trainer.model.modules()
+                        if hasattr(m, "remat")],
+              f"remat {name}: the switch differs from build_model's flags")
+        batch = train_batch(cfg)
+        res = {remat: remat_steps(counters, trainer, batch, remat)
+               for remat in (False, True)}
+        del trainer
+        torch.cuda.empty_cache()
+        for remat, (ms, peak, per_step) in res.items():
+            nonzero = [{k: v for k, v in d.items() if v} for d in per_step]
+            print(f"remat {name}, GRADIENT_CHECKPOINTING {remat}: median "
+                  f"{ms:.2f} ms/step over {REMAT_STEPS - 1} steps, peak "
+                  f"{peak:.2f} GiB; launches per step {nonzero}")
+        main = config == CONFIG
+        for remat, (_, _, per_step) in res.items():
+            want = ({"fused_blend2d": 48 if remat else 24,
+                     "blend2d_bwd_dvol": 24, "blend2d_bwd_dcomps": 24}
+                    if main else {})
+            check(all(d == {**{k: 0 for k in d}, **want} for d in per_step),
+                  f"remat {name} ({remat}): launches per step {per_step}, "
+                  f"expected {want or 'none'}")
+        cfg = get_cfg_custom(config, ["CONFIG.MODEL.FAST_DTYPE", "float32",
+                                      "CONFIG.MODEL.DECODER_DTYPE",
+                                      "float32"])
+        model = build_model(cfg, torch.float32, dev,
+                            torch.Generator().manual_seed(7))
+        randomize_constants(model, torch.Generator().manual_seed(8))
+        trainer = Trainer(model, cfg)
+        batch = {k: torch.as_tensor(v).to(dev)
+                 for k, v in train_batch(cfg, seed=3).items()}
+        (l0, g0), (l1, g1) = (remat_grads(trainer, batch, r)
+                              for r in (False, True))
+        del trainer, model
+        torch.cuda.empty_cache()
+        e = abs(l1 - l0) / abs(l0)
+        check(e <= REMAT_TOL, f"remat {name}: loss {l1} against {l0}")
+        check(sorted(g0) == sorted(g1), f"remat {name}: other parameters "
+                                        f"got gradients")
+        floor = TRAIN_GRAD_FLOOR * max(g.abs().max().item()
+                                       for g in g0.values())
+        worst = max(((g1[k] - g).abs().max().item()
+                     / (REMAT_TOL * g.abs().max().item() + floor), k)
+                    for k, g in g0.items())
+        print(f"remat {name}: float32 step, dropout on: loss {l0:.7f} off, "
+              f"{l1:.7f} on (rel {e:.1e}); gradients of {len(g0)} tensors, "
+              f"the farthest {worst[1]} at {worst[0]:.1%} of {REMAT_TOL:.0e}"
+              f" x its max + {TRAIN_GRAD_FLOOR:.0e} x the model's")
+        check(worst[0] <= 1, f"remat {name}: gradients of {worst[1]} differ")
+        out[f"{name} train with remat, {REMAT_STEPS} steps"] = {
+            k: sum(d[k] for d in res[True][2]) for k in res[True][2][0]}
+    return out
+
+
+def phase_device_preprocess(dev, counters, loop_ms: float):
+    """Phase 37: on-device preprocessing (``datasets.device_preprocess``),
+    the JAX bench's ``--device-preprocess`` route.  The eval graph's uint8
+    resize of [2, 16, 400, 500, 3] frames on the card against the same
+    function on the CPU (and ``native_decode``'s resize where it builds),
+    bit for bit, its normalized output within ``PREP_TOL``; the main path
+    served through ``run_validation`` from uint8 frames (``transfer_dtype
+    None``, the graph in ``forward_fn``) against phase 31's route (float32
+    clips, bf16 shipping) on the same batches, interleaved: ms/batch,
+    bytes shipped, 24 K1 launches per batch; the train graph card vs CPU,
+    then feeding one main-path train step (24 each of K1, K3, K4).
+    Returns the launches."""
+    import tempfile
+
+    from class_query_vad_tpu_torch.config import get_cfg_custom
+    from class_query_vad_tpu_torch.datasets import DataLoader, native_decode
+    from class_query_vad_tpu_torch.datasets.device_preprocess import (
+        draw_train_params, make_eval_preprocess, make_train_preprocess,
+        pil_resize_bicubic, resized_dims)
+    from class_query_vad_tpu_torch.engine import Trainer
+    from class_query_vad_tpu_torch.engine.evaluate import run_validation
+    from class_query_vad_tpu_torch.losses import (
+        build_criterion_and_postprocessor, build_matcher)
+    from class_query_vad_tpu_torch.models import build_model
+    from class_query_vad_tpu_torch.models.detr import randomize_constants
+
+    img = int(get_cfg_custom(CONFIG).CONFIG.DATA.IMG_SIZE)
+    rng = np.random.default_rng(37)
+    raw = [rng.integers(0, 256, (2, 16) + PREP_RAW_HW + (3,), np.uint8)
+           for _ in range(PREP_BATCHES)]
+    nw, nh = resized_dims(img, PREP_RAW_HW[1], PREP_RAW_HW[0])
+    card = pil_resize_bicubic(torch.from_numpy(raw[0]).to(dev), (nh, nw))
+    t0 = time.perf_counter()
+    host = pil_resize_bicubic(torch.from_numpy(raw[0][:1]), (nh, nw))
+    cpu_s = time.perf_counter() - t0
+    card = card.cpu()
+    same = torch.equal(card[:1], host)
+    print(f"device preprocessing: uint8 resize {PREP_RAW_HW} -> {(nh, nw)} "
+          f"of 16 frames, card {'equal' if same else 'DIFFERENT'} bit for "
+          f"bit to the CPU ({cpu_s:.1f} s there)")
+    check(same, "the card's uint8 resize differs from the CPU's")
+    built = native_decode.available()
+    if built:
+        ref = np.stack([native_decode.resize(f, nw, nh) for f in raw[0][0]])
+        same = np.array_equal(ref, card[0].numpy())
+        check(same, "the card's uint8 resize differs from native_decode's")
+    print(f"device preprocessing: native_decode "
+          f"{'built; its resize ' + ('equal bit for bit' if same else 'DIFFERENT') if built else 'did not build (no g++, libjpeg or libpng): no check against it'}")
+    f32, out_hw = make_eval_preprocess(img, PREP_RAW_HW)
+    err = (f32(torch.from_numpy(raw[0]).to(dev)).cpu()
+           - f32(torch.from_numpy(raw[0][:1]))).abs()[:1].max().item()
+    print(f"device preprocessing: eval graph's float32 output card vs CPU "
+          f"max|err| {err:.1e} (tol {PREP_TOL:.0e}), out {out_hw}")
+    check(err <= PREP_TOL and out_hw == LOOP_CANVAS,
+          "the eval graph differs between card and CPU")
+
+    pre, _ = make_eval_preprocess(img, PREP_RAW_HW, torch.bfloat16)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = loop_cfg(CONFIG, tmp, LOOP_CANVAS, 2)
+        cfg.CONFIG.DATA.LABEL_PATH = write_labelmap(
+            os.path.join(tmp, "labelmap.pbtxt"))
+        floats = list(DataLoader(SyntheticClips(cfg, 2 * PREP_BATCHES, 37,
+                                                LOOP_WIDTHS[:1]), 2, cfg,
+                                 num_workers=2))
+        u8 = [({"pixels": r, "mask": b["mask"]}, meta)
+              for r, (b, meta) in zip(raw, floats)]
+        model = build_model(cfg, dtype=torch.bfloat16)
+        randomize_constants(model, torch.Generator().manual_seed(37))
+        _, post, _ = build_criterion_and_postprocessor(cfg, build_matcher(cfg))
+        runs = {
+            "uint8 frames, preprocessed on the card": lambda: run_validation(
+                cfg, model, post, u8, transfer_dtype=None,
+                forward_fn=lambda px, mk: model(pre(px), mk)),
+            "float32 clips, bf16 shipping": lambda: run_validation(
+                cfg, model, post, floats, transfer_dtype=torch.bfloat16),
+        }
+        for c in counters:
+            c.launches = 0
+        res = runs["uint8 frames, preprocessed on the card"]()
+        torch.cuda.synchronize()
+        launches = {c.__name__: c.launches for c in counters}
+        check(launches == {**{k: 0 for k in launches},
+                           "fused_blend2d": 24 * PREP_BATCHES},
+              f"preprocess loop launches {launches}, expected K1 alone, 24 "
+              f"per batch")
+        check(0.0 <= res["mAP"] <= 1.0, f"mAP {res['mAP']}")
+        meds, _ = timed_loop(runs, PREP_BATCHES, "eval loop without the "
+                             "criterion (B=2)", {"fused_blend2d":
+                                                 24 * PREP_BATCHES},
+                             PREP_REPS)
+        u8_bytes = raw[0].nbytes
+        bf16_bytes = floats[0][0]["pixels"].size * 2
+        print(f"device preprocessing: {u8_bytes / 2**20:.2f} MiB of uint8 "
+              f"frames shipped per batch against {bf16_bytes / 2**20:.2f} "
+              f"MiB of bf16 pixels ({u8_bytes / bf16_bytes:.2f}x; float32 "
+              f"{2 * bf16_bytes / 2**20:.2f} MiB); ms/batch "
+              + ", ".join(f"{k} {v:.2f}" for k, v in meds.items())
+              + f"; phase 31's loop with the criterion {loop_ms:.2f}")
+        del model
+    torch.cuda.empty_cache()
+
+    tcfg = get_cfg_custom(CONFIG)
+    trainer = Trainer(build_model(tcfg, dtype=torch.bfloat16), tcfg)
+    params = draw_train_params(np.random.default_rng(38), img, PREP_RAW_HW,
+                               0.4, 0.4, 0.1, PCA_EIGVAL, PCA_EIGVEC)
+    frames = torch.from_numpy(raw[1][:1])
+    t32, thw = make_train_preprocess(img, PREP_RAW_HW)
+    err = (t32(frames.to(dev), params).cpu() - t32(frames, params)).abs()
+    print(f"device preprocessing: train graph (flip {bool(params['flip'])}, "
+          f"crop {params['crop_yx'].tolist()}, HSV {params['hsv_shift'].tolist()}"
+          f") float32 card vs CPU max|err| {err.max().item():.1e}, out {thw}")
+    check(err.max().item() <= PREP_TOL, "the train graph differs between "
+                                        "card and CPU")
+    tfn, _ = make_train_preprocess(img, PREP_RAW_HW, torch.bfloat16)
+    batch = train_batch(tcfg, seed=38)
+    batch["pixels"] = tfn(frames.to(dev), params)
+    for c in counters:
+        c.launches = 0
+    metrics = trainer.step(batch)
+    torch.cuda.synchronize()
+    train = {c.__name__: c.launches for c in counters}
+    print(f"device preprocessing: a main-path train step on the train "
+          f"graph's pixels, total loss {metrics['total_loss'].item():.5f}, "
+          f"launches {train}")
+    check(all(bool(torch.isfinite(v).all()) for v in metrics.values()),
+          "the preprocessed train step's losses are not finite")
+    check(train == {**{k: 0 for k in train},
+                    **{k: 24 for k in TRAIN_KERNELS["2d"]}},
+          f"preprocessed train step launches {train}")
+    del trainer
+    torch.cuda.empty_cache()
+    return {f"uint8 eval loop, {PREP_BATCHES} batches": launches,
+            "preprocessed train step": train}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3488,6 +3922,12 @@ def main() -> int:
         f"UCF eval loop, {TUBE_LOOP_BATCHES} batches": ucf_loop,
         f"train loop with resume, {2 * RESUME_STEPS} steps": resume,
     })
+    # CSN, GRADIENT_CHECKPOINTING and on-device preprocessing
+    tube_launches.update(phase_csn(dev, counters))
+    with phase_seconds("phase 36 (GRADIENT_CHECKPOINTING off and on)"):
+        tube_launches.update(phase_remat(dev, counters))
+    with phase_seconds("phase 37 (on-device preprocessing)"):
+        tube_launches.update(phase_device_preprocess(dev, counters, loop_ms))
     print(f"eval loop (phase 31) {loop_ms:.2f} ms/batch (busy {loop_busy:.2f}"
           f") vs phase 3 {main_ms:.2f}; UCF loop {ucf_loop_ms:.2f} ms/batch; "
           f"checkpoint save / load: model {save_s:.2f} / {load_s:.2f} s, "

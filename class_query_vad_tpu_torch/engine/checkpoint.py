@@ -44,6 +44,9 @@ FORMAT = "class_query_vad_tpu_torch/checkpoint-1"
 # keys of a reference DETR state_dict that no port module holds: the class
 # decoder layer's ConvBlock has a ``q_proj`` its forward never calls
 _REFERENCE_ONLY = re.compile(r"\.conv_blocks\.\d+\.q_proj\.")
+# torch BatchNorm's step counters (CSN), which the port's batch norms do
+# not keep: their running statistics are never updated
+_BN_COUNTERS = re.compile(r"\.num_batches_tracked$")
 # the fast encoder's window heads (no reference counterpart) and the exact
 # encoder's heads they take the place of
 _WINDOW_HEADS = re.compile(r"\.self_attn\.window_(offsets|weights)\.")
@@ -149,6 +152,8 @@ def load_pretrained_params(cfg, path: str, model: nn.Module) -> List[str]:
     as it is; anything else as a reference DETR state_dict
     (``load_torch_state_dict``) onto the port's key names, which are the
     reference's.  The reference's unused ConvBlock ``q_proj`` is dropped.
+    A CSN's ``*.num_batches_tracked`` buffers (the reference's
+    BatchNorm3d's) are dropped too, and returned by name and printed.
     With the fast encoder the window heads stay at their init and the
     exact heads are not loaded; both are returned, by name, and printed.
     Any other missing or unexpected key, or a shape that differs, raises.
@@ -160,6 +165,8 @@ def load_pretrained_params(cfg, path: str, model: nn.Module) -> List[str]:
     sd = _flat(ckpt)
     own = model.state_dict()
     sd = {k: v for k, v in sd.items() if not _REFERENCE_ONLY.search(k)}
+    counters = [k for k in sd if _BN_COUNTERS.search(k) and k not in own]
+    sd = {k: v for k, v in sd.items() if k not in counters}
     fast = _is_fast(cfg)
     kept = [k for k in own
             if fast and k not in sd and _WINDOW_HEADS.search(k)]
@@ -172,11 +179,14 @@ def load_pretrained_params(cfg, path: str, model: nn.Module) -> List[str]:
     # only ``kept`` is left out; a shape that differs raises here
     model.load_state_dict({k: v for k, v in sd.items() if k in own},
                           strict=False)
+    if counters:
+        print(f"load_pretrained_params: {len(counters)} batch-norm step "
+              f"counters are not loaded: {counters}")
     if kept or unused:
         print(f"load_pretrained_params: the fast encoder's window heads "
               f"{kept} stay at their init; the reference's exact heads "
               f"{unused} are not loaded")
-    return kept + unused
+    return counters + kept + unused
 
 
 _DONOR = ("transformer.encoder.", "transformer.decoder.",

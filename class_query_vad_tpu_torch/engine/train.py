@@ -33,15 +33,22 @@ from ..utils.lr_scheduler import build_scheduler
 
 def backbone_freeze_labels(model: nn.Module, cfg) -> Dict[str, str]:
     """{parameter name: "frozen" | "trainable"}, the reference's
-    ``tune_point`` freezing (the JAX package's labels, train.py:37-101):
-    for a pretrained ViT (``BACKBONE_NAME`` "ViT", ``PRETRAINED`` and
-    TUNE_POINT > 0) ``patch_embed``, every norm of the trunk and the
-    blocks with index <= TUNE_POINT; every other backbone freezes nothing
-    (the port has no CSN, whose stages JAX freezes)."""
+    ``tune_point`` freezing (the JAX package's labels, train.py:37-101),
+    active for a ``PRETRAINED`` backbone at TUNE_POINT > 0:
+
+    * ViT (``BACKBONE_NAME`` "ViT"): ``patch_embed``, every norm of the
+      trunk and the blocks with index <= TUNE_POINT;
+    * CSN: the stem (``conv1``, ``bn1``) when TUNE_POINT > 1 and
+      ``layer{n}`` when TUNE_POINT > n + 1;
+    * any other backbone (VideoMamba) trains whole.
+
+    CSN's running statistics are buffers, not parameters: the optimizer
+    never sees them (JAX, which holds them in its param tree, labels them
+    frozen always)."""
     mc = cfg.CONFIG.MODEL
     tune = int(mc.get("TUNE_POINT", 0))
-    active = (mc.BACKBONE_NAME == "ViT" and bool(mc.get("PRETRAINED", False))
-              and tune > 0)
+    bb = mc.BACKBONE_NAME
+    active = bool(mc.get("PRETRAINED", False)) and tune > 0
 
     def frozen(name: str) -> bool:
         keys = name.split(".")
@@ -50,9 +57,16 @@ def backbone_freeze_labels(model: nn.Module, cfg) -> Dict[str, str]:
         rest = keys[3:-1]
         if not rest:
             return False
-        if rest[0] == "patch_embed" or any("norm" in k for k in rest):
-            return True
-        return rest[0] == "blocks" and int(rest[1]) <= tune
+        if bb == "ViT":
+            if rest[0] == "patch_embed" or any("norm" in k for k in rest):
+                return True
+            return rest[0] == "blocks" and int(rest[1]) <= tune
+        if bb.startswith("CSN"):
+            if rest[0] in ("conv1", "bn1"):
+                return tune > 1
+            if rest[0].startswith("layer"):
+                return tune > int(rest[0][5:]) + 1
+        return False
 
     return {name: "frozen" if frozen(name) else "trainable"
             for name, _ in model.named_parameters()}

@@ -143,7 +143,7 @@ class ViTBackboneFPN(nn.Module):
         super().__init__()
         self.spec = spec
         self.d_model = d_model
-        self.body = ViT(spec.vit)
+        self.body = ViT(spec.vit, spec.gradient_checkpointing)
         self.lateral_convs = nn.ModuleList(
             lateral_conv(s, spec.vit.embed_dim, d_model) for s in FPN_SCALES
         )

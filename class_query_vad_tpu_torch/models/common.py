@@ -18,8 +18,19 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 LN_EPS = 1e-6
+
+
+def remat_call(remat: bool, module: nn.Module, *args):
+    """``module(*args)``; with ``remat``, in training and with gradients
+    on, recomputed in the backward instead of keeping its activations
+    (``torch.utils.checkpoint``, non-reentrant, the RNG state replayed so
+    that dropout draws the same masks): the JAX package's ``nn.remat``."""
+    if remat and module.training and torch.is_grad_enabled():
+        return checkpoint(module, *args, use_reentrant=False)
+    return module(*args)
 
 
 class Linear(nn.Linear):

@@ -31,7 +31,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..utils.misc import inverse_sigmoid
-from .common import MLP, LayerNorm, Linear, sine_embed_for_position
+from .common import (MLP, LayerNorm, Linear, remat_call,
+                     sine_embed_for_position)
 
 
 def masked_softmax(logits: torch.Tensor, key_mask: torch.Tensor | None):
@@ -290,8 +291,10 @@ class TransformerDecoder(nn.Module):
                  nhead: int = 8, dim_feedforward: int = 2048,
                  num_classes: int = 80, query_dim: int = 4,
                  bbox_embed_diff_each_layer: bool = False,
-                 n_levels: int = 4, dropout: float = 0.1):
+                 n_levels: int = 4, dropout: float = 0.1,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         d = d_model
         self.num_layers, self.d_model, self.query_dim = num_layers, d, query_dim
         self.bbox_embed_diff_each_layer = bbox_embed_diff_each_layer
@@ -346,14 +349,14 @@ class TransformerDecoder(nn.Module):
                 [query_sine_embed[..., : d // 2] * scale_y,
                  query_sine_embed[..., d // 2:] * scale_x], dim=-1)
 
-            output, actor_feature, q_memory = self.layers[layer_id](
-                output, memory, memory_key_padding_mask, pos, query_pos,
-                query_sine_embed, layer_id == 0,
-            )
-            cls_output, class_queries = self.cls_layers[layer_id](
-                actor_feature.detach(), q_memory, pos[:, 0], query_sine_embed,
-                class_queries, orig_res, layer_id == 0,
-            )
+            output, actor_feature, q_memory = remat_call(
+                self.remat, self.layers[layer_id], output, memory,
+                memory_key_padding_mask, pos, query_pos, query_sine_embed,
+                layer_id == 0)
+            cls_output, class_queries = remat_call(
+                self.remat, self.cls_layers[layer_id],
+                actor_feature.detach(), q_memory, pos[:, 0],
+                query_sine_embed, class_queries, orig_res, layer_id == 0)
 
             # iterative box refinement (detached reference update)
             tmp = self.run_bbox_embed(layer_id, output)

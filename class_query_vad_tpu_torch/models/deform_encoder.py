@@ -29,7 +29,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.deform_attn import ms_deform_attn_3d
-from .common import LayerNorm, Linear
+from .common import LayerNorm, Linear, remat_call
 
 Shapes = Tuple[Tuple[int, int, int], ...]     # per level (T, H, W)
 Rows = Tuple[Tuple[int, int], ...]            # token-row spans [start, stop)
@@ -155,8 +155,10 @@ class DeformableEncoder(nn.Module):
 
     def __init__(self, num_layers: int = 6, d_model: int = 256,
                  d_ffn: int = 2048, n_levels: int = 4, n_heads: int = 8,
-                 n_points: int = 8, dropout: float = 0.1):
+                 n_points: int = 8, dropout: float = 0.1,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.layers = nn.ModuleList(
             DeformableEncoderLayer(d_model, d_ffn, n_levels, n_heads,
                                    n_points, dropout)
@@ -172,5 +174,5 @@ class DeformableEncoder(nn.Module):
         x = src
         for i, layer in enumerate(self.layers):
             rows = last_layer_rows if i == len(self.layers) - 1 else None
-            x = layer(x, pos, ref, shapes, mask, rows)
+            x = remat_call(self.remat, layer, x, pos, ref, shapes, mask, rows)
         return x

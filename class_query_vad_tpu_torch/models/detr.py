@@ -1,6 +1,6 @@
 """DETR top module and ``build_model`` (counterpart of
-``class_query_vad_tpu/models/detr.py``: the ViT branch, and the VideoMamba
-branch in eval mode).
+``class_query_vad_tpu/models/detr.py``: the ViT branch, the CSN branch with
+its ``input_proj`` levels, and the VideoMamba branch in eval mode).
 
 backbone -> transformer -> heads: learned anchors ``refpoint_embed``
 [NQ, 4] (single-frame AVA), the binary actorness head ``class_embed_b``
@@ -11,8 +11,11 @@ refinement, in float32.  Outputs [B, NQ, ...] plus per-layer
 
 Training and evaluation follow torch's ``train()`` / ``eval()`` (the JAX
 package's ``deterministic`` flag): ``train()`` turns on the dropouts, the
-ViT's drop path and checkpointing, and the class head's dropout (rate 0.5
-on the class-query outputs, detr.py:126).
+ViT's drop path and checkpointing, CSN's batch statistics, and the class
+head's dropout (rate 0.5 on the class-query outputs, detr.py:126).
+``CONFIG.GRADIENT_CHECKPOINTING`` recomputes in the backward each ViT
+block, CSN bottleneck, encoder layer and decoder layer (as JAX's remat);
+the Mamba family does not train yet.
 """
 
 from __future__ import annotations
@@ -28,8 +31,10 @@ from ..ops.deform_attn import (
     directional_offset_init_l2hp,
     directional_offset_init_l3hp,
 )
-from .backbone import ViTBackboneFPN
+from .backbone import ViTBackboneFPN, level_masks_and_poses
 from .common import Linear
+from .csn import (Affine, CSNBackbone, CSNBatchNorm, InputProjections,
+                  keep_norms_float32)
 from .mamba_block import a_log_init, dt_proj_init_
 from .spec import ModelSpec, spec_from_cfg
 from .transformer import DABTransformer, center_slice_plan, torch_dtype
@@ -44,16 +49,17 @@ DEFAULT_INPUT_HW = (256, 320)
 class DETR(nn.Module):
     def __init__(self, spec: ModelSpec, input_hw=DEFAULT_INPUT_HW):
         super().__init__()
-        if not spec.is_vit:
-            raise NotImplementedError(
-                f"BACKBONE_NAME={spec.backbone_name} is not ported yet "
-                "(ROADMAP.md Queue 1 step 13: CSN)")
         self.spec = spec
         # index 0 as in the reference's Joiner(backbone, position_embedding)
         if spec.is_mamba:
             backbone = VideoMambaBackbone(spec, input_hw)
-        else:
+        elif spec.is_vit:
             backbone = ViTBackboneFPN(spec, spec.d_model)
+        else:
+            backbone = CSNBackbone(spec)
+            # layers 2-4 and one extra stride-2 level (JAX detr.py:67-92)
+            self.input_proj = InputProjections((512, 1024, 2048),
+                                               spec.d_model)
         self.backbone = nn.ModuleList([backbone])
         self.transformer = DABTransformer(spec)
         n_ref = spec.num_queries if spec.single_frame else (
@@ -65,18 +71,25 @@ class DETR(nn.Module):
     def forward(self, pixels: torch.Tensor, mask: torch.Tensor) -> Dict:
         """pixels [B, T, H, W, 3]; mask [B, H, W] bool, True = padded."""
         s = self.spec
-        if self.training and s.gradient_checkpointing:
-            raise NotImplementedError(
-                "CONFIG.GRADIENT_CHECKPOINTING (encoder and decoder remat) is "
-                "not ported yet (ROADMAP.md Queue 1, step 8a)")
         refs = self.refpoint_embed.weight
         if s.is_mamba:
             if self.training:
                 raise NotImplementedError(
-                    "training the Mamba family (K5's backward, VideoMamba "
-                    "remat, train-mode FrozenBN) is not ported yet "
-                    "(ROADMAP.md Queue 1, step 19)")
+                    "training the Mamba family (K5's backward, VideoMamba's "
+                    "and the SSM encoder's remat, train-mode FrozenBN) is "
+                    "not ported yet (ROADMAP.md Queue 1, step 19)")
             srcs, masks, poses = self.backbone[0](pixels, mask)
+            tq = 1 if s.single_frame else s.model_temp_len
+            hs, cls_hs, references = self.transformer(
+                srcs, masks, poses, refs.reshape(s.num_queries, tq, 4))
+            return self._heads_and_outputs(hs, cls_hs, references,
+                                           pixels.shape[0])
+        if not s.is_vit:
+            # CSN: batch statistics follow train() (JAX's not
+            # deterministic); its levels have unequal T, so the exact
+            # encoder decodes on the common grid
+            srcs = self.input_proj(self.backbone[0](pixels))
+            masks, poses = level_masks_and_poses(srcs, mask, s.d_model)
             tq = 1 if s.single_frame else s.model_temp_len
             hs, cls_hs, references = self.transformer(
                 srcs, masks, poses, refs.reshape(s.num_queries, tq, 4))
@@ -175,13 +188,15 @@ def init_weights(model: DETR, generator: torch.Generator) -> None:
     the Mamba family the dt projections as mamba_simple's
     (``dt_proj_init_``), A_log = log(1..N), D = 1, VideoMamba's position
     tables N(0, 0.02) and cls token 0, SS2D's x_proj_weight lecun-normal,
-    dt_projs N(0, 1), A_logs 0, Ds 1, FrozenBatchNorm as identity."""
+    dt_projs N(0, 1), A_logs 0, Ds 1, FrozenBatchNorm as identity; CSN's
+    batch norms as identity, its ``Affine`` N(0, 1), the GroupNorms of
+    ``input_proj`` ones / zeros."""
     g = generator
     s = model.spec
     for name, mod in model.named_modules():
         if name.endswith(("dt_proj", "dt_proj_b")):
             dt_proj_init_(mod, g)
-        elif isinstance(mod, FrozenBatchNorm):
+        elif isinstance(mod, (FrozenBatchNorm, CSNBatchNorm)):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
             mod.running_mean.zero_()
@@ -211,11 +226,14 @@ def init_weights(model: DETR, generator: torch.Generator) -> None:
                             "self_attn.attention_weights")):
             mod.weight.zero_()
             mod.bias.zero_()
-        elif isinstance(mod, nn.LayerNorm):
+        elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
         elif isinstance(mod, nn.Embedding):
             mod.weight.copy_(torch.randn(mod.weight.shape, generator=g))
+        elif isinstance(mod, Affine):
+            for p in (mod.weight, mod.bias):
+                p.copy_(torch.randn(p.shape, generator=g))
         elif isinstance(mod, (nn.Linear, nn.Conv1d, nn.Conv2d, nn.Conv3d,
                               nn.ConvTranspose3d)):
             w = mod.weight
@@ -248,9 +266,10 @@ def randomize_constants(model: DETR, generator: torch.Generator) -> None:
     """Redraw the parameters that ``init_weights`` sets to constants, as the
     parity tests' random params do: LayerNorm scales 1 + N(0, 0.1), the
     biases N(0, 0.1) (the directional offset bias and the dt biases stay),
-    the encoders' offset/weight kernels N(0, 1/fan_in); in the Mamba
-    family FrozenBatchNorm's scale 1 + N(0, 0.1), mean N(0, 0.1) and
-    variance U(0.5, 1.5), A_log(s) and D(s) + N(0, 0.1) and the cls token
+    the encoders' offset/weight kernels N(0, 1/fan_in); GroupNorm scales
+    as LayerNorm's; FrozenBatchNorm's (the Mamba family) and CSN's batch
+    norms' scale 1 + N(0, 0.1), mean N(0, 0.1) and variance U(0.5, 1.5);
+    in the Mamba family A_log(s) and D(s) + N(0, 0.1) and the cls token
     N(0, 0.02).
 
     For checks with random weights only: at the JAX init the class logits
@@ -260,9 +279,10 @@ def randomize_constants(model: DETR, generator: torch.Generator) -> None:
     g = generator
     noise = lambda x, std: (std * torch.randn(x.shape, generator=g)).to(x.device)
     for name, mod in model.named_modules():
-        if isinstance(mod, (nn.LayerNorm, FrozenBatchNorm)):
+        if isinstance(mod, (nn.LayerNorm, nn.GroupNorm, FrozenBatchNorm,
+                            CSNBatchNorm)):
             mod.weight.copy_(1.0 + noise(mod.weight, 0.1))
-        if isinstance(mod, FrozenBatchNorm):
+        if isinstance(mod, (FrozenBatchNorm, CSNBatchNorm)):
             mod.running_mean.copy_(noise(mod.running_mean, 0.1))
             mod.running_var.copy_(
                 0.5 + torch.rand(mod.running_var.shape, generator=g))
@@ -288,10 +308,11 @@ def build_model(cfg, dtype: torch.dtype = torch.float32, device=None,
 
     ``dtype`` is the backbone's compute dtype (the JAX package's DETR
     ``dtype``; VideoMamba keeps its LayerNorms, dt projections, A, D and
-    position tables float32, and ``mamba_proj`` runs in float32); the fast
-    encoder takes ``MODEL.FAST_DTYPE``, the exact and the SSM / VSS
-    encoders float32, the
-    decoder ``MODEL.DECODER_DTYPE``, with the decoder's float32 islands
+    position tables float32, and ``mamba_proj`` runs in float32; CSN keeps
+    its norms' parameters and running statistics float32, and
+    ``input_proj`` runs in float32); the fast encoder takes
+    ``MODEL.FAST_DTYPE``, the exact and the SSM / VSS encoders float32,
+    the decoder ``MODEL.DECODER_DTYPE``, with the decoder's float32 islands
     (sine-embed MLPs, box refinement, class queries) and the heads kept
     float32.  ``input_hw`` is the clip size a VideoMamba model is built
     for (its learned position table has one row per 16x16 patch).  The
@@ -314,6 +335,7 @@ def build_model(cfg, dtype: torch.dtype = torch.float32, device=None,
         to_compute_dtype(model.backbone[0].body, dtype)
     else:
         model.backbone.to(dtype)
+        keep_norms_float32(model.backbone)
     if spec.encoder_type == "fast_attention":
         model.transformer.encoder.to(torch_dtype(spec.fast_dtype))
     dec = model.transformer.decoder

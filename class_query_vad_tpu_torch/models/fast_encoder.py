@@ -64,7 +64,7 @@ from ..ops.blend3d import blend3d
 from ..ops.fast_deform import align_all_levels, windowed_blend_fused
 from ..ops.fast_deform_cuda import fused_blend2d, fused_components
 from ..ops.native_blend import native_blend
-from .common import LayerNorm, Linear
+from .common import LayerNorm, Linear, remat_call
 
 Shapes = Tuple[Tuple[int, int, int], ...]     # per level (T, H, W)
 
@@ -233,8 +233,9 @@ class FastDeformableEncoder(nn.Module):
                  d_ffn: int = 2048, n_levels: int = 4, n_heads: int = 8,
                  n_points: int = 8, radius: int = 1, window: str = "2d",
                  cross_level: str = "resample", dropout: float = 0.1,
-                 use_kernels: bool = True):
+                 use_kernels: bool = True, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.layers = nn.ModuleList(
             FastEncoderLayer(d_model, d_ffn, n_levels, n_heads, n_points,
                              radius, window, cross_level, dropout,
@@ -252,5 +253,5 @@ class FastDeformableEncoder(nn.Module):
         mask = (torch.cat([m.reshape(b, -1) for m in mask_levels], dim=1)
                 if mask_levels is not None else None)
         for layer in self.layers:
-            x = layer(x, pos, shapes, mask)
+            x = remat_call(self.remat, layer, x, pos, shapes, mask)
         return split_levels(x, shapes)

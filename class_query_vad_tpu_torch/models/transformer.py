@@ -121,13 +121,14 @@ class DABTransformer(nn.Module):
         if s.encoder_type == "attention":
             self.encoder = DeformableEncoder(
                 s.enc_layers, s.d_model, s.dim_feedforward,
-                s.num_feature_levels, s.nhead, s.enc_n_points, s.dropout)
+                s.num_feature_levels, s.nhead, s.enc_n_points, s.dropout,
+                s.gradient_checkpointing)
         elif s.encoder_type == "fast_attention":
             self.encoder = FastDeformableEncoder(
                 s.enc_layers, s.d_model, s.dim_feedforward,
                 s.num_feature_levels, s.nhead, s.enc_n_points, s.fast_radius,
                 s.fast_window, s.fast_cross_level, s.dropout,
-                s.fast_use_pallas,
+                s.fast_use_pallas, s.gradient_checkpointing,
             )
         elif s.encoder_type in ("ssm", "vssm"):
             from .ssm_encoder import SSMEncoder
@@ -142,6 +143,7 @@ class DABTransformer(nn.Module):
             s.num_classes, query_dim=4,
             bbox_embed_diff_each_layer=s.bbox_embed_diff_each_layer,
             n_levels=s.num_feature_levels, dropout=s.dropout,
+            remat=s.gradient_checkpointing,
         )
 
     def forward(self, srcs, masks, poses, refpoint_embed, pre_sliced=None):

@@ -23,9 +23,11 @@ Key names follow the reference's torch ViT (``patch_embed.proj``,
 
 Training (``train()`` mode): drop path on both residual branches at rates
 rising linearly over the blocks, ``drop_path_rate * i / (depth - 1)``
-(vit.py:212-214); with ``use_checkpoint`` each block is recomputed in the
-backward (``torch.utils.checkpoint``, the JAX package's ``nn.remat`` of
-``ViTBlock``, vit.py:209-210), which replays the drop-path draws.
+(vit.py:212-214); with ``use_checkpoint`` or ``CONFIG.GRADIENT_CHECKPOINTING``
+(the JAX package remats on either, backbone.py:149) each block is
+recomputed in the backward (``torch.utils.checkpoint``, the JAX package's
+``nn.remat`` of ``ViTBlock``, vit.py:209-210), which replays the
+drop-path draws.
 """
 
 from __future__ import annotations
@@ -33,9 +35,8 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
-from .common import DropPath, LayerNorm, Linear
+from .common import DropPath, LayerNorm, Linear, remat_call
 from .position_encoding import vit_sinusoid_table
 from .resize import bicubic_resize_2d
 
@@ -154,9 +155,11 @@ class Block(nn.Module):
 class ViT(nn.Module):
     """ViT backbone.  Input [B, T, H, W, 3] -> token map [B, t, h, w, C]."""
 
-    def __init__(self, spec):
+    def __init__(self, spec, gradient_checkpointing: bool = False):
         super().__init__()
         self.spec = spec
+        # JAX remats the blocks on either flag (backbone.py:149)
+        self.remat = gradient_checkpointing or spec.use_checkpoint
         d = spec.embed_dim
         self.patch_embed = PatchEmbed(3, d, spec.tubelet_size, spec.patch_size)
         rates = [spec.drop_path_rate * i / max(spec.depth - 1, 1)
@@ -189,13 +192,7 @@ class ViT(nn.Module):
             q_rows = (f0 * h * w, f1 * h * w)       # token rows are t-major
             n_frames = f1 - f0
         last = len(self.blocks) - 1
-        remat = (self.training and self.spec.use_checkpoint
-                 and torch.is_grad_enabled())
         for i, blk in enumerate(self.blocks):
-            rows = q_rows if i == last else None
-            if remat:
-                x = checkpoint(blk, x, rows, use_reentrant=False)
-            else:
-                x = blk(x, rows)
+            x = remat_call(self.remat, blk, x, q_rows if i == last else None)
         x = self.norm(x)
         return x.reshape(b, n_frames, h, w, c)

@@ -24,6 +24,15 @@ the reference's torch names wherever the reference has the module
   ``attention_weights_kernel/bias`` -> ``self_attn.window_offsets`` and
   ``self_attn.window_weights`` (no reference counterpart; lane order kept)
 
+CSN (the reference names of ``utils/checkpoint_convert.py``
+``convert_csn_body`` and ``convert_detr_checkpoint``): flax's ``backbone``
+is the trunk itself -> ``backbone.0.body``; ``layer{s}_{b}`` ->
+``layer{s}.{b}``, its ``down_conv`` / ``down_bn`` -> ``down_sample.0`` /
+``down_sample.1``; the batch norms' ``running_mean`` / ``running_var`` ->
+the modules' buffers; ``input_proj_{i}_conv`` / ``_norm`` ->
+``input_proj.{i}.0`` / ``.1`` (GroupNorm scale -> weight).  A depthwise
+kernel [t, h, w, 1, C] becomes [C, 1, t, h, w] by the Conv rule.
+
 The Mamba family (the reference names of the JAX package's
 ``utils/checkpoint_convert.py`` ``convert_videomamba``,
 ``convert_mamba_proj``, ``convert_ssm_encoder``, ``convert_vss_block``,
@@ -74,6 +83,9 @@ _FAST_HEADS = {
 _NUM_CONV_BLOCKS = 3
 _VSS_RENAME = {"proj_conv": "proj_conv.0", "proj_bn": "proj_conv.1",
                "norm": "norm.norm"}
+# CSN's projection shortcut, and the DETR's input projections
+_CSN_RENAME = {"down_conv": "down_sample.0", "down_bn": "down_sample.1"}
+_INPUT_PROJ = {"conv": "0", "norm": "1"}
 
 
 def _flatten(tree, prefix=()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
@@ -93,9 +105,20 @@ def _module_path(mods: Tuple[str, ...]) -> list:
     mp = re.fullmatch(r"mamba_proj_(\d)", mods[0]) if mods else None
     if mp:
         return ["backbone", "0", "mamba_proj", mp.group(1)]
+    ip = (re.fullmatch(r"input_proj_(\d)_(conv|norm)", mods[0]) if mods
+          else None)
+    if ip:
+        return ["input_proj", ip.group(1), _INPUT_PROJ[ip.group(2)]]
     out = []
     for i, m in enumerate(mods):
         if m in ("recurrent", "step"):        # the SSM encoder's nn.scan
+            continue
+        csn = re.fullmatch(r"(layer\d)_(\d+)", m)
+        if csn:
+            out += [csn.group(1), csn.group(2)]
+            continue
+        if m in _CSN_RENAME:
+            out.append(_CSN_RENAME[m])
             continue
         if i and mods[i - 1] == "ssm" and m in _VSS_RENAME:
             out.append(_VSS_RENAME[m])

@@ -7,6 +7,10 @@ classes otherwise).
   the reference's unused ConvBlock ``q_proj``) of a seeded exact-encoder
   model (``AVA22_ViT-B.yaml`` cut): the port's ``load_pretrained_params``
   must give exactly ``params_from_jax`` of the JAX package's.
+* A reference CSN DETR ``.pth`` (``AVA22_CSN50.yaml`` cut) with its
+  ``num_batches_tracked`` buffers: the same tensors as JAX's converter
+  gives; the counters are dropped and reported, any other unexpected key
+  raises.
 * ``load_detr_weights`` tube -> single-frame and back (``UCF_ViT-B`` <->
   ``AVA22_ViT-B``, the ``refpoint_embed`` reshape; ``class_queries`` 24 vs
   80 classes is the shape mismatch): the same tensors as JAX's, the same
@@ -104,6 +108,36 @@ def test_reference_pth_matches_jax(tmp_path):
     want = params_from_jax(jax_load(jcfg, path))
     _assert_sd_equal(dst.state_dict(), want)
     _assert_sd_equal(dst.state_dict(), src.state_dict())
+
+
+def test_reference_csn_pth_matches_jax(tmp_path):
+    """A reference CSN DETR (``AVA22_CSN50.yaml`` cut) ``.pth`` with the
+    ``*.num_batches_tracked`` buffers of its BatchNorm3d's: through JAX's
+    ``convert_detr_checkpoint`` and ``params_from_jax`` the same tensors as
+    the port's ``load_pretrained_params``, which drops the counters by
+    name; ``load_detr_weights`` transplants its encoder and decoder."""
+    from class_query_vad_tpu.engine.checkpoint import (
+        load_pretrained_params as jax_load,
+    )
+
+    jcfg, tcfg = _cfgs("AVA22_CSN50")
+    src = _model(tcfg, 50)
+    sd = src.state_dict()
+    counters = {k.replace("running_mean", "num_batches_tracked"):
+                torch.tensor(7) for k in sd if k.endswith("running_mean")}
+    assert len(counters) == 1 + 3 * 16 + 4
+    path = _reference_file(tmp_path / "csn.pth", sd, counters)
+    dst = _model(tcfg, 60)
+    assert sorted(load_pretrained_params(tcfg, path, dst)) == sorted(counters)
+    want = params_from_jax(jax_load(jcfg, path))
+    _assert_sd_equal(dst.state_dict(), want)
+    _assert_sd_equal(dst.state_dict(), sd)
+    bad = _reference_file(tmp_path / "bad.pth", sd,
+                          {"backbone.0.body.bn1.momentum": torch.ones(1)})
+    with pytest.raises(KeyError, match="momentum"):
+        load_pretrained_params(tcfg, bad, dst)
+    used, skipped = load_detr_weights(_model(tcfg, 70), path, tcfg)
+    assert used > 20 and skipped == 0
 
 
 def _jax_params(jcfg, model):
