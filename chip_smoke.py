@@ -5,9 +5,10 @@ NVIDIA card.
     python3 chip_smoke.py            # needs one CUDA card and nvcc
 
 1. Device and build: the card's name and power limit (nvidia-smi), TF32
-   off for the parity phases, every CUDA kernel (K1-K6, K8-K13) built from
-   ``csrc/`` (one nvcc per source, started together) with ptxas's register
-   report; K10 and K11 share one source, and K6's serves K7.
+   off for the parity phases, every CUDA kernel (K1-K6, K8-K13 and K5's
+   backward) built from ``csrc/`` (one nvcc per source, started together)
+   with ptxas's register report; K10 and K11 share one source, and K6's
+   serves K7.
 2. Kernels against their plain PyTorch versions on the card, at the main
    path's four level shapes, in float32 and bf16, with kernel / plain
    timings and the card's lower bound for the same work: K1 (fused blend)
@@ -42,7 +43,7 @@ NVIDIA card.
    components route (NUM_ENC_N_POINTS 4) takes 2 steps: 24 launches each of
    K2, K3 and K4 per step.
 6. One float32 train step of the full-width model (its ViT at
-   ``MAIN_TRAIN_CPU_VIT_DEPTH``, 4, of 12 blocks for the CPU's time) on the
+   ``MAIN_TRAIN_CPU_VIT_DEPTH``, 2, of 12 blocks for the CPU's time) on the
    card and on the CPU, same weights and batch, dropout off: the same matcher assignment,
    the loss and every parameter's gradient agree.  Both forwards run
    first; the few activations that the two put on two sides of a kink (a
@@ -63,7 +64,8 @@ NVIDIA card.
    times per forward (48 backbone and 48 encoder scans); median ms/batch,
    peak memory, device ms per stage, the profiler's busy share.
 9. The same VSS model in float32 on the card (K5) and on the CPU (plain
-   scan), B=1: all three heads must agree.
+   scan), B=1, VideoMamba at ``MAMBA_FWD_CPU_DEPTH`` (6) of its 24
+   blocks: all three heads must agree.
 10. K10 and K11 (the native cross-level blend, 2d and 3d windows) against
    their plain version on the card: the native mode's four query grids,
    each over the four levels at their own resolution, at B=2 with T=2
@@ -131,7 +133,7 @@ NVIDIA card.
    plain PyTorch) in the 2d and the 3d window: one timed bf16 request at
    full width with no kernel launched, then float32 card vs CPU (at 1 of
    the 6 encoder layers in either window).
-24. ``AVA22_ViT-B_fast_native`` trains: 1 + 4 full-width bf16 B=1 steps
+24. ``AVA22_ViT-B_fast_native`` trains: 1 + 1 full-width bf16 B=1 steps
    through ``Trainer`` in the 2d and the 3d window (24 K10 or K11 launches
    per step and no other kernel: the backward is the plain version's
    VJP), ms/step, peak memory, stage shares (no profiled step: its trace
@@ -143,7 +145,7 @@ NVIDIA card.
    float32) with no kernel launched: ms/batch, peak memory, stage events,
    busy share; then the float32 heads card vs CPU at B=1,
    ``EXACT_FWD_CPU_LAYERS`` (2) of 6 layers.
-26. Its train path: 1 + 4 full-width bf16 B=1 steps (no kernel), non-zero
+26. Its train path: 1 + 2 full-width bf16 B=1 steps (no kernel), non-zero
    gradients into every encoder layer's value / offset / weight
    projections; then one float32 train step card vs CPU at
    ``EXACT_TRAIN_CPU_LAYERS`` of 6 layers, the sampler's trilinear floors
@@ -159,14 +161,15 @@ NVIDIA card.
    K4 per step and no other kernel.
 29. ``UCF_ViT-B`` (32x224x224) and ``JHMDB_ViT-B`` (40x256x256, 108,800
    encoder tokens): the exact encoder over every frame, 3 layers; one
-   timed request each and 1 + 2 train steps, no kernel; then UCF's
-   float32 forward card vs CPU at ``UCF_EXACT_FWD_CPU_LAYERS`` (2) of its
-   3 layers and ``UCF_EXACT_FWD_CPU_DEC_LAYERS`` (2) of its 3 decoder
+   timed request each and 1 + 1 train steps, no kernel; then UCF's
+   float32 forward card vs CPU at ``UCF_EXACT_FWD_CPU_LAYERS`` (1) of its
+   3 layers and ``UCF_EXACT_FWD_CPU_DEC_LAYERS`` (1) of its 3 decoder
    layer pairs, and its train step at
    ``UCF_EXACT_TRAIN_CPU_LAYERS`` and ``UCF_EXACT_TRAIN_CPU_DEC_LAYERS``.
 30. ``AVA22_ViT-B-train-mamba`` (VideoMamba-tiny with the exact encoder,
    one level) serves 3 bf16 B=2 requests, 48 K5 launches per forward;
-   then the float32 heads card vs CPU at B=1.
+   then the float32 heads card vs CPU at B=1, VideoMamba at
+   ``MAMBA_FWD_CPU_DEPTH`` (6) blocks and 2 encoder layers.
 31. The eval loop as ``python -m class_query_vad_tpu_torch.evaluate`` runs
    it, on ``AVA22_ViT-B_fast`` at full width in bf16: a ``SyntheticClips``
    AVA dataset (items shaped as the datasets' ``__getitem__``, nothing
@@ -197,18 +200,21 @@ NVIDIA card.
    timed in NCDHW and in ``channels_last_3d``; then ``AVA22_CSN50``'s
    float32 heads card vs CPU at B=1, ``EXACT_FWD_CPU_LAYERS`` (2) of 6
    encoder layers.
-35. CSN-152 trains: 1 + 4 full-width bf16 B=1 steps (batch statistics,
+35. CSN-152 trains: 1 + 2 full-width bf16 B=1 steps (batch statistics,
    the running statistics unchanged, no kernel), ms/step, peak memory,
    stage shares, busy share; then one float32 CSN-50 train step card vs
    CPU at ``CSN_TRAIN_CPU_LAYERS`` (1) encoder layer, ``KinkSides``
    hooked on CSN's ReLUs and max pool (where they take a gradient: the
    YAML's TUNE_POINT freezes the first stages).
 36. ``CONFIG.GRADIENT_CHECKPOINTING`` off and on for the main path,
-   ``AVA22_ViT-B`` and ``AVA22_CSN152``: 1 + 2 full-width bf16 B=1 steps
-   each way on one built model (ms/step, peak memory, launches per step:
-   K1 48 under remat, its recompute in each fast encoder layer's, K3 and
-   K4 24), then one float32 step each way with dropout on: the loss and
-   every gradient within ``REMAT_TOL`` (1e-5) x max.
+   ``AVA22_ViT-B``, ``AVA22_CSN152`` and the Mamba family
+   (``AVA22_train-mamba_VSS``, ``AVA22_ViT-B-train-mamba``, GRAD_ACCUM 1):
+   1 + 1 full-width bf16 B=1 steps each way on one built model (ms/step,
+   peak memory, launches per step: K1 48 under remat, its recompute in
+   each fast encoder layer's, K3 and K4 24; K5 192 / 96 and its backward
+   96 / 48 under remat, 96 / 48 each without), then one float32 step each
+   way with dropout on: the loss and every gradient within ``REMAT_TOL``
+   (1e-5) x max.
 37. On-device preprocessing (``datasets.device_preprocess``, the JAX
    bench's ``--device-preprocess`` route): the eval graph's uint8 resize
    of [2, 16, 400, 500, 3] frames to 256x320 on the card equal bit for bit
@@ -219,6 +225,27 @@ NVIDIA card.
    interleaved (ms/batch, bytes shipped per batch, busy share, 24 K1
    launches per batch); the train graph card vs CPU, then one main-path
    train step on its pixels (24 each of K1, K3, K4).
+38. K5's backward (``csrc/selective_scan_bwd.cu``) against its plain
+   version (``selective_scan_bwd_reference``) on the card at the train
+   path's scans (B=1: the backbone's [1, 384, 5121, 16] bf16 with its
+   strides, the encoder's [1, 1024, 320, 4, G=4] float32), ``K5_AWKWARD``
+   and the flag sets of phase 7: every gradient within ``K5_TOL`` x
+   max|ref| (dA, dD, d delta_bias, sums over L: ``K5_SUM_TOL``); device
+   times (one call = up to five CUDA kernels) beside the bound
+   (``k5_bwd_work``) and the plain version.
+39. The Mamba family trains at full width: ``AVA22_train-mamba_VSS`` and
+   ``AVA22_ViT-B-train-mamba`` in bf16, 1 + 3 B=1 steps each of bench.py's
+   train batch (GRAD_ACCUM 1): finite losses, the parameters moving,
+   gradients into every VideoMamba block's A and encoder layer, 96 (VSS;
+   48 VideoMamba + exact) launches each of K5 and its backward per step,
+   FrozenBatchNorm's running statistics unmoved; ms/step, peak memory,
+   stage shares, busy share.
+40. One float32 ``AVA22_train-mamba_VSS`` train step card vs CPU at
+   ``MAMBA_TRAIN_CPU_DEPTH`` (2) of VideoMamba's 24 blocks over the full
+   5121-token sequence, 2 of the VSS encoder's 6 layers and 1 of its 6
+   decoder layer pairs: 20 launches each of K5 and its backward on the
+   card, phase 6's tolerances, ``KinkSides`` hooked on the 4x temporal
+   max-pool and the ReLUs.
 
 Each phase's seconds are printed on a line of their own (``[seconds]``).
 The float32 card-vs-CPU train checks of phases 18, 24, 26 and 29 run the
@@ -1000,15 +1027,25 @@ def check_train_step(trainer, metrics, before):
     moved = sum(not torch.equal(x, m) for x, m in zip(before, opt.masters))
     check(moved >= 0.9 * len(before),
           f"only {moved} of {len(before)} parameter tensors moved")
-    for i, layer in enumerate(trainer.model.transformer.encoder.layers):
+    model = trainer.model
+    grads = {}                 # the parameters that must get a gradient
+    for i, layer in enumerate(model.transformer.encoder.layers):
+        if not hasattr(layer, "self_attn"):       # the SSM / VSS encoder
+            grads[f"encoder layer {i} compress"] = layer.compress.weight
+            continue
         att = layer.self_attn
         heads = (("window_offsets", "window_weights")
                  if hasattr(att, "window_offsets")
                  else ("sampling_offsets", "attention_weights"))
         for name in ("value_proj",) + heads:
-            g = opt.last_grad(getattr(att, name).weight)
-            check(g is not None and bool(g.abs().max() > 0),
-                  f"encoder layer {i} {name} got no gradient")
+            grads[f"encoder layer {i} {name}"] = getattr(att, name).weight
+    if model.spec.is_mamba:       # both scan directions, through K5's backward
+        for i, blk in enumerate(model.backbone[0].body.layers):
+            for name in ("A_log", "A_b_log", "D", "D_b"):
+                grads[f"VideoMamba block {i} {name}"] = getattr(blk.mixer, name)
+    for what, p in grads.items():
+        g = opt.last_grad(p)
+        check(g is not None and bool(g.abs().max() > 0), f"{what} got no gradient")
     return norm, moved
 
 
@@ -1022,9 +1059,10 @@ TRAIN_KERNELS = {"2d": ("fused_blend2d", "blend2d_bwd_dvol",
 
 def phase_train(dev, counters, window: str = "2d", steps: int = 7,
                 tag: str = "", config: str = CONFIG, kernels=None,
-                profile_step: bool = True, per_step: int = 24, after=None):
+                profile_step: bool = True, per_step: int = 24, after=None,
+                opts=()):
     """Full-width bf16 train steps of ``config`` (with ``FAST_WINDOW:
-    window``) through build_model + Trainer: ``per_step`` launches of each
+    window`` and ``opts``) through build_model + Trainer: ``per_step`` launches of each
     of ``kernels`` (``TRAIN_KERNELS[window]`` when None; () for a path
     with no kernel) per step and of no other kernel; the host LSAP's time
     on the main path; the stage breakdown (profiled unless
@@ -1036,7 +1074,7 @@ def phase_train(dev, counters, window: str = "2d", steps: int = 7,
     from class_query_vad_tpu_torch.models import build_model
     from class_query_vad_tpu_torch.ops.lsap import linear_sum_assignment
 
-    cfg = get_cfg_custom(config, ["CONFIG.MODEL.FAST_WINDOW", window])
+    cfg = get_cfg_custom(config, ["CONFIG.MODEL.FAST_WINDOW", window, *opts])
     model = build_model(cfg, dtype=torch.bfloat16)
     trainer = Trainer(model, cfg)
     tc = cfg.CONFIG.TRAIN
@@ -1148,8 +1186,10 @@ def train_breakdown(trainer, batch, wall_ms: float, kernels,
     marks[4].record()
     host.append(time.perf_counter())
     torch.cuda.synchronize()
+    spec = trainer.model.spec
     names = ("forward (train mode"
-             + (", ViT checkpointed)" if trainer.model.spec.is_vit else ")"),
+             + (", ViT checkpointed)" if spec.is_vit and not spec.is_mamba
+                else ")"),
              "matcher + criterion (host LSAP)",
              f"backward ({', '.join(kernels[1:]) or 'plain VJP'})",
              "clip + AdamW + master copy")
@@ -1243,8 +1283,9 @@ class KinkSides:
     float32, which puts an offset within an ulp of 0 on the kink of its -1
     tap.  ``watch`` hooks every ReLU input (the FFNs' and the MLP heads'
     hidden layers), the backbone's max pool, every fast encoder layer's
-    head lanes and every exact encoder layer's sampling locations, and
-    CSN's ReLUs and max pool (where their outputs take a gradient);
+    head lanes and every exact encoder layer's sampling locations,
+    CSN's ReLUs and max pool (where their outputs take a gradient) and
+    VideoMamba's 4x temporal max-pool;
     ``match`` marks the elements whose sides differ, and the hooks then
     zero the gradient there, on both sides alike, before it flows on.
     """
@@ -1261,6 +1302,8 @@ class KinkSides:
             MSDeformAttn3D)
         from class_query_vad_tpu_torch.models.fast_encoder import (
             FastDeformAttn3D)
+        from class_query_vad_tpu_torch.models.videomamba import (
+            TemporalMaxPool)
 
         for name, mod in model.named_modules():
             if isinstance(mod, MSDeformAttn3D):
@@ -1275,6 +1318,8 @@ class KinkSides:
                         out, self._lane_sides(a, out), "head lanes"))
             elif isinstance(mod, MaxPool2x):
                 mod.register_forward_hook(self._argmax)
+            elif isinstance(mod, TemporalMaxPool):
+                mod.register_forward_hook(self._temporal_argmax)
             elif isinstance(mod, (CSN, CSNBottleneck)):
                 # one ReLU module per block, called three times
                 mod.relu.register_forward_hook(self._relu)
@@ -1312,6 +1357,13 @@ class KinkSides:
             b, t, h // 2, 2, w // 2, 2, c).permute(0, 1, 2, 4, 6, 3, 5)
         self._keep(out, win.reshape(*out.shape, 4).argmax(-1).to(
             torch.int8).cpu(), "max pool")
+
+    def _temporal_argmax(self, _mod, inp, out):
+        """VideoMamba's VALID 4x max-pool over T: each window's argmax (the
+        first maximum, which takes the gradient)."""
+        b, t, h, w, c = inp[0].shape
+        win = inp[0].detach()[:, :t // 4 * 4].reshape(b, t // 4, 4, h, w, c)
+        self._keep(out, win.argmax(2).to(torch.int8).cpu(), "temporal max pool")
 
     def _pool_argmax(self, mod, inp, out):
         """CSN's max pool (NCDHW): each window's argmax where its max is
@@ -1661,6 +1713,116 @@ def phase_scan_kernel(dev, bw, peak):
     }
 
 
+# K5's backward at the train path's scans (B=1): per VSS train step the
+# backbone's 48 and the encoder's 48, as in the forward
+K5_TRAIN_BACKBONE = (1, 384, 5121, 16, 1)
+K5_TRAIN_ENCODER = (1, 1024, 320, 4, 4)
+K5_BWD_PER_STEP = {K5_TRAIN_BACKBONE: 48, K5_TRAIN_ENCODER: 48}
+# dA, dD and d delta_bias sum B x L terms (5121 at the backbone) in other
+# orders: 1e-3 of their max; every other gradient K5_TOL
+K5_SUM_TOL = 1e-3
+K5_GRADS = ("du", "ddelta", "dA", "dB", "dC", "dD", "d delta_bias")
+
+
+def k5_bwd_work(b, kd, length, ns, g, itemsize):
+    """(bytes, operations, exps) one call of K5's backward must spend: u,
+    delta (float32), dy, B, C read once, du, ddelta (float32), dB, dC
+    written once (the carries, A, D, the bias and their gradients are
+    ~1/L of that); per (b, d, l): the softplus and its sigmoid (~12); per
+    state: exp(delta A) once (the state's recurrence and the adjoint's
+    share it), the state's update (2), the adjoint (2) and the terms of
+    du, ddelta, dB, dC and dA (~12)."""
+    steps = b * kd * length
+    nbytes = steps * (3 * itemsize + 8) + 4 * b * g * ns * length * itemsize
+    return nbytes, steps * (12 + 16 * ns), steps * ns
+
+
+def phase_scan_bwd_kernel(dev, bw, peak):
+    """Phase 38: K5's backward against its plain version at the train
+    path's shapes and strides, ``K5_AWKWARD`` and phase 7's flag sets, dy
+    random in y's dtype; device times beside the bound and the plain
+    version's.  Returns the kernel's entry of the JSON line (launches
+    filled in by phase 39)."""
+    from class_query_vad_tpu_torch.ops.selective_scan import (
+        scan_carries, selective_scan_bwd, selective_scan_bwd_reference)
+
+    rng = np.random.default_rng(15)
+    max_err = 0.0
+    per_shape = {}
+    cases = [(K5_TRAIN_BACKBONE, torch.bfloat16, "all"),
+             (K5_TRAIN_ENCODER, torch.float32, "all"),
+             (K5_TRAIN_ENCODER, torch.float32, "none"),
+             (K5_AWKWARD, torch.float32, "all"), (K5_AWKWARD, torch.float32, "none"),
+             (K5_AWKWARD, torch.float32, "softplus"),
+             (K5_AWKWARD, torch.bfloat16, "skip+bias")]
+    for shape, dtype, flags in cases:
+        u, delta, a, bm, cm, d, bias = scan_inputs(rng, shape, dtype, dev)
+        kw = dict(D=d, delta_bias=bias, delta_softplus=True)
+        if flags == "none":
+            kw, delta = dict(D=None, delta_bias=None, delta_softplus=False), delta.abs()
+        elif flags == "softplus":
+            kw = dict(D=None, delta_bias=None, delta_softplus=True)
+        elif flags == "skip+bias":
+            kw, delta = dict(D=d, delta_bias=bias.abs(), delta_softplus=False), delta.abs()
+        dy = torch.from_numpy(rng.standard_normal(u.shape).astype(np.float32)
+                              ).to(dev).to(dtype)
+        carries = scan_carries(u, delta, a, bm, cm, **kw)
+        got = selective_scan_bwd(u, delta, a, bm, cm, dy, carries=carries, **kw)
+        want = selective_scan_bwd_reference(u, delta, a, bm, cm, dy, **kw)
+        torch.cuda.synchronize()
+        rels = []
+        for name, x, r in zip(K5_GRADS, got, want):
+            check((x is None) == (r is None), f"K5 backward {name}: None mismatch")
+            if x is None:
+                continue
+            check(x.dtype == r.dtype and x.shape == r.shape,
+                  f"K5 backward {name} {x.dtype} {tuple(x.shape)}")
+            check(bool(torch.isfinite(x).all()), f"K5 backward {name} not finite")
+            err, rel = rel_err(x, r)
+            tol = K5_SUM_TOL if name in ("dA", "dD", "d delta_bias") else K5_TOL[dtype]
+            rels.append(f"{name} {rel:.1e}")
+            check(rel <= tol, f"K5 backward {name} disagrees with its plain "
+                              f"version at {shape} {dtype} {flags}: {rel:.2e} "
+                              f"x max|ref| > {tol:.0e}")
+            max_err = max(max_err, err)
+        print(f"K5 backward {str(dtype)[6:]:8s} {'x'.join(map(str, shape)):16s} "
+              f"{flags:9s}: max|err| x max|ref|: {', '.join(rels)} (tol "
+              f"{K5_TOL[dtype]:.0e}, sums over L {K5_SUM_TOL:.0e}) ok")
+        main_dtype = torch.bfloat16 if shape == K5_TRAIN_BACKBONE else torch.float32
+        if shape in K5_BWD_PER_STEP and dtype == main_dtype and flags == "all":
+            call = lambda: selective_scan_bwd(u, delta, a, bm, cm, dy,
+                                              carries=carries, **kw)
+            t_k = kernel_device_ms(call)
+            t_p = cuda_ms(lambda: selective_scan_bwd_reference(
+                u, delta, a, bm, cm, dy, **kw), 2, 1)
+            nbytes, ops, exps = k5_bwd_work(*shape, u.element_size())
+            t_b = max(nbytes / bw, ops / peak) * 1e3
+            per_shape[shape] = (t_k, t_p, t_b,
+                                "bytes" if nbytes / bw >= ops / peak else "operations")
+            print(f"K5 backward {str(dtype)[6:]:8s} {'x'.join(map(str, shape)):16s}: "
+                  f"kernel {t_k:.4f} ms (device, queued; up to five CUDA "
+                  f"kernels), plain {t_p:.2f} ms, bound {t_b:.4f} ms "
+                  f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP; the "
+                  f"{exps / 1e6:.1f} M exps alone {exps / SFU_RATE * 1e3:.4f} ms "
+                  f"at the SFU rate) -> kernel at {t_b / t_k:.1%} of the "
+                  f"bound's speed")
+    total = lambda i: sum(n * per_shape[s][i] for s, n in K5_BWD_PER_STEP.items())
+    bound_by = {}
+    for s_, n_ in K5_BWD_PER_STEP.items():
+        bound_by[per_shape[s_][3]] = bound_by.get(per_shape[s_][3], 0.0) + n_ * per_shape[s_][2]
+    print(f"K5 backward per VSS train step (48 backbone + 48 encoder "
+          f"launches): kernel {total(0):.3f} ms, plain {total(1):.1f} ms, "
+          f"bound {total(2):.4f} ms")
+    return {
+        "name": "selective_scan_bwd", "route": "cuda",
+        "source": "class_query_vad_tpu_torch/csrc/selective_scan_bwd.cu",
+        "replaces": "class_query_vad_tpu/ops/selective_scan_pallas.py:200",
+        "launches": None, "max_abs_err": max_err, "ms": total(0),
+        "plain_ms": total(1), "bound_ms": total(2),
+        "bound_by": max(bound_by, key=bound_by.get), "library_ms": None,
+    }
+
+
 def phase_vss_main_path(dev, counters):
     """The VSS eval path at full width in bf16: 3 requests, 96 K5 launches
     per forward, timings."""
@@ -1721,17 +1883,19 @@ def phase_vss_main_path(dev, counters):
 
 
 def phase_vss_card_vs_cpu(dev):
-    """The VSS model in float32, B=1: K5 on the card, the plain scan on the
+    """The VSS model in float32, B=1, VideoMamba at
+    ``MAMBA_FWD_CPU_DEPTH`` blocks: K5 on the card, the plain scan on the
     CPU, same weights and input."""
     from class_query_vad_tpu_torch.config import get_cfg_custom
     from class_query_vad_tpu_torch.models import build_model
     from class_query_vad_tpu_torch.models.detr import randomize_constants
 
     cfg = get_cfg_custom(VSS_CONFIG)
-    m_cpu = build_model(cfg, torch.float32, "cpu",
-                        torch.Generator().manual_seed(9))
+    with videomamba_depth(MAMBA_FWD_CPU_DEPTH):
+        m_cpu = build_model(cfg, torch.float32, "cpu",
+                            torch.Generator().manual_seed(9))
+        m_gpu = build_model(cfg, torch.float32, dev)
     randomize_constants(m_cpu, torch.Generator().manual_seed(10))
-    m_gpu = build_model(cfg, torch.float32, dev)
     m_gpu.load_state_dict(m_cpu.state_dict(), strict=True)
     pixels, mask = make_request(12, b=1)
     out_g, _ = serve(m_gpu, pixels, mask, dev)
@@ -1739,8 +1903,8 @@ def phase_vss_card_vs_cpu(dev):
     torch.set_num_threads(os.cpu_count() or 1)
     t0 = time.perf_counter()
     out_c, _ = serve(m_cpu, pixels, mask, "cpu")
-    print(f"VSS CPU float32 forward (plain scan): "
-          f"{time.perf_counter() - t0:.1f} s")
+    print(f"VSS CPU float32 forward (plain scan), {MAMBA_FWD_CPU_DEPTH} of "
+          f"VideoMamba's 24 blocks: {time.perf_counter() - t0:.1f} s")
     for k in ("pred_logits", "pred_boxes", "pred_logits_b"):
         g, c = out_g[k].float().cpu(), out_c[k].float()
         err = (g - c).abs().max().item()
@@ -1752,10 +1916,29 @@ def phase_vss_card_vs_cpu(dev):
         check(ok, f"VSS card and CPU disagree on {k}")
 
 
-# phase 9: float32 on both sides; 24 bidirectional 5121-step scans and 6
+# phase 9: float32 on both sides; bidirectional 5121-step scans and 6
 # encoder layers summed in other orders (cuBLAS / cuDNN and K5's fused
 # multiply-adds vs the CPU's kernels and the plain loop)
 VSS_MODEL_TOL = 2e-3
+# the float32 card-vs-CPU forwards of the Mamba family (phases 9 and 30)
+# run ``MAMBA_FWD_CPU_DEPTH`` of VideoMamba's 24 blocks (every block until
+# phases 38-40 came: the plain scans' 5121-step loops set the
+# CPU's time, 22.4 s for VSS and 22.6 s for VideoMamba + exact, the
+# latter's exact encoder at 6 layers, now ``EXACT_FWD_CPU_LAYERS``)
+MAMBA_FWD_CPU_DEPTH = 6
+
+
+@contextlib.contextmanager
+def videomamba_depth(depth: int):
+    """Build VideoMamba-tiny with ``depth`` of its 24 blocks (its widths
+    and sequence whole) inside the block, for a card-vs-CPU check."""
+    from unittest import mock
+
+    from class_query_vad_tpu_torch.models import videomamba
+
+    spec = dict(videomamba.VIDEOMAMBA_SPECS["videomamba_tiny"], depth=depth)
+    with mock.patch.dict(videomamba.VIDEOMAMBA_SPECS, {"videomamba_tiny": spec}):
+        yield
 
 
 # K10 / K11 at the native mode's shapes: four query grids per encoder layer,
@@ -2745,13 +2928,14 @@ def phase_radius2(dev, counters, window: str):
 
 
 # ---- the native train step at full width (B=1 bf16) and card vs CPU: 1 +
-# 4 steps (its backward is the plain version's VJP, 2-5 s per step)
-NATIVE_TRAIN_STEPS = 5
-# the float32 native-2d train step's card-vs-CPU check: 2 of the YAML's 6
-# encoder layers, for the CPU's time (its step took 31.9 s at 2 layers on
-# the 8 host cores beside an H100, ~8 s more per layer: the backward
-# recomputes the plain native blend per level)
-NATIVE_TRAIN_CPU_LAYERS = 2
+# 1 steps (1 + 4 until phases 38-40 came: its backward is the
+# plain version's VJP, 2.0-2.7 / 5.4-7.3 s per 2d / 3d step)
+NATIVE_TRAIN_STEPS = 2
+# the float32 native-2d train step's card-vs-CPU check: 1 of the YAML's 6
+# encoder layers, for the CPU's time (its step took 9.2-23.0 s at 2 layers
+# on the 8 host cores beside an H100: the backward recomputes the plain
+# native blend per level; 2 layers until phases 38-40 came)
+NATIVE_TRAIN_CPU_LAYERS = 1
 
 
 # ---- the exact deformable encoder and the tube configs (phases 25-30)
@@ -2766,9 +2950,10 @@ TUBE_CONFIGS = {k: os.path.join(REPO, "configuration", f"{k}.yaml")
 # JHMDB_ViT-B_fast (40 of 256x256: 20)
 TUBE_GRIDS = {"UCF": (16, ((56, 56), (28, 28), (14, 14), (7, 7))),
               "JHMDB": (20, ((64, 64), (32, 32), (16, 16), (8, 8)))}
-# the exact paths' train steps (1 warm-up + timed)
-EXACT_TRAIN_STEPS = 5
-TUBE_EXACT_TRAIN_STEPS = 3
+# the exact paths' train steps (1 warm-up + timed; 1 + 4 and 1 + 2 until
+# phases 38-40 came)
+EXACT_TRAIN_STEPS = 3
+TUBE_EXACT_TRAIN_STEPS = 2
 # the float32 card-vs-CPU train checks' encoder depth, cut from the YAML's
 # 6 (AVA22_ViT-B) and 3 (UCF_ViT-B) for the CPU's time: the plain sampler's
 # corner weights and their backward over 54,400 / 66,640 tokens per layer;
@@ -2778,20 +2963,21 @@ EXACT_TRAIN_CPU_LAYERS = 1
 UCF_EXACT_TRAIN_CPU_LAYERS = 1
 UCF_EXACT_TRAIN_CPU_DEC_LAYERS = 1
 EXACT_FWD_CPU_LAYERS = 2
-UCF_EXACT_FWD_CPU_LAYERS = 2
+UCF_EXACT_FWD_CPU_LAYERS = 1          # 2 until phases 38-40 came
 # UCF's float32 checks cut in decoder layer pairs when phases 34-37 came:
 # the decoder over 32 frames sets their CPU time (its forward took 20.8,
 # 20.4 and 18.3 s at 3, 2 and 1 encoder layers; the train step 49.7-53.0 s
-# at 2 pairs)
-UCF_EXACT_FWD_CPU_DEC_LAYERS = 2
+# at 2 pairs); the forward's cut from 2 pairs to 1 when phases 38-40 came
+UCF_EXACT_FWD_CPU_DEC_LAYERS = 1
 # the ViT depth of the card-vs-CPU train checks of phases 18, 24, 26 and 29,
 # cut from 12 blocks for the CPU's time (the whole script must end well
 # inside its 1200 s; it took 853-927 s on an H100 before); phase 6, the main
-# path's, keeps 4 (``MAIN_TRAIN_CPU_VIT_DEPTH``).  The blocks left are the
-# same code at the same width, the FPN and everything after it unchanged
+# path's, keeps 2 (``MAIN_TRAIN_CPU_VIT_DEPTH``; 4 until phases 38-40).  The
+# blocks left are the same code at the same width, the FPN and everything
+# after it unchanged
 CPU_TRAIN_VIT_DEPTH = 1
 CPU_TRAIN_VIT = ["CONFIG.ViT.DEPTH", CPU_TRAIN_VIT_DEPTH]
-MAIN_TRAIN_CPU_VIT_DEPTH = 4
+MAIN_TRAIN_CPU_VIT_DEPTH = 2
 
 
 def phase_tube_grid_kernels(dev, bw, peak):
@@ -2926,8 +3112,13 @@ def phase_exact_and_tubes(dev, counters, bw, peak):
         mamba, _ = phase_serve(dev, counters, MAMBA_EXACT_CONFIG,
                                "VideoMamba + exact", (81, 82, 83),
                                expected={"selective_scan": 48})
-        phase_in_model(dev, MAMBA_EXACT_CONFIG, tag="VideoMamba + exact ",
-                       tol=VSS_MODEL_TOL)
+        with videomamba_depth(MAMBA_FWD_CPU_DEPTH):
+            phase_in_model(dev, MAMBA_EXACT_CONFIG,
+                           ["CONFIG.MODEL.ENC_LAYERS", EXACT_FWD_CPU_LAYERS],
+                           tag="VideoMamba + exact ", tol=VSS_MODEL_TOL)
+    print(f"VideoMamba + exact card-vs-CPU forward at {MAMBA_FWD_CPU_DEPTH} "
+          f"of VideoMamba's 24 blocks and {EXACT_FWD_CPU_LAYERS} of the "
+          f"YAML's 6 encoder layers")
     launches = {
         "UCF_ViT-B_fast eval, 3 requests": ucf_eval,
         "UCF_ViT-B_fast train, 5 steps": ucf_train,
@@ -3397,20 +3588,40 @@ def phase_train_resume(dev, counters):
 # 34-37)
 CSN_CONFIGS = {k: os.path.join(REPO, "configuration", f"AVA22_{k}.yaml")
                for k in ("CSN50", "CSN152")}
-CSN_TRAIN_STEPS = 5
+CSN_TRAIN_STEPS = 3                   # 1 + 4 until phases 38-40 came
 # the float32 card-vs-CPU checks of CSN-50 (its 16 bottlenecks whole): the
 # forward at EXACT_FWD_CPU_LAYERS (2) of the YAML's 6 encoder layers, as
 # phase 25 cuts AVA22_ViT-B; the train step at 1 encoder layer and the
 # YAML's 6 decoder layer pairs (its TUNE_POINT 4 freezes the stem, layer1
 # and layer2, so the backward stops at layer3)
 CSN_TRAIN_CPU_LAYERS = 1
-# phase 36: 1 + 2 bf16 train steps with GRADIENT_CHECKPOINTING off and on,
-# and one float32 step each way: loss and gradients within REMAT_TOL x max
-REMAT_STEPS = 3
+# phase 36: 1 + 1 bf16 train steps with GRADIENT_CHECKPOINTING off and on
+# (1 + 2 until phases 38-40 came), and one float32 step each way: loss and
+# gradients within REMAT_TOL x max
+REMAT_STEPS = 2
 REMAT_TOL = 1e-5
-REMAT_CONFIGS = {"AVA22_ViT-B_fast (main path)": CONFIG,
-                 "AVA22_ViT-B": EXACT_CONFIG,
-                 "AVA22_CSN152": CSN_CONFIGS["CSN152"]}
+# the Mamba YAMLs accumulate 64 / 128 micro-batches; one step per update
+# here, as the other paths' YAMLs
+MAMBA_OPTS = ("CONFIG.TRAIN.GRAD_ACCUM", 1)
+REMAT_CONFIGS = {"AVA22_ViT-B_fast (main path)": (CONFIG, ()),
+                 "AVA22_ViT-B": (EXACT_CONFIG, ()),
+                 "AVA22_CSN152": (CSN_CONFIGS["CSN152"], ()),
+                 "AVA22_train-mamba_VSS": (VSS_CONFIG, MAMBA_OPTS),
+                 "AVA22_ViT-B-train-mamba": (MAMBA_EXACT_CONFIG, MAMBA_OPTS)}
+# launches per step with GRADIENT_CHECKPOINTING off and on: K1 runs again
+# in each fast encoder layer's recompute, K5 in each VideoMamba block's
+# and SSM encoder layer's; the backward kernels run once either way
+REMAT_LAUNCHES = {
+    "AVA22_ViT-B_fast (main path)": {
+        r: {"fused_blend2d": 48 if r else 24, "blend2d_bwd_dvol": 24,
+            "blend2d_bwd_dcomps": 24} for r in (False, True)},
+    "AVA22_train-mamba_VSS": {
+        r: {"selective_scan": 192 if r else 96, "selective_scan_bwd": 96}
+        for r in (False, True)},
+    "AVA22_ViT-B-train-mamba": {
+        r: {"selective_scan": 96 if r else 48, "selective_scan_bwd": 48}
+        for r in (False, True)},
+}
 # phase 37: decoded frames of 400x500 (the JAX bench's --device-preprocess
 # size: a short side of 256 and the centre crop give 256x320)
 PREP_RAW_HW = (400, 500)
@@ -3458,17 +3669,16 @@ def csn_probe(dev):
     return probe
 
 
-def csn_stats_unchanged(model):
-    """After ``Trainer.step``s: every CSN batch norm's running statistics
-    still at their init (mean 0, variance 1)."""
-    from class_query_vad_tpu_torch.models.csn import CSNBatchNorm
-
-    norms = [m for m in model.modules() if isinstance(m, CSNBatchNorm)]
+def stats_unchanged(model):
+    """After ``Trainer.step``s: the running statistics of every batch norm
+    (CSN's; the VSS blocks' FrozenBatchNorm, in inference form in
+    ``train()`` too) still at their init (mean 0, variance 1)."""
+    norms = [m for m in model.modules() if hasattr(m, "running_mean")]
     same = all(bool((m.running_mean == 0).all() and (m.running_var == 1).all())
                for m in norms)
-    print(f"CSN running statistics of {len(norms)} batch norms "
+    print(f"running statistics of {len(norms)} batch norms "
           f"{'unchanged' if same else 'CHANGED'} by the train steps")
-    check(same, "a train step moved CSN's running statistics")
+    check(bool(norms) and same, "a train step moved running statistics")
 
 
 def phase_csn(dev, counters):
@@ -3489,7 +3699,7 @@ def phase_csn(dev, counters):
     with phase_seconds("phase 35 (AVA22_CSN152 trained, CSN-50 card vs CPU)"):
         trained = phase_train(dev, counters, steps=CSN_TRAIN_STEPS,
                               tag="CSN-152 ", config=CSN_CONFIGS["CSN152"],
-                              kernels=(), after=csn_stats_unchanged)
+                              kernels=(), after=stats_unchanged)
         phase_train_card_vs_cpu(
             dev, ["CONFIG.MODEL.ENC_LAYERS", CSN_TRAIN_CPU_LAYERS],
             "CSN-50 ", counters, zero, CSN_CONFIGS["CSN50"])
@@ -3550,11 +3760,13 @@ def remat_grads(trainer, batch, remat: bool):
 
 def phase_remat(dev, counters):
     """Phase 36: ``CONFIG.GRADIENT_CHECKPOINTING`` off and on for the main
-    path, ``AVA22_ViT-B`` and ``AVA22_CSN152``, switched on one built model
+    path, ``AVA22_ViT-B``, ``AVA22_CSN152`` and the Mamba family
+    (``REMAT_CONFIGS``), switched on one built model
     (``set_gradient_checkpointing``, held to the build's own flags):
     full-width bf16 train steps (ms/step, peak GiB, launches per step: under
     remat K1 runs again in the recompute of each fast encoder layer, K3 and
-    K4 do not), then one float32 step each way, dropout on: the same loss
+    K4 do not; K5 in each VideoMamba block's and SSM encoder layer's,
+    ``REMAT_LAUNCHES``), then one float32 step each way, dropout on: the same loss
     and gradients within ``REMAT_TOL`` x max.  Returns the launches under
     remat."""
     from class_query_vad_tpu_torch.config import get_cfg_custom
@@ -3563,8 +3775,8 @@ def phase_remat(dev, counters):
     from class_query_vad_tpu_torch.models.detr import randomize_constants
 
     out = {}
-    for name, config in REMAT_CONFIGS.items():
-        cfg = get_cfg_custom(config)
+    for name, (config, opts) in REMAT_CONFIGS.items():
+        cfg = get_cfg_custom(config, list(opts))
         trainer = Trainer(build_model(cfg, dtype=torch.bfloat16), cfg)
         built = [m.remat for m in trainer.model.modules()
                  if hasattr(m, "remat")]
@@ -3582,17 +3794,14 @@ def phase_remat(dev, counters):
             print(f"remat {name}, GRADIENT_CHECKPOINTING {remat}: median "
                   f"{ms:.2f} ms/step over {REMAT_STEPS - 1} steps, peak "
                   f"{peak:.2f} GiB; launches per step {nonzero}")
-        main = config == CONFIG
         for remat, (_, _, per_step) in res.items():
-            want = ({"fused_blend2d": 48 if remat else 24,
-                     "blend2d_bwd_dvol": 24, "blend2d_bwd_dcomps": 24}
-                    if main else {})
+            want = REMAT_LAUNCHES.get(name, {}).get(remat, {})
             check(all(d == {**{k: 0 for k in d}, **want} for d in per_step),
                   f"remat {name} ({remat}): launches per step {per_step}, "
                   f"expected {want or 'none'}")
         cfg = get_cfg_custom(config, ["CONFIG.MODEL.FAST_DTYPE", "float32",
                                       "CONFIG.MODEL.DECODER_DTYPE",
-                                      "float32"])
+                                      "float32", *opts])
         model = build_model(cfg, torch.float32, dev,
                             torch.Generator().manual_seed(7))
         randomize_constants(model, torch.Generator().manual_seed(8))
@@ -3620,6 +3829,48 @@ def phase_remat(dev, counters):
         out[f"{name} train with remat, {REMAT_STEPS} steps"] = {
             k: sum(d[k] for d in res[True][2]) for k in res[True][2][0]}
     return out
+
+
+MAMBA_TRAIN_STEPS = 4
+# phase 40: VideoMamba cut to 2 of its 24 blocks (the full 5121-token
+# sequence), the VSS encoder to 2 of its 6 layers, the decoder to 1 of its
+# 6 layer pairs, for the CPU's time (the plain scans' backward)
+MAMBA_TRAIN_CPU_DEPTH = 2
+MAMBA_TRAIN_CPU_LAYERS = 2
+MAMBA_TRAIN_CPU_DEC_LAYERS = 1
+
+
+def phase_mamba_train(dev, counters):
+    """Phase 39: ``AVA22_train-mamba_VSS`` and ``AVA22_ViT-B-train-mamba``
+    train at full width in bf16 (``phase_train``): K5 and its backward 96
+    (48) times each per step.  Returns the launches of both runs."""
+    out = {}
+    for name, config, per_step in (
+            ("AVA22_train-mamba_VSS", VSS_CONFIG, 96),
+            ("AVA22_ViT-B-train-mamba", MAMBA_EXACT_CONFIG, 48)):
+        tag = "VSS " if config == VSS_CONFIG else "VideoMamba + exact "
+        out[f"{name} train, {MAMBA_TRAIN_STEPS} steps"] = phase_train(
+            dev, counters, steps=MAMBA_TRAIN_STEPS, tag=tag, config=config,
+            kernels=("selective_scan", "selective_scan_bwd"),
+            per_step=per_step, opts=MAMBA_OPTS,
+            after=stats_unchanged if config == VSS_CONFIG else None)
+    return out
+
+
+def phase_mamba_card_vs_cpu(dev, counters):
+    """Phase 40: one float32 ``AVA22_train-mamba_VSS`` train step card vs
+    CPU at a cut depth (``MAMBA_TRAIN_CPU_*``; VideoMamba's widths and
+    sequence whole), ``phase_train_card_vs_cpu``'s checks: K5 and its
+    backward 2 x 2 backbone + 2 x 2 x 4 encoder times each on the card."""
+    scans = 2 * MAMBA_TRAIN_CPU_DEPTH + 2 * 4 * MAMBA_TRAIN_CPU_LAYERS
+    with videomamba_depth(MAMBA_TRAIN_CPU_DEPTH):
+        phase_train_card_vs_cpu(
+            dev, ["CONFIG.MODEL.ENC_LAYERS", MAMBA_TRAIN_CPU_LAYERS,
+                  "CONFIG.MODEL.DEC_LAYERS", MAMBA_TRAIN_CPU_DEC_LAYERS,
+                  *MAMBA_OPTS], "VSS ", counters,
+            {**{c.__name__: 0 for c in counters},
+             "selective_scan": scans, "selective_scan_bwd": scans},
+            VSS_CONFIG)
 
 
 def phase_device_preprocess(dev, counters, loop_ms: float):
@@ -3779,15 +4030,18 @@ def main() -> int:
         native_blend2d,
         native_blend3d,
     )
-    from class_query_vad_tpu_torch.ops.selective_scan import selective_scan
+    from class_query_vad_tpu_torch.ops.selective_scan import (
+        selective_scan,
+        selective_scan_bwd,
+    )
     from class_query_vad_tpu_torch.ops.vit_attention import vit_attention
 
     # K12 and K13 are on no model path (as in the JAX package): every phase
     # below that drives a model checks that they launch 0 times
     counters = [fused_blend2d, blend2d, blend2d_bwd_dvol, blend2d_bwd_dcomps,
-                selective_scan, native_blend2d, native_blend3d, blend3d_fwd,
-                blend3d_bwd_dvol, blend3d_bwd_dcomps, vit_attention,
-                fused_ffn_kernel]
+                selective_scan, selective_scan_bwd, native_blend2d,
+                native_blend3d, blend3d_fwd, blend3d_bwd_dvol,
+                blend3d_bwd_dcomps, vit_attention, fused_ffn_kernel]
     dev = torch.device("cuda", 0)
     card = card_info()
     name = torch.cuda.get_device_name(0)
@@ -3928,6 +4182,18 @@ def main() -> int:
         tube_launches.update(phase_remat(dev, counters))
     with phase_seconds("phase 37 (on-device preprocessing)"):
         tube_launches.update(phase_device_preprocess(dev, counters, loop_ms))
+    # the Mamba family trains: K5's backward, then the two YAMLs' train
+    # paths at full width, then a float32 step card vs CPU
+    with phase_seconds("phase 38 (K5's backward against its plain version)"):
+        k5_bwd = phase_scan_bwd_kernel(dev, bw, peak)
+    with phase_seconds("phase 39 (the Mamba family trained)"):
+        mamba_train = phase_mamba_train(dev, counters)
+    k5_bwd["launches"] = mamba_train[
+        f"AVA22_train-mamba_VSS train, {MAMBA_TRAIN_STEPS} steps"]["selective_scan_bwd"]
+    tube_launches.update(mamba_train)
+    kernels.append(k5_bwd)
+    with phase_seconds("phase 40 (a float32 VSS train step, card vs CPU)"):
+        phase_mamba_card_vs_cpu(dev, counters)
     print(f"eval loop (phase 31) {loop_ms:.2f} ms/batch (busy {loop_busy:.2f}"
           f") vs phase 3 {main_ms:.2f}; UCF loop {ucf_loop_ms:.2f} ms/batch; "
           f"checkpoint save / load: model {save_s:.2f} / {load_s:.2f} s, "

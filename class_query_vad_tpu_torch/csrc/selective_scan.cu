@@ -87,13 +87,19 @@
 #include <string.h>
 
 #include "hopper.cuh"
+#include "selective_scan_math.cuh"
 
 namespace {
+
+using s6::ex2;
+using s6::from_float;
+using s6::kLog2e;
+using s6::softplus_f;
+using s6::to_float;
 
 constexpr int kChannels = 64;           // channels per block
 constexpr int kSub = 16;                // steps per staged sub-tile
 constexpr int kCarryThreads = 256;
-constexpr float kLog2e = 1.4426950408889634f;
 
 struct Strides {                        // in elements
   long long u[3];                       // [B, KD, L]
@@ -161,40 +167,6 @@ __device__ __forceinline__ int tile_at(const Operand& op, int cols, int a0, int 
   const int s = op.steps_fast ? c : i;
   const int f = op.steps_fast ? i : c;
   return s * tile_row<T>(op.steps_fast, cols) + f + row_shift<T>(op, a0, s);
-}
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// 2^x on the SFU, results below 2^-126 flushed to zero (the decays and
-// exp(-|x|) here: a state or a term that small is zero at float32's scale)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// jax.nn.softplus: logaddexp(x, 0) = max(x, 0) + log1p(z), z = exp(-|x|)
-// in (0, 1]; log1p(z) = 2 atanh(s), s = z / (2 + z) <= 1/3, by its series
-// through s^13 (the next term is below 2e-8 of the sum)
-__device__ __forceinline__ float softplus_f(float x) {
-  const float z = ex2(-fabsf(x) * kLog2e);
-  const float s = __fdividef(z, 2.0f + z);
-  const float s2 = s * s;
-  float p = 1.0f / 13.0f;
-  p = fmaf(p, s2, 1.0f / 11.0f);
-  p = fmaf(p, s2, 1.0f / 9.0f);
-  p = fmaf(p, s2, 1.0f / 7.0f);
-  p = fmaf(p, s2, 1.0f / 5.0f);
-  p = fmaf(p, s2, 1.0f / 3.0f);
-  p = fmaf(p, s2, 1.0f);
-  return fmaxf(x, 0.0f) + 2.0f * s * p;
 }
 
 // Copy the rows of a sub-tile laid out as N_SLOW rows of N_FAST elements

@@ -1,6 +1,6 @@
 """DETR top module and ``build_model`` (counterpart of
 ``class_query_vad_tpu/models/detr.py``: the ViT branch, the CSN branch with
-its ``input_proj`` levels, and the VideoMamba branch in eval mode).
+its ``input_proj`` levels, and the VideoMamba branch).
 
 backbone -> transformer -> heads: learned anchors ``refpoint_embed``
 [NQ, 4] (single-frame AVA), the binary actorness head ``class_embed_b``
@@ -14,8 +14,8 @@ package's ``deterministic`` flag): ``train()`` turns on the dropouts, the
 ViT's drop path and checkpointing, CSN's batch statistics, and the class
 head's dropout (rate 0.5 on the class-query outputs, detr.py:126).
 ``CONFIG.GRADIENT_CHECKPOINTING`` recomputes in the backward each ViT
-block, CSN bottleneck, encoder layer and decoder layer (as JAX's remat);
-the Mamba family does not train yet.
+block, CSN bottleneck, VideoMamba block, encoder layer (deformable or
+SSM / VSS) and decoder layer (as JAX's remat).
 """
 
 from __future__ import annotations
@@ -73,11 +73,6 @@ class DETR(nn.Module):
         s = self.spec
         refs = self.refpoint_embed.weight
         if s.is_mamba:
-            if self.training:
-                raise NotImplementedError(
-                    "training the Mamba family (K5's backward, VideoMamba's "
-                    "and the SSM encoder's remat, train-mode FrozenBN) is "
-                    "not ported yet (ROADMAP.md Queue 1, step 19)")
             srcs, masks, poses = self.backbone[0](pixels, mask)
             tq = 1 if s.single_frame else s.model_temp_len
             hs, cls_hs, references = self.transformer(

@@ -1,4 +1,4 @@
-"""Mamba (S6) block, eval forward (counterpart of
+"""Mamba (S6) block (counterpart of
 ``class_query_vad_tpu/models/mamba_block.py``; the reference's
 ``mamba_simple.Mamba``), and the pieces the bidirectional VideoMamba mixer
 shares with it.
@@ -14,7 +14,10 @@ shares with it.
 Dtypes follow flax's: the matmuls and the convolution compute in their
 weights' dtype (bf16 in a bf16 backbone), while ``dt_proj``, ``A_log`` and
 ``D`` stay float32, so the delta projection is a float32 matmul and the
-scan carries float32 whatever the input dtype.
+scan carries float32 whatever the input dtype.  In training the scan's
+backward (``ops.selective_scan``) returns u's, B's and C's gradients in the
+conv's dtype and delta's, A's, D's and the bias's in float32, so each
+parameter's gradient has its own dtype.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""SSM / VSS encoder (Mamba path), eval forward (counterpart of
+"""SSM / VSS encoder (Mamba path; counterpart of
 ``class_query_vad_tpu/models/ssm_encoder.py``; the reference's
 ``MambaEncoderLayer`` / ``VSSMambaEncoderLayer`` / ``GeneralEncoder``).
 
@@ -13,7 +13,11 @@
 * intermediate layers emit f_src + b_src over all frames; the last layer
   (``return_key``) emits only frame ``key_idx = -1`` and that frame's
   original positional encoding;
-* decompress + post-norm ReLU FFN close each layer.
+* decompress + post-norm ReLU FFN close each layer; its dropouts are
+  live in ``train()``;
+* with ``remat`` (``CONFIG.GRADIENT_CHECKPOINTING``) each layer is
+  recomputed in the backward (``remat_call``; JAX's ``nn.remat`` of
+  ``SSMEncoderLayer``, ssm_encoder.py:161-170).
 
 Everything runs in float32 (the JAX encoder is built in float32).
 Parameter names follow the reference's (``layers.{i}.ssm_norm``,
@@ -28,7 +32,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .common import LayerNorm, Linear
+from .common import LayerNorm, Linear, remat_call
 from .mamba_block import Mamba
 from .vss import VSSBlock
 
@@ -100,8 +104,10 @@ class SSMEncoder(nn.Module):
     key_pos)."""
 
     def __init__(self, num_layers: int = 6, d_model: int = 256,
-                 d_ffn: int = 2048, kind: str = "vssm", dropout: float = 0.1):
+                 d_ffn: int = 2048, kind: str = "vssm", dropout: float = 0.1,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.layers = nn.ModuleList(
             SSMEncoderLayer(d_model, d_ffn, kind, dropout)
             for _ in range(num_layers))
@@ -110,5 +116,5 @@ class SSMEncoder(nn.Module):
                 shape: Tuple[int, int, int]):
         out = src
         for layer in self.layers[:-1]:
-            out = layer(out, pos, shape)
-        return self.layers[-1](out, pos, shape, return_key=True)
+            out = remat_call(self.remat, layer, out, pos, shape)
+        return remat_call(self.remat, self.layers[-1], out, pos, shape, True)

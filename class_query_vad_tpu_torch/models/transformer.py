@@ -135,7 +135,7 @@ class DABTransformer(nn.Module):
 
             self.encoder = SSMEncoder(s.enc_layers, s.d_model,
                                       s.dim_feedforward, s.encoder_type,
-                                      s.dropout)
+                                      s.dropout, s.gradient_checkpointing)
         else:
             raise ValueError(f"unknown ENCODER_TYPE={s.encoder_type}")
         self.decoder = TransformerDecoder(

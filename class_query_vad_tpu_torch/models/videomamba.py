@@ -1,4 +1,4 @@
-"""VideoMamba backbone, eval forward (counterpart of
+"""VideoMamba backbone (counterpart of
 ``class_query_vad_tpu/models/videomamba.py``) and the Mamba branch of the
 DETR backbone (``detr.py:44-62, 130-148``).
 
@@ -10,7 +10,10 @@ DETR backbone (``detr.py:44-62, 130-148``).
   the backward branch on the flipped sequence, gated by the flipped z and
   flipped back before the sum);
 * final LayerNorm; the per-frame summary is the mean over each frame's
-  tokens.
+  tokens;
+* with ``remat`` (``CONFIG.GRADIENT_CHECKPOINTING``) each block is
+  recomputed in the backward (``remat_call``; JAX's ``nn.remat`` of
+  ``VideoMambaBlock``, videomamba.py:155-164).
 
 Dtypes follow flax's: ``to_compute_dtype`` casts the matmul and convolution
 weights (bf16 when serving), while the LayerNorms (eps 1e-5), ``dt_proj``,
@@ -19,7 +22,8 @@ promotes the patch embed to float32, so the residual stream is float32
 while each block computes in the compute dtype.
 
 ``VideoMambaBackbone`` is what the DETR calls: the token map with the
-frame summary concatenated, a 4x temporal max-pool, ``mamba_proj`` (Linear,
+frame summary concatenated, a 4x temporal max-pool (``TemporalMaxPool``,
+its gradient at ties to the first maximum, as XLA's), ``mamba_proj`` (Linear,
 LN, exact GELU, Linear, LN, Linear; float32) and one level's masks and
 sine poses.  Parameter names follow the reference's torch names
 (``backbone.0.body.layers.{i}.mixer.*``, ``backbone.0.mamba_proj.{0..5}``).
@@ -35,7 +39,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .backbone import level_masks_and_poses
-from .common import LayerNorm, Linear
+from .common import LayerNorm, Linear, remat_call
 from .mamba_block import CausalConv1d, a_log_init, s6_branch
 
 VIDEOMAMBA_SPECS = {
@@ -124,8 +128,9 @@ class VideoMamba(nn.Module):
     from the clip its init sees)."""
 
     def __init__(self, num_patches: int, embed_dim: int = 192, depth: int = 24,
-                 num_frames: int = 16, d_state: int = 16):
+                 num_frames: int = 16, d_state: int = 16, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.patch_embed = PatchEmbed(embed_dim)
         self.pos_embed = nn.Parameter(torch.zeros(1, 1 + num_patches, embed_dim))
         self.temporal_pos_embedding = nn.Parameter(
@@ -152,16 +157,27 @@ class VideoMamba(nn.Module):
         cls = (self.cls_token + self.pos_embed[:, :1]).expand(b, 1, c)
         x = torch.cat([cls.to(x.dtype), x], dim=1)
         for layer in self.layers:
-            x = layer(x)
+            x = remat_call(self.remat, layer, x)
         x = self.norm_f(x).to(cdt)
         tokens = x[:, 1:].reshape(b, t, h, w, c)
         return tokens, tokens.mean(dim=(2, 3))
 
 
 def build_videomamba(backbone_type: str, num_frames: int,
-                     num_patches: int) -> VideoMamba:
-    return VideoMamba(num_patches, num_frames=num_frames,
+                     num_patches: int, remat: bool = False) -> VideoMamba:
+    return VideoMamba(num_patches, num_frames=num_frames, remat=remat,
                       **VIDEOMAMBA_SPECS[backbone_type])
+
+
+class TemporalMaxPool(nn.Module):
+    """VALID 4x max-pool over T of [B, T, h, w, C] (flax's ``nn.max_pool``
+    (4, 1, 1)); at a tie the gradient goes to the first maximum, as XLA's
+    select-and-scatter gives it (bf16 token maps hold ties)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, t, h, w, c = x.shape
+        x = x[:, :t // 4 * 4].reshape(b, t // 4, 4, h, w, c)
+        return x.gather(2, x.argmax(dim=2, keepdim=True)).squeeze(2)
 
 
 class VideoMambaBackbone(nn.Module):
@@ -173,7 +189,8 @@ class VideoMambaBackbone(nn.Module):
         num_patches = (input_hw[0] // PATCH) * (input_hw[1] // PATCH)
         self.d_model = spec.d_model
         self.body = build_videomamba(spec.mamba_backbone_type, spec.temp_len,
-                                     num_patches)
+                                     num_patches, spec.gradient_checkpointing)
+        self.temporal_pool = TemporalMaxPool()
         c = self.body.norm_f.normalized_shape[0]
         mid = spec.mamba_out_channels
         self.mamba_proj = nn.Sequential(
@@ -183,12 +200,9 @@ class VideoMambaBackbone(nn.Module):
 
     def forward(self, pixels: torch.Tensor, mask: torch.Tensor):
         tokens, summary = self.body(pixels)
-        b, t, h, w, c = tokens.shape
         x = torch.cat([tokens, summary[:, :, None, None].expand_as(tokens)],
                       dim=-1)                              # [B, T, h, w, 2C]
-        t4 = t // 4                                         # VALID 4x max-pool
-        x = x[:, :4 * t4].reshape(b, t4, 4, h, w, 2 * c).amax(dim=2)
-        x = self.mamba_proj(x.float())
+        x = self.mamba_proj(self.temporal_pool(x).float())
         srcs: List[torch.Tensor] = [x]
         masks, poses = level_masks_and_poses(srcs, mask, self.d_model)
         return srcs, masks, poses

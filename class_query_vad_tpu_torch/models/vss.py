@@ -1,5 +1,5 @@
-"""SS2D / VSSBlock (VMamba / Mamba-YOLO blocks), eval forward (counterpart
-of ``class_query_vad_tpu/models/vss.py``).
+"""SS2D / VSSBlock (VMamba / Mamba-YOLO blocks; counterpart of
+``class_query_vad_tpu/models/vss.py``).
 
 * ``SS2D``: 1x1 in-proj -> split (x, z) -> depthwise 3x3 -> exact GELU ->
   4-direction ``cross_scan`` -> selective scan (K5 on the card) ->
@@ -7,7 +7,9 @@ of ``class_query_vad_tpu/models/vss.py``).
 * ``LSBlock``, ``RGBlock`` and ``VSSBlock`` (post-norm, ``mlp_ratio`` 0 in
   the encoder);
 * ``FrozenBatchNorm``: the eval branch of the JAX package's
-  ``CSNBatchNorm`` (``csn.py:63-96``), running statistics as buffers.
+  ``CSNBatchNorm`` (``csn.py:63-96``) in ``train()`` too: its weight and
+  bias train, its running statistics are buffers that never move (JAX
+  labels them frozen, engine/train.py:66-67).
 
 Layout channels-last [B, H, W, C], as in the JAX package.  Module and
 parameter names are the reference's torch names (``proj_conv.0/1``,

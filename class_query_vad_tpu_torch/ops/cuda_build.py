@@ -72,6 +72,12 @@ KERNELS = {
         "selective_scan.cu", "selective_scan_launch",
         [_P] * 11 + [_I] * 8 + [_P],
     ),
+    # u, delta, A, B, C, D, bias, dy, carries, dlast, du, ddelta, dB, dC,
+    # dA, dD, dbias, scratch, strides, ints, chunk
+    "selective_scan_bwd": (
+        "selective_scan_bwd.cu", "selective_scan_bwd_launch",
+        [_P] * 19 + [_I] * 8 + [_P],
+    ),
     # values v0..v3, their batch strides, dx, dy, a, tables, out, ints
     "native_blend2d": (
         "native_blend.cu", "native_blend2d_launch",

@@ -1,25 +1,36 @@
-"""Mamba S6 selective scan (K5): CUDA kernel wrapper and plain version.
+"""Mamba S6 selective scan (K5) and its backward: CUDA kernel wrappers,
+plain versions and the autograd Function that joins them.
 
 Counterpart of ``class_query_vad_tpu/ops/selective_scan.py`` (the contract,
 :36-91) and ``ops/selective_scan_pallas.py`` (TPU kernel ``_scan_kernel``,
-:37).  Per batch b, channel d of group g, state n and step l:
+:37; its VJP ``_scan_pallas_bwd``, :200, is jax.vjp of the associative
+scan).  Per batch b, channel d of group g, state n and step l:
 
     delta_l = softplus(delta_l + delta_bias[d])      (each part optional)
     h_l     = exp(delta_l * A[d, n]) * h_{l-1} + delta_l * u_l * B[b, g, n, l]
     y_l     = sum_n C[b, g, n, l] * h_l + D[d] * u_l
 
 with float32 carries whatever the input dtype and y in u's dtype.  The
-kernel is ``csrc/selective_scan.cu``; what it computes, what bounds it and
-its design are in that file's header.  It is parallel over L: chunks of
-``scan_chunk`` steps, scanned, their carries folded, then rescanned (three
-CUDA kernels per call); ``selective_scan_chunked`` is that order in plain
-PyTorch, which the CPU tests hold to the JAX scans.
+forward kernel is ``csrc/selective_scan.cu``, the backward
+``csrc/selective_scan_bwd.cu``; what each computes, what bounds it and its
+design are in its file's header.  Both are parallel over L in chunks of
+``scan_chunk`` steps: the forward scans the chunks, folds their carries and
+rescans them (three CUDA kernels per call); the backward keeps the
+forward's chunk carry-ins, folds the chunks' adjoints from the last and
+rescans each chunk backward from its recomputed states (five CUDA kernels
+per call).  ``selective_scan_chunked`` and ``selective_scan_bwd_chunked``
+are those orders in plain PyTorch, which the CPU tests hold to the JAX
+scans and their ``jax.vjp``.
 
-``selective_scan`` takes CPU tensors to ``selective_scan_reference`` and
-CUDA tensors to the kernel; anything else raises.  There is no fallback.
-The kernel is forward only: on CUDA tensors that need a gradient it raises
-(training the Mamba family is ROADMAP.md Queue 1 step 19).  Each call
-counts one in ``selective_scan.launches``.
+``selective_scan`` takes CPU tensors to the plain versions and CUDA tensors
+to the kernels; anything else raises.  There is no fallback.  With
+gradients on and an input that needs one it runs ``SelectiveScanFn``: on
+the card K5, keeping its carry-ins, and in the backward
+``selective_scan_bwd``'s kernel; on the CPU ``selective_scan_reference``
+and ``selective_scan_bwd_reference``.  Under ``torch.no_grad()`` it is K5
+alone and saves nothing.  Each forward kernel call counts one in
+``selective_scan.launches``, each backward one in
+``selective_scan_bwd.launches``.
 """
 
 from __future__ import annotations
@@ -103,6 +114,67 @@ def scan_chunk(batch: int, channels: int, length: int, groups: int) -> int:
     return max(_MIN_CHUNK, -(-per_chunk // _SUB) * _SUB)
 
 
+class _Chunks:
+    """The chunked orders' float32 operands: L cut into ``chunk``-step
+    chunks, the last padded with delta = 0 (which keeps the state, and the
+    adjoint); u, delta, delta * u [B, G, dk, nc, chunk], B and C [B, G, 1,
+    nc, chunk, N], A log2 e [1, G, dk, 1, N]; ``x`` is delta + bias before
+    the softplus.  ``carries`` folds the forward's chunk summaries, as K5's
+    kernels 1 and 2: the carry-in of every chunk [B, G, dk, nc, N]."""
+
+    def __init__(self, u, delta, A, B, C, delta_bias, delta_softplus, chunk):
+        bsz, kd, length = u.shape
+        groups, n = B.shape[1], A.shape[1]
+        self.shape = (bsz, groups, kd // groups, n)
+        self.length, self.chunk = length, chunk
+        self.nc = -(-length // chunk)
+        self.pad = self.nc * chunk - length
+        self.uf = u.float()
+        self.x = delta.float()
+        if delta_bias is not None:
+            self.x = self.x + delta_bias.float()[None, :, None]
+        self.d = _softplus(self.x) if delta_softplus else self.x
+        self.u_c = self.fold(self.uf)
+        self.d_c = self.fold(self.d)
+        self.du_c = self.fold(self.d * self.uf)
+        self.b_c = self.fold_bc(B)
+        self.c_c = self.fold_bc(C)
+        self.a2 = (A.float() * _LOG2E).reshape(1, groups, -1, 1, n)
+
+    def fold(self, x):
+        """[B, KD, L] -> [B, G, dk, nc, chunk], zero-padded."""
+        bsz, groups, dk, _ = self.shape
+        return torch.nn.functional.pad(x, (0, self.pad)).reshape(
+            bsz, groups, dk, self.nc, self.chunk)
+
+    def unfold(self, x):
+        """[B, G, dk, nc, chunk] -> [B, KD, L]."""
+        bsz, groups, dk, _ = self.shape
+        return x.reshape(bsz, groups * dk, -1)[..., :self.length]
+
+    def fold_bc(self, x):
+        x = torch.nn.functional.pad(x.float(), (0, self.pad))
+        return x.reshape(*x.shape[:-1], self.nc, self.chunk).permute(
+            0, 1, 3, 4, 2)[:, :, None]
+
+    def decay(self, i):
+        """exp(delta A) of every chunk's step i, as exp2(delta * A log2e)."""
+        return torch.exp2(self.d_c[..., i, None] * self.a2)
+
+    def carries(self):
+        bsz, groups, dk, n = self.shape
+        h = torch.zeros((bsz, groups, dk, self.nc, n), dtype=torch.float32,
+                        device=self.uf.device)
+        for i in range(self.chunk):                # every chunk from h = 0
+            h = self.decay(i) * h + self.du_c[..., i, None] * self.b_c[..., i, :]
+        total = torch.exp2(self.a2 * self.d_c.sum(-1)[..., None])
+        carry, out = torch.zeros_like(h[..., 0, :]), []
+        for k in range(self.nc):
+            out.append(carry)
+            carry = total[..., k, :] * carry + h[..., k, :]
+        return torch.stack(out, dim=3)
+
+
 def selective_scan_chunked(u, delta, A, B, C, D=None, delta_bias=None,
                            delta_softplus: bool = False,
                            return_last_state: bool = False, chunk: int = 64):
@@ -116,50 +188,161 @@ def selective_scan_chunked(u, delta, A, B, C, D=None, delta_bias=None,
     CPU tests hold it to the JAX scans; nothing on a model path calls it.
     Arguments and results as ``selective_scan_reference``."""
     B, C = _grouped(B), _grouped(C)
+    ch = _Chunks(u, delta, A, B, C, delta_bias, delta_softplus, chunk)
+    bsz, groups, dk, n = ch.shape
+    h, ys = ch.carries(), []
+    for i in range(chunk):
+        h = ch.decay(i) * h + ch.du_c[..., i, None] * ch.b_c[..., i, :]
+        ys.append((h * ch.c_c[..., i, :]).sum(-1))
+    y = ch.unfold(torch.stack(ys, dim=-1))
+    if D is not None:
+        y = y + D.float()[None, :, None] * ch.uf
+    y = y.to(u.dtype)
+    if return_last_state:
+        return y, h[..., -1, :].reshape(bsz, groups * dk, n)
+    return y
+
+
+def selective_scan_bwd_reference(u, delta, A, B, C, dy, D=None,
+                                 delta_bias=None, delta_softplus: bool = False,
+                                 dlast=None):
+    """The VJP of ``selective_scan`` in plain PyTorch, float32, sequential
+    over L: the states h_l forward, then the adjoint g_l = C_l dy_l +
+    a_{l+1} g_{l+1} (+ ``dlast``, the last state's gradient, at l = L - 1)
+    backward, and from them
+
+        dC = sum_{d in g} h_l dy_l            dB = sum_{d in g} g_l delta_l u_l
+        du = sum_n g_l delta_l B_l + D dy_l   ddelta = sigmoid(x_l) sum_n g_l
+                                                       (A a_l h_{l-1} + u_l B_l)
+        dA = sum_{b,l} g_l delta_l a_l h_{l-1}
+        dD = sum_{b,l} dy_l u_l               d delta_bias = sum_{b,l} ddelta_l
+
+    (x = delta + delta_bias; sigmoid, jax.nn.softplus's derivative, only
+    with the softplus).  Returns (du, ddelta, dA, dB, dC, dD, d delta_bias):
+    du, dB, dC in u's, B's and C's dtypes, the rest float32; dD and d
+    delta_bias None when D and delta_bias are.  Any device."""
+    B, C = _grouped(B), _grouped(C)
     bsz, kd, length = u.shape
     groups, n = B.shape[1], A.shape[1]
     dk = kd // groups
-    nc = -(-length // chunk)
-    pad = nc * chunk - length
     uf = u.float()
-    d = delta.float()
+    x = delta.float()
     if delta_bias is not None:
-        d = d + delta_bias.float()[None, :, None]
-    if delta_softplus:
-        d = _softplus(d)
-    fold = lambda x: torch.nn.functional.pad(x, (0, pad)).reshape(
-        *x.shape[:-1], nc, chunk)
-    d_c = fold(d).reshape(bsz, groups, dk, nc, chunk)
-    du_c = fold(d * uf).reshape(bsz, groups, dk, nc, chunk)
-    b_c = fold(B.float()).permute(0, 1, 3, 4, 2)[:, :, None]  # [B,G,1,nc,c,N]
-    c_c = fold(C.float()).permute(0, 1, 3, 4, 2)[:, :, None]
-    a2 = (A.float() * _LOG2E).reshape(1, groups, dk, 1, n)
-
-    def scan(h, with_y: bool):
-        ys = []
-        for i in range(chunk):
-            h = (torch.exp2(d_c[..., i, None] * a2) * h
-                 + du_c[..., i, None] * b_c[..., i, :])
-            if with_y:
-                ys.append((h * c_c[..., i, :]).sum(-1))
-        return h, ys
-
-    zero = torch.zeros((bsz, groups, dk, nc, n), dtype=torch.float32,
-                       device=u.device)
-    ends, _ = scan(zero, False)                              # [B,G,dk,nc,N]
-    decay = torch.exp2(a2 * d_c.sum(-1)[..., None])          # [B,G,dk,nc,N]
-    carries, h = [], zero[..., 0, :]
-    for k in range(nc):
-        carries.append(h)
-        h = decay[..., k, :] * h + ends[..., k, :]
-    h, ys = scan(torch.stack(carries, dim=3), True)
-    y = torch.stack(ys, dim=-1).reshape(bsz, kd, nc * chunk)[..., :length]
+        x = x + delta_bias.float()[None, :, None]
+    d = _softplus(x) if delta_softplus else x
+    a = A.float()[None, :, None]                                # [1, KD, 1, N]
+    per_channel = lambda bc: bc.float().repeat_interleave(dk, 1).transpose(-1, -2)
+    b_t, c_t = per_channel(B), per_channel(C)                   # [B, KD, L, N]
+    decay = torch.exp(d[..., None] * a)
+    drive = (d * uf)[..., None] * b_t
+    dyf = dy.float()
+    h = torch.zeros((bsz, kd, n), dtype=torch.float32, device=u.device)
+    hs = []
+    for l in range(length):
+        h = decay[:, :, l] * h + drive[:, :, l]
+        hs.append(h)
+    hs = torch.stack(hs, dim=2)                                 # h_l
+    h_prev = torch.cat([torch.zeros_like(hs[:, :, :1]), hs[:, :, :-1]], dim=2)
+    cdy = c_t * dyf[..., None]
+    carry = (torch.zeros_like(h) if dlast is None else dlast.float())
+    gs = [None] * length
+    for l in reversed(range(length)):
+        gs[l] = cdy[:, :, l] + carry
+        carry = decay[:, :, l] * gs[l]
+    g = torch.stack(gs, dim=2)                                  # g_l
+    group_sum = lambda t: t.reshape(bsz, groups, dk, length, n).sum(2).transpose(-1, -2)
+    dC = group_sum(hs * dyf[..., None])
+    dB = group_sum(g * (d * uf)[..., None])
+    du = (g * b_t).sum(-1) * d
     if D is not None:
-        y = y + D.float()[None, :, None] * uf
-    y = y.to(u.dtype)
-    if return_last_state:
-        return y, h[..., -1, :].reshape(bsz, kd, n)
-    return y
+        du = du + D.float()[None, :, None] * dyf
+    dd = (g * (a * decay * h_prev + uf[..., None] * b_t)).sum(-1)
+    if delta_softplus:
+        dd = dd * torch.sigmoid(x)
+    dA = (g * d[..., None] * decay * h_prev).sum((0, 2))
+    dD = (dyf * uf).sum((0, 2)) if D is not None else None
+    dbias = dd.sum((0, 2)) if delta_bias is not None else None
+    return (du.to(u.dtype), dd, dA, dB.to(B.dtype), dC.to(C.dtype), dD, dbias)
+
+
+_BWD_THREADS = 256            # csrc/selective_scan_bwd.cu: 256 / N channels a block
+
+
+def selective_scan_bwd_chunked(u, delta, A, B, C, dy, D=None,
+                               delta_bias=None, delta_softplus: bool = False,
+                               dlast=None, chunk: int = 64):
+    """``selective_scan_bwd_reference`` in the backward kernel's chunked
+    order (``csrc/selective_scan_bwd.cu``), float32: the forward's chunk
+    carry-ins folded as K5 folds them; every chunk but the first scanned
+    backward from g = 0 to its adjoint at the chunk start, with its sum of
+    delta; those summaries folded from the last chunk into each chunk's
+    adjoint carry, R_{k-1} = exp2(A log2e * sum delta_k) R_k + S_k (R of
+    the last chunk: ``dlast`` or 0); every chunk's states recomputed from
+    its carry-in and walked backward from R_k; dB and dC summed over blocks
+    of 256 / N channels, then over the blocks; dA, dD and d delta_bias per
+    (b, chunk), then summed.  Arguments and results as the reference's;
+    the CPU tests hold it to ``jax.vjp`` of the JAX scans."""
+    B, C = _grouped(B), _grouped(C)
+    ch = _Chunks(u, delta, A, B, C, delta_bias, delta_softplus, chunk)
+    bsz, groups, dk, n = ch.shape
+    dy_c = ch.fold(dy.float())
+    cdy = lambda i: ch.c_c[..., i, :] * dy_c[..., i, None]
+    # 1: every chunk's adjoint from g = 0 (the first's is never used)
+    s = torch.zeros((bsz, groups, dk, ch.nc, n), dtype=torch.float32,
+                    device=u.device)
+    for i in reversed(range(chunk)):
+        s = ch.decay(i) * (cdy(i) + s)
+    # 2: the adjoint carries, from the last chunk
+    total = torch.exp2(ch.a2 * ch.d_c.sum(-1)[..., None])
+    r = (torch.zeros_like(s[..., 0, :]) if dlast is None
+         else dlast.float().reshape(bsz, groups, dk, n))
+    radj = [None] * ch.nc
+    for k in reversed(range(ch.nc)):
+        radj[k] = r
+        r = total[..., k, :] * r + s[..., k, :]
+    # 3: the states recomputed from the carry-ins, then walked backward
+    hs, decays = [ch.carries()], []
+    for i in range(chunk):
+        decays.append(ch.decay(i))
+        hs.append(decays[i] * hs[i] + ch.du_c[..., i, None] * ch.b_c[..., i, :])
+    s = torch.stack(radj, dim=3)
+    a = ch.a2 / _LOG2E
+    terms = {k: [None] * chunk for k in ("b", "c", "u", "d")}
+    acc_a = torch.zeros_like(s)
+    for i in reversed(range(chunk)):
+        g = cdy(i) + s
+        d_i = ch.d_c[..., i, None]
+        b_i = ch.b_c[..., i, :]
+        terms["c"][i] = hs[i + 1] * dy_c[..., i, None]
+        terms["b"][i] = g * ch.du_c[..., i, None]
+        terms["u"][i] = (g * d_i * b_i).sum(-1)
+        terms["d"][i] = (g * (a * decays[i] * hs[i]
+                              + ch.u_c[..., i, None] * b_i)).sum(-1)
+        acc_a = acc_a + g * d_i * decays[i] * hs[i]
+        s = decays[i] * g
+    # dB, dC: over blocks of channels, then over the blocks
+    per_block = _BWD_THREADS // n
+    tiles = -(-dk // per_block)
+
+    def channel_sum(parts):
+        t = torch.stack(parts, dim=4)                  # [B, G, dk, nc, c, N]
+        t = torch.nn.functional.pad(t, (0, 0, 0, 0, 0, 0, 0, tiles * per_block - dk))
+        t = t.reshape(bsz, groups, tiles, per_block, -1, n).sum(3).sum(2)
+        return t.transpose(-1, -2)[..., :ch.length]    # [B, G, N, L]
+
+    du = ch.unfold(torch.stack(terms["u"], dim=-1))
+    if D is not None:
+        du = du + D.float()[None, :, None] * dy.float()
+    dd = ch.unfold(torch.stack(terms["d"], dim=-1))
+    if delta_softplus:
+        dd = dd * torch.sigmoid(ch.x)
+    dA = acc_a.sum(0).sum(2).reshape(groups * dk, n)
+    dD = ((ch.fold(dy.float()) * ch.u_c).sum(-1).sum(0).sum(-1).reshape(-1)
+          if D is not None else None)
+    dbias = (ch.fold(dd).sum(-1).sum(0).sum(-1).reshape(-1)
+             if delta_bias is not None else None)
+    return (du.to(u.dtype), dd, dA, channel_sum(terms["b"]).to(B.dtype),
+            channel_sum(terms["c"]).to(C.dtype), dD, dbias)
 
 
 def _check_kernel_args(u, delta, A, B, C, D, delta_bias):
@@ -189,10 +372,15 @@ def _check_kernel_args(u, delta, A, B, C, D, delta_bias):
         raise ValueError(f"the kernel takes B, G <= 65535; got {bsz}, {groups}")
 
 
+_ptr = lambda x: None if x is None else x.data_ptr()
+
+
 def _launch(u, delta, A, B, C, D, delta_bias, delta_softplus,
-            return_last_state):
+            return_last_state, keep_carries: bool = False):
     """K5 on CUDA tensors (one to three CUDA kernels, see the module
-    docstring); strided inputs are read in place."""
+    docstring); strided inputs are read in place.  Returns (y, the last
+    state or None, the chunk carry-ins [B, n_chunks - 1, KD, N] float32
+    with ``keep_carries`` and more than one chunk, else None)."""
     _check_kernel_args(u, delta, A, B, C, D, delta_bias)
     bsz, kd, length = u.shape
     groups, n = B.shape[1], B.shape[2]
@@ -209,14 +397,137 @@ def _launch(u, delta, A, B, C, D, delta_bias, delta_softplus,
                            device=u.device) if summaries else None)
     strides = (ctypes.c_longlong * 17)(
         *u.stride(), *delta.stride(), *B.stride(), *C.stride(), *y.stride())
-    ptr = lambda x: None if x is None else x.data_ptr()
     launch("selective_scan", u.device, u.data_ptr(), delta.data_ptr(),
-           A.data_ptr(), B.data_ptr(), C.data_ptr(), ptr(D), ptr(delta_bias),
-           y.data_ptr(), ptr(last), ptr(scratch), ctypes.addressof(strides),
+           A.data_ptr(), B.data_ptr(), C.data_ptr(), _ptr(D), _ptr(delta_bias),
+           y.data_ptr(), _ptr(last), _ptr(scratch), ctypes.addressof(strides),
            int(u.dtype == torch.bfloat16), bsz, kd, length, groups, n,
            int(delta_softplus), chunk)
     selective_scan.launches += 1
-    return (y, last) if return_last_state else y
+    carries = None
+    if keep_carries and summaries:    # kernel 2 wrote them over the end states
+        carries = scratch[:bsz * summaries * kd * n].view(bsz, summaries, kd, n)
+    return y, last, carries
+
+
+def scan_carries(u, delta, A, B, C, D=None, delta_bias=None,
+                 delta_softplus: bool = False):
+    """K5's chunk carry-ins for ``selective_scan_bwd`` on CUDA tensors (one
+    forward kernel call, counted): None when L fits one chunk."""
+    return _launch(u, delta, A, _grouped(B), _grouped(C), D, delta_bias,
+                   delta_softplus, False, keep_carries=True)[2]
+
+
+def _bwd_scratch(bsz, kd, length, groups, n, chunk) -> int:
+    """float32s of the backward kernel's scratch: the chunks' adjoint
+    summaries and sums of delta, the states at each 16-step sub-tile's
+    start, dB's and dC's per-block sums, dA's, dD's and d delta_bias's
+    per-(b, chunk) sums (``csrc/selective_scan_bwd.cu`` `launch_typed`)."""
+    nc = -(-length // chunk)
+    tiles = -(-(kd // groups) // (_BWD_THREADS // n))
+    return (bsz * (nc - 1) * kd * (n + 1) + bsz * nc * (chunk // _SUB) * kd * n
+            + bsz * groups * tiles * 2 * n * length + bsz * nc * kd * (n + 2))
+
+
+def _launch_bwd(u, delta, A, B, C, dy, D, delta_bias, delta_softplus,
+                carries, dlast):
+    """The backward kernel on CUDA tensors (two to five CUDA kernels, see
+    ``csrc/selective_scan_bwd.cu``)."""
+    _check_kernel_args(u, delta, A, B, C, D, delta_bias)
+    if dy.shape != u.shape or dy.dtype != u.dtype:
+        raise ValueError(f"dy must be u's shape and dtype {tuple(u.shape)} "
+                         f"{u.dtype}; got {tuple(dy.shape)} {dy.dtype}")
+    bsz, kd, length = u.shape
+    groups, n = B.shape[1], B.shape[2]
+    chunk = scan_chunk(bsz, kd, length, groups)
+    nc = -(-length // chunk)
+    want = (bsz, nc - 1, kd, n)
+    if nc > 1 and (carries is None or tuple(carries.shape) != want):
+        raise ValueError(f"the backward takes the forward's chunk carry-ins "
+                         f"{want} (scan_carries); got "
+                         f"{None if carries is None else tuple(carries.shape)}")
+    if dlast is not None and tuple(dlast.shape) != (bsz, kd, n):
+        raise ValueError(f"dlast must be [{bsz}, {kd}, {n}]; got "
+                         f"{tuple(dlast.shape)}")
+    f32 = lambda x: None if x is None else x.float().contiguous()
+    delta = delta.float()
+    A, D, delta_bias, carries, dlast = map(f32, (A, D, delta_bias, carries, dlast))
+    du = torch.empty(u.shape, dtype=u.dtype, device=u.device)
+    ddelta = torch.empty(u.shape, dtype=torch.float32, device=u.device)
+    dB = torch.empty(B.shape, dtype=u.dtype, device=u.device)
+    dC = torch.empty(B.shape, dtype=u.dtype, device=u.device)
+    dA = torch.empty((kd, n), dtype=torch.float32, device=u.device)
+    dD = torch.empty(kd, dtype=torch.float32, device=u.device)
+    dbias = torch.empty(kd, dtype=torch.float32, device=u.device)
+    scratch = torch.empty(_bwd_scratch(bsz, kd, length, groups, n, chunk),
+                          dtype=torch.float32, device=u.device)
+    strides = (ctypes.c_longlong * 17)(
+        *u.stride(), *delta.stride(), *B.stride(), *C.stride(), *dy.stride())
+    launch("selective_scan_bwd", u.device, u.data_ptr(), delta.data_ptr(),
+           A.data_ptr(), B.data_ptr(), C.data_ptr(), _ptr(D), _ptr(delta_bias),
+           dy.data_ptr(), _ptr(carries), _ptr(dlast), du.data_ptr(),
+           ddelta.data_ptr(), dB.data_ptr(), dC.data_ptr(), dA.data_ptr(),
+           dD.data_ptr(), dbias.data_ptr(), scratch.data_ptr(),
+           ctypes.addressof(strides), int(u.dtype == torch.bfloat16), bsz, kd,
+           length, groups, n, int(delta_softplus), chunk)
+    selective_scan_bwd.launches += 1
+    return (du, ddelta, dA, dB, dC, dD if D is not None else None,
+            dbias if delta_bias is not None else None)
+
+
+def selective_scan_bwd(u, delta, A, B, C, dy, D=None, delta_bias=None,
+                       delta_softplus: bool = False, carries=None, dlast=None):
+    """K5's backward: the gradients (du, ddelta, dA, dB, dC, dD, d
+    delta_bias) of ``selective_scan`` given dy (and ``dlast``, the last
+    state's gradient, or None) — the backward kernel on CUDA tensors, which
+    also takes the forward's chunk ``carries`` (``scan_carries``; None
+    when L fits one chunk), ``selective_scan_bwd_reference`` on CPU
+    tensors.  Results as the reference's."""
+    B, C = _grouped(B), _grouped(C)
+    tensors = [x for x in (u, delta, A, B, C, dy, D, delta_bias, carries,
+                           dlast) if x is not None]
+    if device_of(*tensors) == "cpu":
+        return selective_scan_bwd_reference(u, delta, A, B, C, dy, D,
+                                            delta_bias, delta_softplus, dlast)
+    return _launch_bwd(u, delta, A, B, C, dy, D, delta_bias, delta_softplus,
+                       carries, dlast)
+
+
+selective_scan_bwd.launches = 0
+
+
+class SelectiveScanFn(torch.autograd.Function):
+    """``selective_scan`` under autograd.  Forward: K5 on the card, keeping
+    its chunk carry-ins (the one tensor saved besides the inputs: [B,
+    n_chunks - 1, KD, N] float32, no per-step state), or
+    ``selective_scan_reference`` on the CPU.  Backward:
+    ``selective_scan_bwd``, its kernel on the card, its reference on the
+    CPU; the gradients in their inputs' dtypes."""
+
+    @staticmethod
+    def forward(ctx, u, delta, A, B, C, D, delta_bias, delta_softplus,
+                return_last_state):
+        if u.is_cuda:
+            y, last, carries = _launch(u, delta, A, B, C, D, delta_bias,
+                                       delta_softplus, return_last_state,
+                                       keep_carries=True)
+        else:
+            y, last = selective_scan_reference(u, delta, A, B, C, D,
+                                               delta_bias, delta_softplus, True)
+            carries = None
+        ctx.save_for_backward(u, delta, A, B, C, D, delta_bias, carries)
+        ctx.delta_softplus = delta_softplus
+        return (y, last) if return_last_state else y
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy, dlast=None):
+        u, delta, A, B, C, D, delta_bias, carries = ctx.saved_tensors
+        grads = selective_scan_bwd(u, delta, A, B, C, dy.to(u.dtype), D,
+                                   delta_bias, ctx.delta_softplus, carries,
+                                   dlast)
+        inputs = (u, delta, A, B, C, D, delta_bias)
+        return tuple(None if x is None else g.to(x.dtype)
+                     for g, x in zip(grads, inputs)) + (None, None)
 
 
 def selective_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
@@ -226,19 +537,20 @@ def selective_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
                    delta_softplus: bool = False,
                    return_last_state: bool = False):
     """Selective scan with the JAX package's contract (see the module
-    docstring): K5 on CUDA tensors, the plain version on CPU tensors."""
+    docstring): K5 on CUDA tensors, the plain version on CPU tensors;
+    differentiable through ``SelectiveScanFn``."""
     B, C = _grouped(B), _grouped(C)
     tensors = [x for x in (u, delta, A, B, C, D, delta_bias) if x is not None]
-    if device_of(*tensors) == "cpu":
+    cpu = device_of(*tensors) == "cpu"
+    if torch.is_grad_enabled() and any(x.requires_grad for x in tensors):
+        return SelectiveScanFn.apply(u, delta, A, B, C, D, delta_bias,
+                                     delta_softplus, return_last_state)
+    if cpu:
         return selective_scan_reference(u, delta, A, B, C, D, delta_bias,
                                         delta_softplus, return_last_state)
-    if torch.is_grad_enabled() and any(x.requires_grad for x in tensors):
-        raise NotImplementedError(
-            "the selective-scan kernel (K5) is forward only: its backward, "
-            "and training the Mamba family, are ROADMAP.md Queue 1 step 19; "
-            "run the forward under torch.no_grad() or torch.inference_mode()")
-    return _launch(u, delta, A, B, C, D, delta_bias, delta_softplus,
-                   return_last_state)
+    y, last, _ = _launch(u, delta, A, B, C, D, delta_bias, delta_softplus,
+                         return_last_state)
+    return (y, last) if return_last_state else y
 
 
 selective_scan.launches = 0

@@ -55,8 +55,11 @@ from class_query_vad_tpu_torch.ops.native_blend import (
     native_blend_reference,
 )
 from class_query_vad_tpu_torch.ops.selective_scan import (
+    scan_carries,
     scan_chunk,
     selective_scan,
+    selective_scan_bwd,
+    selective_scan_bwd_reference,
     selective_scan_reference,
 )
 from class_query_vad_tpu_torch.ops.vit_attention import (
@@ -492,17 +495,79 @@ def test_selective_scan_lengths_and_chunks(card, dtype, tol, shape, layout, leng
 
 
 @pytest.mark.cuda
-def test_selective_scan_is_forward_only_on_the_card(card):
-    u = torch.randn(1, 8, 5, device=card, requires_grad=True)
-    args = (torch.rand(1, 8, 5, device=card), -torch.ones(8, 4, device=card),
-            torch.randn(1, 1, 4, 5, device=card), torch.randn(1, 1, 4, 5, device=card))
+def test_selective_scan_autograd_on_the_card(card):
+    """With a gradient needed, K5 keeps its chunk carry-ins and its
+    backward kernel runs once per backward: the gradients of every input
+    within 1e-4 of autograd through the plain version on the CPU."""
+    rng = np.random.default_rng(3)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s, np.float32))
+    args = [f(1, 64, 150), 0.5 * f(1, 64, 150).abs(), -torch.exp(f(64, 4)),
+            f(1, 2, 4, 150), f(1, 2, 4, 150), f(64), f(64)]
+    dy = f(1, 64, 150)
+    grads = []
+    for dev in ("cpu", card):
+        leaves = [x.detach().to(dev).requires_grad_(True) for x in args]
+        counts = (selective_scan.launches, selective_scan_bwd.launches)
+        y = selective_scan(*leaves[:5], D=leaves[5], delta_bias=leaves[6],
+                           delta_softplus=True)
+        (y * dy.to(dev)).sum().backward()
+        moved = (selective_scan.launches - counts[0],
+                 selective_scan_bwd.launches - counts[1])
+        assert moved == ((0, 0) if dev == "cpu" else (1, 1))
+        grads.append([x.grad.cpu() for x in leaves])
+    for i, (got, want) in enumerate(zip(grads[1], grads[0])):
+        err = (got - want).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item(), (i, err)
     before = selective_scan.launches
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        selective_scan(u, *args)
-    assert selective_scan.launches == before
     with torch.no_grad():
-        selective_scan(u, *args)
+        selective_scan(*[x.detach().to(card).requires_grad_(True) for x in args])
     assert selective_scan.launches == before + 1
+
+
+# K5's backward against its plain version at the VSS path's shapes and
+# strides (the backbone's bf16 scan, B=1, L=5121; the encoder's; a ragged
+# channel block and odd L), each flag set of chip_smoke's phase 7: every
+# gradient within 1e-4 (float32) / 1e-2 (bf16: du, dB, dC rounded to bf16
+# on both sides) x max|ref|; dA, dD and d delta_bias, sums over B x L
+# steps, within 1e-3
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape,layout", [
+    (torch.bfloat16, (1, 384, 5121, 16, 1), "backbone"),
+    (torch.float32, (1, 1024, 320, 4, 4), "encoder"),
+    (torch.float32, (1, 96, 37, 8, 2), "encoder"),
+    (torch.bfloat16, (2, 96, 37, 8, 1), "backbone"),
+])
+@pytest.mark.parametrize("flags", ["all", "none", "softplus"])
+def test_selective_scan_bwd_matches_plain(card, dtype, shape, layout, flags):
+    b, kd, length, ns, g = shape
+    u, delta, a, bm, cm, d, bias = _scan_inputs(card, dtype, b, kd, length, ns,
+                                                g, layout, seed=length + ns)
+    kw = dict(D=d, delta_bias=bias, delta_softplus=True)
+    if flags == "none":
+        kw, delta = dict(delta_softplus=False), delta.abs()
+    elif flags == "softplus":
+        kw = dict(delta_softplus=True)
+    dy = torch.randn(u.shape, device=card).to(dtype)
+    dlast = torch.randn((b, kd, ns), device=card)
+    carries = scan_carries(u, delta, a, bm, cm, **kw)
+    before = selective_scan_bwd.launches
+    got = selective_scan_bwd(u, delta, a, bm, cm, dy, carries=carries,
+                             dlast=dlast, **kw)
+    torch.cuda.synchronize()
+    assert selective_scan_bwd.launches == before + 1
+    want = selective_scan_bwd_reference(u, delta, a, bm, cm, dy, dlast=dlast,
+                                        **kw)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    names = ("du", "ddelta", "dA", "dB", "dC", "dD", "dbias")
+    for name, x, r in zip(names, got, want):
+        assert (x is None) == (r is None), name
+        if x is None:
+            continue
+        assert x.dtype == r.dtype and x.shape == r.shape, name
+        assert torch.isfinite(x).all(), name
+        lim = 1e-3 if name in ("dA", "dD", "dbias") else tol
+        err = (x.float() - r.float()).abs().max().item()
+        assert err <= lim * r.float().abs().max().item(), (name, err)
 
 
 @pytest.mark.cuda
@@ -536,6 +601,64 @@ def test_tiny_vss_model_card_matches_cpu(card):
     for k in ("pred_logits", "pred_boxes", "pred_logits_b"):
         g, r = out_g[k].cpu(), out_c[k]
         assert (g - r).abs().max().item() <= 1e-4 * max(1.0, r.abs().max().item()), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [False, True])
+def test_tiny_vss_train_step_on_the_card(card, remat):
+    """One tiny float32 VSS train step on the card (K5 and its backward)
+    and on the CPU (the plain versions), same seeded weights and batch,
+    dropout off: the same loss and assignment, every gradient within 1e-2 x
+    its max (as test_tiny_train_step_on_the_card); 12 forward scans (24
+    under remat: each one again in its block's recompute) and 12 backward
+    ones."""
+    from unittest import mock
+
+    from class_query_vad_tpu_torch.config import get_cfg_custom
+    from class_query_vad_tpu_torch.models import videomamba
+
+    from torch_parity import TINY_VIDEOMAMBA, VSS_YAML, tiny_vss_cfg
+
+    with mock.patch.dict(videomamba.VIDEOMAMBA_SPECS, TINY_VIDEOMAMBA):
+        cfg = tiny_vss_cfg(get_cfg_custom(VSS_YAML))
+        cfg.CONFIG.MODEL.DROPOUT = 0.0
+        cfg.CONFIG.GRADIENT_CHECKPOINTING = remat
+        m_cpu = build_model(cfg, device="cpu", input_hw=(64, 128),
+                            generator=torch.Generator().manual_seed(1))
+        m_gpu = build_model(cfg, device=card, input_hw=(64, 128))
+    randomize_constants(m_cpu, torch.Generator().manual_seed(2))
+    m_gpu.load_state_dict(m_cpu.state_dict(), strict=True)
+    rng = np.random.default_rng(0)
+    batch = {
+        "pixels": rng.standard_normal((2, 8, 64, 128, 3), np.float32),
+        "mask": np.zeros((2, 64, 128), bool),
+        "boxes": rng.uniform(0.2, 0.7, (2, 4, 4)).astype(np.float32),
+        "labels": (rng.random((2, 4, 12)) < 0.2).astype(np.float32),
+        "n_boxes": np.array([3, 2], np.int32),
+    }
+    res = []
+    for model, dev in ((m_cpu, "cpu"), (m_gpu, card)):
+        model.head_dropout.p = 0.0
+        trainer = Trainer(model, cfg, device=dev)
+        before = (selective_scan.launches, selective_scan_bwd.launches)
+        total, losses, match = trainer.loss(
+            {k: torch.as_tensor(v).to(dev) for k, v in batch.items()})
+        total.backward()
+        moved = (selective_scan.launches - before[0],
+                 selective_scan_bwd.launches - before[1])
+        res.append((total.item(), match, {k: p.grad.cpu() for k, p in
+                                          model.named_parameters()}, moved))
+    (t_c, m_c, g_c, n_c), (t_g, m_g, g_g, n_g) = res
+    assert n_c == (0, 0) and n_g == (24 if remat else 12, 12)
+    ok = m_c.match_ok
+    assert torch.equal(ok, m_g.match_ok.cpu())
+    assert torch.equal(m_c.gt_idx[ok], m_g.gt_idx.cpu()[ok])
+    assert abs(t_g - t_c) <= 1e-4 * abs(t_c)
+    floor = 1e-5 * max(g.abs().max().item() for g in g_c.values())
+    for k in g_c:
+        assert g_g[k].dtype == g_c[k].dtype, k
+        err = (g_g[k] - g_c[k]).abs().max().item()
+        assert err <= 1e-2 * g_c[k].abs().max().item() + floor, (k, err)
 
 
 def _native_inputs(card, dtype, b, t, grid, vshapes, nc, seed, c=256):

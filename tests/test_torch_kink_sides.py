@@ -14,6 +14,7 @@ from chip_smoke import KinkSides, hat_codes
 from class_query_vad_tpu_torch.models.backbone import MaxPool2x
 from class_query_vad_tpu_torch.models.deform_encoder import MSDeformAttn3D
 from class_query_vad_tpu_torch.models.fast_encoder import FastDeformAttn3D
+from class_query_vad_tpu_torch.models.videomamba import TemporalMaxPool
 
 TAPS = (-1, 0, 1)
 
@@ -97,6 +98,34 @@ def test_kink_sides_zero_a_max_pool_argmax_flip():
     torch.testing.assert_close(ga, gb, rtol=0, atol=0)
     assert ga[0, 0, 0, 0, 0] == 0 and ga[0, 0, 1, 1, 0] == 0
     assert ga[0, 0, 0, 2, 1] == 2.0      # the other windows keep theirs
+
+
+class _TemporalPool(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.pool = TemporalMaxPool()
+
+    def forward(self, x):
+        return (self.pool(x) * torch.arange(1.0, 3.0)).sum()
+
+
+def test_kink_sides_zero_a_temporal_max_pool_argmax_flip():
+    """VideoMamba's 4x max-pool over T ([B, T, h, w, C], 9 frames: the
+    ninth is dropped): a near tie whose argmax flips between the runs is
+    zeroed on both; an exact tie gives its gradient to the first maximum
+    (XLA's rule) on both runs, unmasked."""
+    xa = torch.zeros((1, 9, 1, 1, 2))
+    xa[0, 0, 0, 0, 0] = 1.0
+    xa[0, 2, 0, 0, 0] = 1.0 - 1e-7       # channel 0: a near tie ...
+    xa[0, 5, 0, 0, 1] = xa[0, 6, 0, 0, 1] = 3.0      # window 1: an exact tie
+    xb = xa.clone()
+    xb[0, 2, 0, 0, 0] = 1.0 + 1e-7       # ... whose argmax flips in run b
+    counts, ga, gb = _matched_grads(_TemporalPool(), xa, xb)
+    assert counts == {"temporal max pool": 1}
+    torch.testing.assert_close(ga, gb, rtol=0, atol=0)
+    assert ga[0, 0, 0, 0, 0] == 0 and ga[0, 2, 0, 0, 0] == 0
+    assert ga[0, 5, 0, 0, 1] == 2.0 and ga[0, 6, 0, 0, 1] == 0
+    assert ga[0, 8].abs().sum() == 0
 
 
 def test_kink_sides_mask_nothing_between_equal_runs():

@@ -309,36 +309,55 @@ def test_vss_build_model_needs_a_card_or_an_explicit_cpu(monkeypatch):
     assert all(p.device.type == "cpu" for p in model.parameters())
 
 
-def test_mamba_family_is_eval_only():
-    """Training the family (K5's backward, remat, train-mode FrozenBN) is a
-    later step: train() mode raises before any work; eval serves."""
+def test_mamba_family_trains():
+    """The VSS model serves in eval() and, since step 19, runs its train()
+    forward and backward on the CPU (K5's plain forward and backward): a
+    finite loss, a gradient for every parameter."""
     model = _tiny_vss(device="cpu")
-    pixels = torch.zeros((1, 8, 64, 128, 3))
+    pixels = torch.randn((1, 8, 64, 128, 3), generator=torch.Generator().manual_seed(0))
     mask = torch.zeros((1, 64, 128), dtype=torch.bool)
     with torch.no_grad():
         out = model(pixels, mask)
-        with pytest.raises(NotImplementedError, match="step 19"):
-            model.train()(pixels, mask)
     assert out["pred_boxes"].shape == (1, 4, 4)
+    out = model.train()(pixels, mask)
+    loss = out["pred_boxes"].sum() + out["pred_logits"].sum()
+    loss.backward()
+    assert torch.isfinite(loss)
+    # every parameter but the actorness head, which this loss does not read
+    missing = [k for k, p in model.named_parameters()
+               if p.grad is None or not torch.isfinite(p.grad).all()]
+    assert missing == ["class_embed_b.weight", "class_embed_b.bias"]
 
 
-def test_videomamba_with_the_exact_encoder_raises():
+def test_videomamba_with_the_exact_encoder_trains():
     """AVA22_ViT-B-train-mamba.yaml: VideoMamba with the exact deformable
-    encoder builds and serves since step 12; its ``train()`` still raises,
-    naming step 19 (training the Mamba family)."""
+    encoder builds and serves since step 12 and trains since step 19: a
+    ``Trainer`` step on the CPU moves its VideoMamba's parameters."""
+    from class_query_vad_tpu_torch.engine import Trainer
+
     cfg = get_cfg_custom(str(REPO / "configuration" /
                              "AVA22_ViT-B-train-mamba.yaml"))
     assert spec_from_cfg(cfg).is_mamba
     assert spec_from_cfg(cfg).encoder_type == "attention"
     _cut(cfg)
+    cfg.CONFIG.TRAIN.GRAD_ACCUM = 1
     model = build_model(cfg, device="cpu", input_hw=(64, 64))
     pixels = torch.zeros((1, 8, 64, 64, 3))
     mask = torch.zeros((1, 64, 64), dtype=torch.bool)
     with torch.no_grad():
         out = model(pixels, mask)
         assert out["pred_boxes"].shape == (1, 2, 4)
-        with pytest.raises(NotImplementedError, match="step 19"):
-            model.train()(pixels, mask)
+    mixer = model.backbone[0].body.layers[0].mixer
+    before = mixer.A_b_log.detach().clone()
+    trainer = Trainer(model, cfg, device="cpu")
+    nc = cfg.CONFIG.DATA.NUM_CLASSES
+    m = int(cfg.CONFIG.DATA.MAX_BOXES)
+    metrics = trainer.step({
+        "pixels": pixels, "mask": mask,
+        "boxes": torch.full((1, m, 4), 0.5), "labels": torch.zeros((1, m, nc)),
+        "n_boxes": torch.tensor([1], dtype=torch.int32)})
+    assert torch.isfinite(metrics["total_loss"]) and "grad_norm" in metrics
+    assert not torch.equal(mixer.A_b_log, before)
 
 
 def _cut(cfg):

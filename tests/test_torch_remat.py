@@ -3,8 +3,8 @@ train step of a tiny model with it on and one with it off give the same
 losses and gradients, dropout (and the ViT's drop path) on, from the same
 seed.  The ViT blocks, the fast and the exact encoders' layers, the
 decoder's layer pairs and CSN's bottlenecks are recomputed in the
-backward (``torch.utils.checkpoint``, the RNG state replayed).  The
-Mamba family still raises in ``train()``, naming ROADMAP step 19.
+backward (``torch.utils.checkpoint``, the RNG state replayed); so are
+the Mamba family's VideoMamba blocks and SSM encoder layers.
 
 No JAX oracle: the step itself is held to JAX by
 ``test_torch_train_step.py``, ``test_torch_exact_model.py`` and
@@ -129,7 +129,11 @@ def test_dropout_is_live_in_the_remat_step():
     assert totals[0] != totals[1]
 
 
-def test_mamba_family_still_raises_in_train_with_remat():
+def test_mamba_family_train_forward_with_remat():
+    """VideoMamba + the exact encoder with GRADIENT_CHECKPOINTING: its
+    train() forward runs, and the backward recomputes each VideoMamba block
+    (the whole family's remat against JAX and off vs on is
+    tests/test_torch_mamba_train.py)."""
     cfg = cut_cfg(get_cfg_custom(str(CONFIGS
                                      / "AVA22_ViT-B-train-mamba.yaml")),
                   enc_layers=1, dec_layers=1, queries=2)
@@ -139,5 +143,12 @@ def test_mamba_family_still_raises_in_train_with_remat():
     mask = torch.zeros((1, 64, 64), dtype=torch.bool)
     with torch.no_grad():
         assert model(pixels, mask)["pred_boxes"].shape == (1, 2, 4)
-        with pytest.raises(NotImplementedError, match="step 19"):
-            model.train()(pixels, mask)
+    body = model.backbone[0].body
+    assert body.remat and model.transformer.encoder.remat
+    calls = []
+    body.layers[0].register_forward_pre_hook(lambda *_: calls.append(1))
+    out = model.train()(pixels, mask)
+    assert out["pred_boxes"].shape == (1, 2, 4) and len(calls) == 1
+    out["pred_boxes"].sum().backward()
+    assert len(calls) == 2
+    assert body.layers[0].mixer.x_proj.weight.grad is not None
