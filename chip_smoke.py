@@ -230,9 +230,11 @@ NVIDIA card.
    path's scans (B=1: the backbone's [1, 384, 5121, 16] bf16 with its
    strides, the encoder's [1, 1024, 320, 4, G=4] float32), ``K5_AWKWARD``
    and the flag sets of phase 7: every gradient within ``K5_TOL`` x
-   max|ref| (dA, dD, d delta_bias, sums over L: ``K5_SUM_TOL``); device
-   times (one call = up to five CUDA kernels) beside the bound
-   (``k5_bwd_work``) and the plain version.
+   max|ref| (dA, dD, d delta_bias, sums over L: ``K5_SUM_TOL``); at the two
+   train shapes two calls on the same inputs equal bit for bit, the
+   profiler's device rows of one call (a memset and one CUDA kernel; at
+   most three) and its scratch bytes printed; device times beside
+   the bound (``k5_bwd_work``) and the plain version.
 39. The Mamba family trains at full width: ``AVA22_train-mamba_VSS`` and
    ``AVA22_ViT-B-train-mamba`` in bf16, 1 + 3 B=1 steps each of bench.py's
    train batch (GRAD_ACCUM 1): finite losses, the parameters moving,
@@ -1718,6 +1720,11 @@ def phase_scan_kernel(dev, bw, peak):
 K5_TRAIN_BACKBONE = (1, 384, 5121, 16, 1)
 K5_TRAIN_ENCODER = (1, 1024, 320, 4, 4)
 K5_BWD_PER_STEP = {K5_TRAIN_BACKBONE: 48, K5_TRAIN_ENCODER: 48}
+# K5's backward before its redesign (five CUDA kernels per call) per train
+# scan and per VSS train step, from a whole call of this script with those
+# sources (NVIDIA H100 80GB HBM3, 700 W)
+EARLIER_MS.update({("bwd", K5_TRAIN_BACKBONE): 0.3520, ("bwd", K5_TRAIN_ENCODER): 0.0391,
+                   "K5 backward": 18.771})
 # dA, dD and d delta_bias sum B x L terms (5121 at the backbone) in other
 # orders: 1e-3 of their max; every other gradient K5_TOL
 K5_SUM_TOL = 1e-3
@@ -1737,6 +1744,27 @@ def k5_bwd_work(b, kd, length, ns, g, itemsize):
     return nbytes, steps * (12 + 16 * ns), steps * ns
 
 
+def device_ops(fn, tries: int = 3) -> dict:
+    """{name: count} of the profiler's device rows (kernels and memsets) in
+    one call of ``fn``, after a warm-up call; a trace that comes back
+    without device rows (it has on this card) is taken again, up to
+    ``tries`` times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = {e.key: e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.key != "Activity Buffer Request"}
+        if rows:
+            break
+    return rows
+
+
 def phase_scan_bwd_kernel(dev, bw, peak):
     """Phase 38: K5's backward against its plain version at the train
     path's shapes and strides, ``K5_AWKWARD`` and phase 7's flag sets, dy
@@ -1744,7 +1772,8 @@ def phase_scan_bwd_kernel(dev, bw, peak):
     version's.  Returns the kernel's entry of the JSON line (launches
     filled in by phase 39)."""
     from class_query_vad_tpu_torch.ops.selective_scan import (
-        scan_carries, selective_scan_bwd, selective_scan_bwd_reference)
+        _bwd_scratch, scan_carries, scan_chunk, selective_scan_bwd,
+        selective_scan_bwd_reference)
 
     rng = np.random.default_rng(15)
     max_err = 0.0
@@ -1792,6 +1821,22 @@ def phase_scan_bwd_kernel(dev, bw, peak):
         if shape in K5_BWD_PER_STEP and dtype == main_dtype and flags == "all":
             call = lambda: selective_scan_bwd(u, delta, a, bm, cm, dy,
                                               carries=carries, **kw)
+            again = call()
+            torch.cuda.synchronize()
+            check(all(torch.equal(x, y) for x, y in zip(got, again) if x is not None),
+                  f"K5 backward: two calls at {shape} differ")
+            rows = device_ops(call)
+            kernels = {k: n for k, n in rows.items() if "memset" not in k.lower()}
+            memsets = sum(rows.values()) - sum(kernels.values())
+            b_, kd_, l_, n_, g_ = shape
+            scratch = 4 * _bwd_scratch(b_, kd_, l_, g_, n_, scan_chunk(b_, kd_, l_, g_))
+            print(f"K5 backward {'x'.join(map(str, shape))}: two calls equal bit "
+                  f"for bit; one call's device rows: {sum(kernels.values())} CUDA "
+                  f"kernel(s) {sorted(k.split('::', 1)[-1].split('(')[0] for k in kernels)} "
+                  f"and {memsets} memset(s); scratch "
+                  f"{scratch / 1e6:.2f} MB")
+            check(sum(rows.values()) <= 3,
+                  f"K5 backward: {sum(rows.values())} device operations per call")
             t_k = kernel_device_ms(call)
             t_p = cuda_ms(lambda: selective_scan_bwd_reference(
                 u, delta, a, bm, cm, dy, **kw), 2, 1)
@@ -1800,8 +1845,9 @@ def phase_scan_bwd_kernel(dev, bw, peak):
             per_shape[shape] = (t_k, t_p, t_b,
                                 "bytes" if nbytes / bw >= ops / peak else "operations")
             print(f"K5 backward {str(dtype)[6:]:8s} {'x'.join(map(str, shape)):16s}: "
-                  f"kernel {t_k:.4f} ms (device, queued; up to five CUDA "
-                  f"kernels), plain {t_p:.2f} ms, bound {t_b:.4f} ms "
+                  f"kernel {t_k:.4f} ms (device, queued; a memset and one CUDA "
+                  f"kernel; the five-kernel version {EARLIER_MS[('bwd', shape)]:.4f} ms), "
+                  f"plain {t_p:.2f} ms, bound {t_b:.4f} ms "
                   f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP; the "
                   f"{exps / 1e6:.1f} M exps alone {exps / SFU_RATE * 1e3:.4f} ms "
                   f"at the SFU rate) -> kernel at {t_b / t_k:.1%} of the "
@@ -1811,7 +1857,8 @@ def phase_scan_bwd_kernel(dev, bw, peak):
     for s_, n_ in K5_BWD_PER_STEP.items():
         bound_by[per_shape[s_][3]] = bound_by.get(per_shape[s_][3], 0.0) + n_ * per_shape[s_][2]
     print(f"K5 backward per VSS train step (48 backbone + 48 encoder "
-          f"launches): kernel {total(0):.3f} ms, plain {total(1):.1f} ms, "
+          f"launches): kernel {total(0):.3f} ms (the five-kernel version's "
+          f"{EARLIER_MS['K5 backward']:.3f} ms), plain {total(1):.1f} ms, "
           f"bound {total(2):.4f} ms")
     return {
         "name": "selective_scan_bwd", "route": "cuda",

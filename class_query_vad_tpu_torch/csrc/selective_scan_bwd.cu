@@ -5,7 +5,7 @@
 // ops/selective_scan.py, which XLA differentiates; there is no Pallas
 // backward).  Plain PyTorch versions: class_query_vad_tpu_torch/ops/
 // selective_scan.py `selective_scan_bwd_reference` (sequential over L) and
-// `selective_scan_bwd_chunked` (this kernel's chunked order).
+// `selective_scan_bwd_chunked` (this kernel's order).
 //
 // The forward (selective_scan.cu), per batch b, channel d of group g and
 // state n, with delta_l = softplus(x_l), x_l = delta_l + bias[d] (each part
@@ -15,61 +15,71 @@
 // adjoint runs backward, g_l = C_l dy_l + a_{l+1} g_{l+1} (+ dlast at
 // l = L - 1), and
 //   dC[g, n, l] = sum_{d in g} h_l dy_l            dB[g, n, l] = sum_{d in g} g_l delta_l u_l
-//   du_l        = sum_n g_l delta_l B_l + D dy_l    ddelta_l = sigmoid(x_l) * sum_n g_l
+//   du_l        = delta_l sum_n g_l B_l + D dy_l   ddelta_l = sigmoid(x_l) * sum_n g_l
 //                                                              (A a_l h_{l-1} + u_l B_l)
 //   dA[d, n]    = sum_{b, l} g_l delta_l a_l h_{l-1}
 //   dD[d]       = sum_{b, l} dy_l u_l               dbias[d] = sum_{b, l} ddelta_l
 // (sigmoid, the derivative of jax.nn.softplus, only with the softplus).
 // du, dB and dC come out in u's dtype, the rest in float32.
 //
-// Design: simple and right, not fast.  It reuses the forward's chunks (the
-// wrapper's `scan_chunk`): the forward keeps the carry-in of every chunk but
-// the first (its kernel 2's output, [B, n_chunks - 1, KD, N] float32), the
-// one tensor autograd saves; no per-step state is kept, so a train step's
-// memory stays that of the inputs.  Five kernels run from one launcher call:
-//   1. selective_scan_bwd_chunks_kernel: every chunk but the first scanned
-//      backward from g = 0 (it needs only delta, C and dy), writing its
-//      adjoint's value at the chunk start, S_k, and its sum of delta;
-//   2. selective_scan_bwd_carries_kernel: per (b, d, n), from the last chunk
-//      to the first, the adjoint carry of chunk k - 1 is R_{k-1} = exp(A *
-//      sum delta_k) R_k + S_k (R of the last chunk = dlast, or 0), written
-//      over S_k;
-//   3. selective_scan_bwd_kernel: every chunk recomputed forward from its
-//      saved carry-in, the state at each 16-step sub-tile's start written
-//      to a scratch, then walked backward sub-tile by sub-tile: the
-//      sub-tile's 16 states recomputed into registers from its checkpoint
-//      (the forward's arithmetic, selective_scan_math.cuh, so they are the
-//      forward's bit for bit), the adjoint run down from R_k, every
-//      gradient's terms formed;
-//   4. selective_scan_bwd_bc_kernel: dB and dC, the per-block partial sums
-//      over channels summed over the channel blocks in order;
-//   5. selective_scan_bwd_params_kernel: dA, dD and dbias, the per-(b,
-//      chunk) partials summed in order.
-// Every sum is a fixed tree: no float atomics, so two backwards of the same
-// inputs agree bit for bit (GRADIENT_CHECKPOINTING's check compares two).
+// Design.  L is cut into the forward's chunks (the wrapper's `scan_chunk`,
+// at most 128 steps); the forward keeps the carry-in of every chunk but the
+// first, the one tensor autograd saves, and no per-step state is kept.  One
+// CUDA kernel does the work, after a memset of its flags and counters (two
+// device operations per call).  A block owns one chunk of a channel tile
+// (64 channels of one group); a thread owns one channel and 2 of its N
+// states, 2 independent chains (N / 2 threads per channel, adjacent lanes).
+//   1. Pass 1, forward over the chunk from its saved carry-in: the states,
+//      each 8 steps' state kept in shared memory as a checkpoint (the
+//      forward's arithmetic, selective_scan_math.cuh, so they are its
+//      states bit for bit), and the chunk's adjoint summary from zero in
+//      the same walk, S_k = sum_l (prod_{j <= l} a_j) C_l dy_l, with the
+//      running product P_k of its decays: one exp per (step, channel,
+//      state).
+//   2. The adjoint carry into the chunk, R_k, by a look-back: the blocks
+//      of a tile's chunks publish (S_k, P_k) and then R_{k-1} = P_k R_k +
+//      S_k behind per-block flags; a block starts from the nearest chunk to
+//      its right that has published R (within 16) and folds the summaries
+//      between in order, so every R is the one sequential fold from the
+//      last chunk bit for bit, whoever computes it.  Blocks take their
+//      (b, g, chunk, tile) from a ticket, last chunk first, so a block
+//      waits only on blocks that started before it.
+//   3. Pass 2, backward over the chunk's 16-step sub-tiles from R_k: each
+//      8-step segment's states and decays recomputed into registers from
+//      its checkpoint (the second exp), the adjoint walked down, every
+//      gradient's terms formed; du and ddelta summed over the states within
+//      the thread and over the channel's lanes, dB and dC over the warp's
+//      channels by a butterfly reduce-scatter, then over the warps in order.
+//   4. dB and dC over the channel tiles: each block leaves its tile's chunk
+//      sums in the scratch and the chunk's last block to finish (an integer
+//      counter) adds them in tile order and writes dB and dC; dA, dD and
+//      dbias likewise, the per-(b, chunk) partials summed in (b, chunk)
+//      order by each tile's last block.  No second kernel reads them back.
+// The sub-tiles of an operand (16 steps x 64 channels, or x N states) are
+// staged by 16-byte cp.async copies (the forward's loader,
+// selective_scan_math.cuh).  When the whole chunk fits in shared memory
+// (bf16 up to 128 steps, float32 up to 64 at N = 16) three are in flight
+// and the chunk stays there for pass 2; else one is in flight and pass 2
+// streams the chunk again through two slots.
+// Strided views, as the backbone's transposed x_proj output, are read in
+// place.  No float atomics and every sum in a fixed order: two backwards of
+// the same inputs agree bit for bit (GRADIENT_CHECKPOINTING's check
+// compares two).  The scratch holds the summaries, the carries and the
+// partials (`_bwd_scratch` in ops/selective_scan.py), no checkpoint.
 //
-// A block owns 256 / N channels of one group (16 at N = 16, the backbone;
-// 64 at N = 4, the encoder) and one chunk; thread t owns channel t / N and
-// state t % N, so a channel's N states are N adjacent lanes: du's and
-// ddelta's sums over the states are shuffles within those lanes, dB's and
-// dC's over the warp's channels shuffles across them, then the 8 warps'
-// sums meet in shared memory.  Each sub-tile's u, delta, dy, B and C are
-// loaded into shared memory element by element along each operand's
-// contiguous axis (strided views, as the backbone's transposed x_proj
-// output, are read in place); delta's bias, softplus and sigmoid are formed
-// once per (step, channel).  du and ddelta go out along L through shared
-// memory.  The exps: one per (step, channel, state) in kernel 1 and two in
-// kernel 3 (the checkpoint pass and the sub-tile's recompute).
-//
-// What bounds it.  The work is K5's and a little more: at the backbone's
-// train scan (B=1, KD=384, L=5121, N=16, bf16) 28 MB to move (8.4 us at
-// 3.35 TB/s) and 31.5 M exps (7.5 us at the SFU rate), so the bound is
-// bytes and exps alike.  This first version takes 0.35 ms there (about 2 %
-// of its bound; chip_smoke.py phase 38, PERF.md): it computes every exp
-// three times, moves ~24 MB of checkpoints and per-block partials through
-// memory, loads element by element, and syncs its block four times per
-// 16-step sub-tile.  A look-back fold inside one launch and one call per
-// BiMamba block are the obvious next steps.
+// What bounds it now.  At the backbone's train scan (B=1, KD=384, L=5121,
+// N=16, bf16: 486 blocks of 512 threads, 1 per SM by its 152 KB of shared
+// memory and 128 registers a thread, 3.7 waves) it takes 0.177 ms against
+// a bound of 0.0084 (bytes; the earlier five-kernel version 0.351 in the
+// same call of scripts/compare_k5_k11.py, PERF.md).  Builds with one part
+// taken out (same call): pass 2 is 45 % of the time, the staged loads 19 %, dB's and
+// dC's warp sums 6 %, the exps 3 %, the look-back's wait 2 %, the memset,
+// launch and blocks 4 % (7.3 us); keeping the chunk resident instead of
+// streaming it twice saves 8 %.  What is left is the latency of the two
+// walks: per step a thread's two chains are a few dependent FMAs and
+// shuffles between barriers, with 16 warps per SM to cover them.  At the
+// encoder's scan (B=1, KD=1024, L=320, N=4, float32; 160 blocks) 0.031 ms,
+// of which the fixed cost is 14 % and pass 2 29 %.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,17 +91,28 @@
 
 namespace {
 
+using s6::chunk_offset;
 using s6::ex2;
 using s6::from_float;
 using s6::kLog2e;
+using s6::kSub;
+using s6::Operand;
+using s6::operand_of;
 using s6::softplus_f;
+using s6::softplus_sigmoid;
+using s6::stage;
+using s6::tile_at;
+using s6::tile_elems;
 using s6::to_float;
 
-constexpr int kThreads = 256;           // per block of kernels 1 and 3
-constexpr int kWarps = kThreads / 32;
-constexpr int kSub = 16;                // steps per staged sub-tile
-constexpr int kFoldThreads = 256;
-constexpr int kBatch = 16;              // summaries in flight in kernel 2
+constexpr int kChannels = 64;           // channels per tile
+constexpr int kNS = 2;                  // states per thread: independent chains
+constexpr int kSeg = 8;                 // steps per checkpoint
+constexpr int kMaxChunk = 128;          // the wrapper's scan_chunk caps it
+constexpr int kLookback = 16;           // chunks a look-back folds at most
+constexpr int kAgg = 1, kIncl = 2;      // flag values: summary, carry out
+constexpr int kAhead = 3;               // sub-tiles in flight, chunk resident
+constexpr int kSmemMax = 232448;        // shared memory a block can have
 
 struct Strides {                        // in elements
   long long u[3];                       // [B, KD, L]
@@ -102,424 +123,592 @@ struct Strides {                        // in elements
 };
 static_assert(sizeof(Strides) == 17 * sizeof(long long), "Strides is packed");
 
-template <int N>
-__host__ __device__ constexpr int channels_of() { return kThreads / N; }
-
-// a sub-tile's per-(step, channel) values, rows padded against bank conflicts
-template <int N>
-struct Smem {
-  static constexpr int kLd = channels_of<N>() + 1;
-  float u[kSub][kLd];                   // u
-  float dd[kSub][kLd];                  // delta after bias and softplus (0 past L)
-  float du[kSub][kLd];                  // delta * u
-  float sg[kSub][kLd];                  // d delta / d x: sigmoid(x), 1, or 0 past L
-  float dy[kSub][kLd];
-  float gu[kSub][kLd];                  // du, out
-  float gd[kSub][kLd];                  // ddelta, out
-  float b32[kSub][N];
-  float c32[kSub][N];
-  float wred[kWarps][2][kSub][N];       // each warp's sums over its channels: dB, dC
+struct Layout {
+  Operand u, dt, b, c, dy;
 };
-
-// Load a [kSub steps][cols] tile of a [.., cols, L]-strided operand into
-// float32 shared memory, along the operand's contiguous axis (steps when
-// s_step is 1); zero outside steps < n_steps, columns < n_cols.
-template <typename T, int COLS, int LD>
-__device__ __forceinline__ void load_tile(float (*dst)[LD], const T* src, long long s_step,
-                                          long long s_col, int n_steps, int n_cols) {
-  const bool steps_fast = s_step == 1;
-  for (int e = threadIdx.x; e < kSub * COLS; e += kThreads) {
-    const int i = steps_fast ? e % kSub : e / COLS;
-    const int c = steps_fast ? e / kSub : e % COLS;
-    dst[i][c] = (i < n_steps && c < n_cols) ? to_float(src[i * s_step + c * s_col]) : 0.0f;
-  }
-}
 
 struct Ctx {
-  int channels, length, groups, chunk, n_chunks, delta_softplus;
+  int batch, channels, length, groups, chunk, n_chunks, delta_softplus;
+  int tiles;                            // 64-channel tiles per group
+  int resident;                         // the chunk's sub-tiles all stay staged
 };
-
-// The block's coordinates and the sub-tile loader of kernels 1 and 3.
-template <typename T, int N>
-struct Block {
-  static constexpr int CH = channels_of<N>();
-  Smem<N>& sm;
-  const Ctx& cx;
-  const Strides& st;
-  const T* u_b;
-  const float* dt_b;
-  const T* b_b;
-  const T* c_b;
-  const T* dy_b;
-  const float* bias;
-  long long b, d0;
-  int g, k, n_ch, l_begin, l_end;
-
-  __device__ Block(Smem<N>& sm_, const Ctx& cx_, const Strides& st_, const T* u,
-                   const float* dt, const T* Bm, const T* Cm, const T* dy,
-                   const float* bias_, int chunk_index)
-      : sm(sm_), cx(cx_), st(st_), bias(bias_) {
-    const int dk = cx.channels / cx.groups;
-    g = blockIdx.z % cx.groups;
-    b = blockIdx.z / cx.groups;
-    k = chunk_index;
-    const int ch0 = blockIdx.x * CH;
-    n_ch = min(CH, dk - ch0);
-    d0 = static_cast<long long>(g) * dk + ch0;
-    l_begin = k * cx.chunk;
-    l_end = min(cx.length, l_begin + cx.chunk);
-    u_b = u + b * st.u[0] + d0 * st.u[1];
-    dt_b = dt + b * st.dt[0] + d0 * st.dt[1];
-    b_b = Bm + b * st.b[0] + g * st.b[1];
-    c_b = Cm + b * st.c[0] + g * st.c[1];
-    dy_b = dy + b * st.dy[0] + d0 * st.dy[1];
-  }
-
-  __device__ int n_sub() const { return (l_end - l_begin + kSub - 1) / kSub; }
-
-  // Sub-tile s into shared memory: delta (after bias and softplus), its
-  // sigmoid, delta * u; u and B with `ub`, C and dy with `cdy`.  Ends with
-  // the block synchronized.
-  __device__ void stage(int s, bool ub, bool cdy) {
-    const int l0 = l_begin + s * kSub;
-    const int ns = min(kSub, l_end - l0);
-    load_tile<float, CH, Smem<N>::kLd>(sm.dd, dt_b + l0 * st.dt[2], st.dt[2], st.dt[1], ns, n_ch);
-    if (ub) {
-      load_tile<T, CH, Smem<N>::kLd>(sm.u, u_b + l0 * st.u[2], st.u[2], st.u[1], ns, n_ch);
-      load_tile<T, N, N>(sm.b32, b_b + l0 * st.b[3], st.b[3], st.b[2], ns, N);
-    }
-    if (cdy) {
-      load_tile<T, CH, Smem<N>::kLd>(sm.dy, dy_b + l0 * st.dy[2], st.dy[2], st.dy[1], ns, n_ch);
-      load_tile<T, N, N>(sm.c32, c_b + l0 * st.c[3], st.c[3], st.c[2], ns, N);
-    }
-    __syncthreads();
-    for (int e = threadIdx.x; e < kSub * CH; e += kThreads) {
-      const int i = e / CH, c = e % CH;
-      const bool ok = i < ns && c < n_ch;
-      const float x = sm.dd[i][c] + ((ok && bias != nullptr) ? bias[d0 + c] : 0.0f);
-      float delta = x, sig = 1.0f;
-      if (cx.delta_softplus) {
-        delta = softplus_f(x);
-        sig = 1.0f / (1.0f + ex2(-x * kLog2e));
-      }
-      if (!ok) delta = sig = 0.0f;
-      sm.dd[i][c] = delta;
-      sm.sg[i][c] = sig;
-      if (ub) sm.du[i][c] = delta * sm.u[i][c];
-    }
-    __syncthreads();
-  }
-};
-
-// Kernel 1: chunk k = blockIdx.y + 1 scanned backward from g = 0: its
-// adjoint at the chunk start, S_k = a_{l0} g_{l0}, and its sum of delta, to
-// slot k - 1 of the summaries.
-template <typename T, int N>
-__global__ void __launch_bounds__(kThreads)
-selective_scan_bwd_chunks_kernel(const float* __restrict__ dt, const float* __restrict__ A,
-                                 const T* __restrict__ Cm, const float* __restrict__ bias,
-                                 const T* __restrict__ dy, float* __restrict__ radj,
-                                 float* __restrict__ dsum, Strides st, Ctx cx) {
-  __shared__ Smem<N> sm;
-  Block<T, N> blk(sm, cx, st, nullptr, dt, nullptr, Cm, dy, bias, blockIdx.y + 1);
-  const int c = threadIdx.x / N, n = threadIdx.x % N;
-  const bool active = c < blk.n_ch;
-  const long long d = blk.d0 + c;
-  const float a2 = active ? A[d * N + n] * kLog2e : 0.0f;
-  float s = 0.0f, sum_dt = 0.0f;
-  for (int sub = blk.n_sub() - 1; sub >= 0; --sub) {
-    blk.stage(sub, false, true);
-#pragma unroll
-    for (int i = kSub - 1; i >= 0; --i) {
-      const float delta = sm.dd[i][c];
-      s = ex2(delta * a2) * fmaf(sm.c32[i][n], sm.dy[i][c], s);
-      sum_dt += delta;
-    }
-    __syncthreads();
-  }
-  if (!active) return;
-  const long long slot = blk.b * (cx.n_chunks - 1) + blk.k - 1;
-  radj[(slot * cx.channels + d) * N + n] = s;
-  if (n == 0) dsum[slot * cx.channels + d] = sum_dt;
-}
-
-// Kernel 2: one thread per (b, d, n), from the last chunk to the first:
-// R_{k-1} = exp2(A log2e * sum delta_k) R_k + S_k over S_k's slot k - 1.
-// The summaries are read kBatch at a time, all loads in flight first.
-__global__ void __launch_bounds__(kFoldThreads)
-selective_scan_bwd_carries_kernel(const float* __restrict__ A, const float* __restrict__ dlast,
-                                  float* __restrict__ radj, const float* __restrict__ dsum,
-                                  int batch, int channels, int n_state, int n_chunks) {
-  const long long idx = static_cast<long long>(blockIdx.x) * kFoldThreads + threadIdx.x;
-  if (idx >= static_cast<long long>(batch) * channels * n_state) return;
-  const int n = static_cast<int>(idx % n_state);
-  const long long bd = idx / n_state;
-  const int d = static_cast<int>(bd % channels);
-  const long long b = bd / channels;
-  const int summaries = n_chunks - 1;
-  const float a2 = A[static_cast<long long>(d) * n_state + n] * kLog2e;
-  float* rp = radj + (b * summaries * channels + d) * n_state + n;
-  const float* sp = dsum + b * summaries * channels + d;
-  const long long r_step = static_cast<long long>(channels) * n_state;
-  float r = dlast != nullptr ? dlast[idx] : 0.0f;
-  for (int j0 = summaries - 1; j0 >= 0; j0 -= kBatch) {
-    float ends[kBatch], sums[kBatch];
-#pragma unroll
-    for (int i = 0; i < kBatch; ++i) {
-      const bool ok = j0 - i >= 0;
-      ends[i] = ok ? rp[(j0 - i) * r_step] : 0.0f;
-      sums[i] = ok ? sp[(j0 - i) * static_cast<long long>(channels)] : 0.0f;
-    }
-#pragma unroll
-    for (int i = 0; i < kBatch; ++i) {
-      if (j0 - i >= 0) {
-        r = fmaf(ex2(a2 * sums[i]), r, ends[i]);
-        rp[(j0 - i) * r_step] = r;
-      }
-    }
-  }
-}
 
 struct Out {
   void* du;                             // [B, KD, L], u's dtype
   float* ddt;                           // [B, KD, L]
-  float* ckpt;                          // [B, n_chunks, chunk / 16, KD, N]
-  float* part_bc;                       // [B, G, tiles, 2, N, L]
-  float* part_p;                        // [B, n_chunks, KD, N + 2]
+  void* dB;                             // [B, G, N, L], u's dtype
+  void* dC;
+  float* dA;                            // [KD, N]
+  float* dD;                            // [KD]
+  float* dbias;                         // [KD]
 };
 
-// Kernel 3: chunk k = blockIdx.y, recomputed forward from its carry-in,
-// then walked backward from its adjoint carry R_k.
+// the scratch, in the wrapper's order (ops/selective_scan.py `_bwd_scratch`)
+struct Work {
+  int* tickets;                         // 1
+  int* flags;                           // [B, G, tiles, n_chunks]
+  int* counters;                        // [G, tiles]
+  int* done;                            // [B, G, n_chunks]
+  float* agg;                           // [B, G, tiles, n_chunks][S, P][64 N]
+  float* incl;                          // [B, G, tiles, n_chunks][64 N]
+  float* part_a;                        // [B, n_chunks, KD, N]
+  float* part_d;                        // [B, n_chunks, KD]
+  float* part_b;                        // [B, n_chunks, KD]
+  float* part_bc;                       // [B, G, n_chunks, tiles][2N][chunk]
+};
+
+template <int N>
+__host__ __device__ constexpr int parts_of() { return N / kNS; }   // threads per channel
+template <int N>
+__host__ __device__ constexpr int threads_of() { return kChannels * parts_of<N>(); }
+__host__ __device__ constexpr int log2_of(int x) { return x > 1 ? 1 + log2_of(x / 2) : 0; }
+
+// a thread's kNS floats to and from memory
+__device__ __forceinline__ void vld(float (&x)[kNS], const float* p) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  x[0] = v.x;
+  x[1] = v.y;
+}
+
+// the same through L2 only: another block's writes of this launch
+__device__ __forceinline__ void vld_cg(float (&x)[kNS], const float* p) {
+  const float2 v = __ldcg(reinterpret_cast<const float2*>(p));
+  x[0] = v.x;
+  x[1] = v.y;
+}
+
+__device__ __forceinline__ void vst(float* p, const float (&x)[kNS]) {
+  *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+}
+
+constexpr int kLd = kChannels + 1;      // a padded [step][channel] row
+
 template <typename T, int N>
-__global__ void __launch_bounds__(kThreads)
+struct Fixed {
+  alignas(16) float4 vals[kSub][kChannels];   // delta, delta * u, u, dy
+  alignas(16) float sg[kSub][kChannels];      // d delta / d x: sigmoid(x), 1; 0 past L
+  alignas(16) float b32[kSub][N];
+  alignas(16) float c32[kSub][N];
+  alignas(16) float gu[kSub][kLd];            // du, out
+  alignas(16) float gd[kSub][kLd];            // ddelta, out
+  alignas(16) float wred[threads_of<N>() / 32][kSub][2 * N];   // each warp's dB, dC
+  int ticket, from, last, last_bc;
+};
+
+template <typename T, int N>
+__host__ __device__ constexpr int fixed_bytes() {
+  return (static_cast<int>(sizeof(Fixed<T, N>)) + 15) / 16 * 16;
+}
+
+// A block's shared memory past the fixed part: `slots` staged sub-tiles of
+// u, dy, delta, B and C (every sub-tile of the chunk when it stays
+// resident, else two), the checkpoints [chunk / 8][threads][kNS] and dB's
+// and dC's chunk sums [chunk][2N + 1]; byte offsets.
+template <typename T, int N>
+struct Dyn {
+  int u, dy, dt, b, c, ckpt, bc, total;
+  __host__ __device__ constexpr Dyn(int chunk, int slots)
+      : u(fixed_bytes<T, N>()),
+        dy(u + slots * tile_elems<T>(kChannels) * static_cast<int>(sizeof(T))),
+        dt(dy + slots * tile_elems<T>(kChannels) * static_cast<int>(sizeof(T))),
+        b(dt + slots * tile_elems<float>(kChannels) * 4),
+        c(b + slots * tile_elems<T>(N) * static_cast<int>(sizeof(T))),
+        ckpt(c + slots * tile_elems<T>(N) * static_cast<int>(sizeof(T))),
+        bc(ckpt + chunk / kSeg * kChannels * N * 4),
+        total(bc + chunk * (2 * N + 1) * 4) {}
+};
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// Sum CNT values over the lanes that differ in lane bits [LO, LO + BITS):
+// a butterfly reduce-scatter while there are values to halve (a lane whose
+// bit is set keeps the upper half), then all-reduce steps.  Each pair's
+// sum is a + b whichever lane forms it, so the tree, and the bits, are
+// fixed.  Returns the index of the value left in v[0] (all CNT when BITS
+// is 0).
+template <int CNT, int LO, int BITS>
+struct LaneSum {
+  __device__ static __forceinline__ int run(float* v, int lane) {
+    if constexpr (BITS == 0) {
+      return 0;
+    } else {
+      constexpr unsigned m = 1u << LO;
+      const bool up = (lane & m) != 0;
+      if constexpr (CNT > 1) {
+        constexpr int half = CNT / 2;
+#pragma unroll
+        for (int i = 0; i < half; ++i) {
+          const float send = up ? v[i] : v[i + half];
+          const float keep = up ? v[i + half] : v[i];
+          v[i] = keep + __shfl_xor_sync(0xffffffffu, send, m);
+        }
+        return (up ? half : 0) + LaneSum<half, LO + 1, BITS - 1>::run(v, lane);
+      } else {
+        v[0] += __shfl_xor_sync(0xffffffffu, v[0], m);
+        return LaneSum<1, LO + 1, BITS - 1>::run(v, lane);
+      }
+    }
+  }
+};
+
+template <typename T, int N>
+__global__ void __launch_bounds__(threads_of<N>())
 selective_scan_bwd_kernel(const T* __restrict__ u, const float* __restrict__ dt,
                           const float* __restrict__ A, const T* __restrict__ Bm,
                           const T* __restrict__ Cm, const float* __restrict__ D,
                           const float* __restrict__ bias, const T* __restrict__ dy,
-                          const float* __restrict__ carries, const float* __restrict__ radj,
-                          const float* __restrict__ dlast, Out out, Strides st, Ctx cx,
-                          int tiles) {
-  constexpr int CH = channels_of<N>();
-  __shared__ Smem<N> sm;
-  Block<T, N> blk(sm, cx, st, u, dt, Bm, Cm, dy, bias, blockIdx.y);
-  const int tid = threadIdx.x;
-  const int c = tid / N, n = tid % N;
-  const int lane = tid % 32, warp = tid / 32;
-  const bool active = c < blk.n_ch;
-  const long long d = blk.d0 + c;
-  const long long b = blk.b;
-  const int k = blk.k;
-  const long long summaries = cx.n_chunks - 1;
-  const float a_n = active ? A[d * N + n] : 0.0f;
-  const float a2 = a_n * kLog2e;
-  const float d_skip = (active && D != nullptr) ? D[d] : 0.0f;
-  const int n_sub = blk.n_sub();
-  const long long ck_step = static_cast<long long>(cx.channels) * N;
-  float* ck = out.ckpt + (b * cx.n_chunks + k) * (cx.chunk / kSub) * ck_step + d * N + n;
+                          const float* __restrict__ carries, const float* __restrict__ dlast,
+                          Out out, Work wk, Strides st, Layout lay, Ctx cx) {
+  constexpr int P = parts_of<N>();
+  constexpr int TH = threads_of<N>();
+  constexpr int W = TH / 32;
+  constexpr int LP = log2_of(P);
+  constexpr int kBcLd = 2 * N + 1;
+  constexpr int kSegs = kSub / kSeg;
+  // lanes that hold a copy of another lane's dB / dC sum (the channel bits
+  // past those a reduce-scatter of 2 kNS values uses)
+  constexpr int kScatter = LP + log2_of(2 * kNS);
+  constexpr int kReplica = (31 >> kScatter) << kScatter;
+  extern __shared__ __align__(16) unsigned char smem[];
+  Fixed<T, N>& fx = *reinterpret_cast<Fixed<T, N>*>(smem);
+  const Dyn<T, N> dyn(cx.chunk, cx.resident ? cx.chunk / kSub : 2);
+  T* st_u = reinterpret_cast<T*>(smem + dyn.u);
+  T* st_dy = reinterpret_cast<T*>(smem + dyn.dy);
+  float* st_dt = reinterpret_cast<float*>(smem + dyn.dt);
+  T* st_b = reinterpret_cast<T*>(smem + dyn.b);
+  T* st_c = reinterpret_cast<T*>(smem + dyn.c);
+  float* ckpt = reinterpret_cast<float*>(smem + dyn.ckpt);   // [chunk / kSeg][TH][kNS]
+  float* bc = reinterpret_cast<float*>(smem + dyn.bc);
+  constexpr int kTileX = tile_elems<T>(kChannels), kTileD = tile_elems<float>(kChannels);
+  constexpr int kTileN = tile_elems<T>(N);
 
-  // pass 1: the state at every sub-tile's start
-  float h = (active && k > 0) ? carries[((b * summaries + k - 1) * cx.channels + d) * N + n] : 0.0f;
-  for (int sub = 0; sub < n_sub; ++sub) {
-    blk.stage(sub, true, false);
-    if (active) ck[sub * ck_step] = h;
-#pragma unroll
-    for (int i = 0; i < kSub; ++i)
-      h = fmaf(ex2(sm.dd[i][c] * a2), h, sm.du[i][c] * sm.b32[i][n]);
-    __syncthreads();
-  }
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int c = tid / P, part = tid % P, n0 = part * kNS;
+  const int cd = tid % kChannels;       // the channel this thread stages
+  if (tid == 0) fx.ticket = atomicAdd(wk.tickets, 1);
+  __syncthreads();
+  const int nc = cx.n_chunks;
+  const int tile = fx.ticket % cx.tiles;
+  const int bgk = fx.ticket / cx.tiles; // (b, g, chunk), the last chunk first
+  const int bg = bgk / nc;
+  const int k = nc - 1 - bgk % nc;
+  const int g = bg % cx.groups;
+  const long long b = bg / cx.groups;
+  const int dk = cx.channels / cx.groups;
+  const int l_begin = k * cx.chunk;
+  const int l_end = min(cx.length, l_begin + cx.chunk);
+  const int len = l_end - l_begin;
+  const int n_sub = (len + kSub - 1) / kSub;
+  const T* b_b = Bm + b * st.b[0] + g * st.b[1];
+  const T* c_b = Cm + b * st.c[0] + g * st.c[1];
+  const int a0_b = chunk_offset(b_b);
+  const int a0_c = chunk_offset(c_b);
 
-  // pass 2: backward, sub-tile by sub-tile
-  float s = 0.0f;
-  if (active) {
-    if (k < cx.n_chunks - 1)
-      s = radj[((b * summaries + k) * cx.channels + d) * N + n];
-    else if (dlast != nullptr)
-      s = dlast[(b * cx.channels + d) * N + n];
-  }
-  float acc_a = 0.0f, acc_d = 0.0f, acc_bias = 0.0f;
-  for (int sub = n_sub - 1; sub >= 0; --sub) {
-    const int l0 = blk.l_begin + sub * kSub;
-    const int ns = min(kSub, blk.l_end - l0);
-    blk.stage(sub, true, true);
-    float hs[kSub + 1], av[kSub];
-    hs[0] = active ? ck[sub * ck_step] : 0.0f;
+  {
+    const int n_ch = min(kChannels, dk - tile * kChannels);
+    const long long d0 = static_cast<long long>(g) * dk + tile * kChannels;
+    const bool active = c < n_ch;
+    const long long d = d0 + c;
+    const T* u_b = u + b * st.u[0] + d0 * st.u[1];
+    const float* dt_b = dt + b * st.dt[0] + d0 * st.dt[1];
+    const T* dy_b = dy + b * st.dy[0] + d0 * st.dy[1];
+    // every sub-tile starts a multiple of 16 bytes after these
+    const int a0_u = chunk_offset(u_b);
+    const int a0_dt = chunk_offset(dt_b);
+    const int a0_dy = chunk_offset(dy_b);
+    const float d_bias = (cd < n_ch && bias != nullptr) ? bias[d0 + cd] : 0.0f;
+    const float d_skip = (active && D != nullptr) ? D[d] : 0.0f;
+    float an[kNS], a2[kNS];
 #pragma unroll
-    for (int i = 0; i < kSub; ++i) {
-      av[i] = ex2(sm.dd[i][c] * a2);
-      hs[i + 1] = fmaf(av[i], hs[i], sm.du[i][c] * sm.b32[i][n]);
+    for (int j = 0; j < kNS; ++j) {
+      an[j] = active ? A[d * N + n0 + j] : 0.0f;
+      a2[j] = an[j] * kLog2e;
     }
+    const long long slot0 = (static_cast<long long>(bg) * cx.tiles + tile) * nc;
+    const long long my = slot0 + k;
+
+    // sub-tile s into its slot (its own when the chunk stays resident)
+    auto issue = [&](int s) {
+      const int l0 = l_begin + s * kSub;
+      const int ns = min(kSub, l_end - l0);
+      const int buf = cx.resident ? s : s & 1;
+      stage<T, kChannels, TH>(st_u + buf * kTileX, lay.u, u_b + l0 * st.u[2], st.u[2],
+                              st.u[1], ns, n_ch);
+      stage<float, kChannels, TH>(st_dt + buf * kTileD, lay.dt, dt_b + l0 * st.dt[2],
+                                  st.dt[2], st.dt[1], ns, n_ch);
+      stage<T, kChannels, TH>(st_dy + buf * kTileX, lay.dy, dy_b + l0 * st.dy[2], st.dy[2],
+                              st.dy[1], ns, n_ch);
+      stage<T, N, TH>(st_b + buf * kTileN, lay.b, b_b + l0 * st.b[3], st.b[3], st.b[2], ns, N);
+      stage<T, N, TH>(st_c + buf * kTileN, lay.c, c_b + l0 * st.c[3], st.c[3], st.c[2], ns, N);
+    };
+    // sub-tile s's per-(step, channel) values (delta after the bias and the
+    // softplus, delta * u, u, dy and, in pass 2, the softplus's derivative;
+    // zero past L and past the tile's channels, which keeps the state and
+    // the adjoint) and its B and C in float32
+    auto derive = [&](int s, bool pass2) {
+      const int ns = min(kSub, l_end - (l_begin + s * kSub));
+      const int buf = cx.resident ? s : s & 1;
+      const T* su = st_u + buf * kTileX;
+      const T* sdy = st_dy + buf * kTileX;
+      const float* sdt = st_dt + buf * kTileD;
+      const T* sb = st_b + buf * kTileN;
+      const T* sc = st_c + buf * kTileN;
 #pragma unroll
-    for (int i = kSub - 1; i >= 0; --i) {
-      const float dyv = sm.dy[i][c], uu = sm.u[i][c], delta = sm.dd[i][c];
-      const float bn = sm.b32[i][n];
-      const float gg = fmaf(sm.c32[i][n], dyv, s);           // g_l
-      float p_c = hs[i + 1] * dyv;                           // dC's term
-      float p_b = gg * sm.du[i][c];                          // dB's
-      float p_u = gg * delta * bn;                           // du's
-      float p_d = gg * fmaf(a_n * av[i], hs[i], uu * bn);    // ddelta's
-      acc_a = fmaf(gg * delta, av[i] * hs[i], acc_a);
-      s = av[i] * gg;                                        // a_l g_l
-#pragma unroll
-      for (int off = N / 2; off > 0; off /= 2) {             // over the states
-        p_u += __shfl_xor_sync(0xffffffffu, p_u, off);
-        p_d += __shfl_xor_sync(0xffffffffu, p_d, off);
+      for (int r = 0; r < kSub / P; ++r) {
+        const int i = tid / kChannels + r * P;
+        const float x = sdt[tile_at<float>(lay.dt, kChannels, a0_dt, i, cd)] + d_bias;
+        float delta = x, sig = 1.0f;
+        if (cx.delta_softplus) delta = pass2 ? softplus_sigmoid(x, sig) : softplus_f(x);
+        float uu = to_float(su[tile_at<T>(lay.u, kChannels, a0_u, i, cd)]);
+        float dyv = to_float(sdy[tile_at<T>(lay.dy, kChannels, a0_dy, i, cd)]);
+        if (i >= ns || cd >= n_ch) delta = sig = uu = dyv = 0.0f;
+        fx.vals[i][cd] = make_float4(delta, delta * uu, uu, dyv);
+        fx.sg[i][cd] = sig;
       }
-#pragma unroll
-      for (int off = N; off < 32; off *= 2) {                // over the warp's channels
-        p_b += __shfl_xor_sync(0xffffffffu, p_b, off);
-        p_c += __shfl_xor_sync(0xffffffffu, p_c, off);
+      for (int e = tid; e < kSub * N; e += TH) {
+        const int i = e / N, n = e % N;
+        fx.b32[i][n] = i < ns ? to_float(sb[tile_at<T>(lay.b, N, a0_b, i, n)]) : 0.0f;
+        fx.c32[i][n] = i < ns ? to_float(sc[tile_at<T>(lay.c, N, a0_c, i, n)]) : 0.0f;
       }
-      if (lane < N) {
-        sm.wred[warp][0][i][n] = p_b;
-        sm.wred[warp][1][i][n] = p_c;
+    };
+    // sub-tile s's du and ddelta out along L; its dB and dC, the warps'
+    // sums added in order, into the tile's chunk sums
+    auto flush = [&](int s) {
+      const int l0 = l_begin + s * kSub;
+      const int ns = min(kSub, l_end - l0);
+      for (int e = tid; e < kSub * kChannels; e += TH) {
+        const int i = e % kSub, cc = e / kSub;
+        if (i < ns && cc < n_ch) {
+          const long long o = (b * cx.channels + d0 + cc) * cx.length + l0 + i;
+          static_cast<T*>(out.du)[o] = from_float<T>(fx.gu[i][cc]);
+          out.ddt[o] = fx.gd[i][cc];
+        }
       }
-      if (n == 0) {
-        const float gx = p_d * sm.sg[i][c];
-        sm.gu[i][c] = fmaf(d_skip, dyv, p_u);
-        sm.gd[i][c] = gx;
-        acc_d = fmaf(dyv, uu, acc_d);
-        acc_bias += gx;
-      }
-    }
-    __syncthreads();
-    // dB's and dC's block partials: the warps summed in order
-    float* pbc = out.part_bc +
-                 ((b * cx.groups + blk.g) * tiles + blockIdx.x) * 2LL * N * cx.length + l0;
-    for (int e = tid; e < 2 * N * kSub; e += kThreads) {
-      const int i = e % kSub, nn = (e / kSub) % N, q = e / (kSub * N);
-      if (i < ns) {
+      for (int e = tid; e < kSub * 2 * N; e += TH) {
+        const int qn = e % (2 * N), i = e / (2 * N);
         float v = 0.0f;
 #pragma unroll
-        for (int w = 0; w < kWarps; ++w) v += sm.wred[w][q][i][nn];
-        pbc[(static_cast<long long>(q) * N + nn) * cx.length + i] = v;
+        for (int w = 0; w < W; ++w) v += fx.wred[w][i][qn];
+        bc[(s * kSub + i) * kBcLd + qn] = v;
+      }
+    };
+
+    // pass 1: the states from the carry-in, a checkpoint every kSeg steps;
+    // the chunk's adjoint summary S and its product of decays P
+    float h[kNS], pr[kNS], sa[kNS];
+    if (active && k > 0) {
+      vld(h, carries + ((b * (nc - 1) + k - 1) * cx.channels + d) * N + n0);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kNS; ++j) h[j] = 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < kNS; ++j) {
+      pr[j] = 1.0f;
+      sa[j] = 0.0f;
+    }
+    // kAhead sub-tiles in flight when the chunk stays resident, else one
+    const int ahead = cx.resident ? kAhead : 1;
+    for (int s = 0; s < ahead; ++s) {
+      if (s < n_sub) issue(s);
+      hopper::cp_async_commit();
+    }
+    for (int s = 0; s < n_sub; ++s) {
+      if (s + ahead < n_sub) issue(s + ahead);  // in flight during this scan
+      hopper::cp_async_commit();
+      if (cx.resident)
+        hopper::cp_async_wait<kAhead>();
+      else
+        hopper::cp_async_wait<1>();
+      __syncthreads();
+      derive(s, false);
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < kSub; ++i) {
+        if (i % kSeg == 0) vst(ckpt + ((s * kSegs + i / kSeg) * TH + tid) * kNS, h);
+        const float4 v = fx.vals[i][c];
+        float bb[kNS], cc[kNS];
+        vld(bb, &fx.b32[i][n0]);
+        vld(cc, &fx.c32[i][n0]);
+#pragma unroll
+        for (int j = 0; j < kNS; ++j) {
+          const float a = ex2(v.x * a2[j]);
+          h[j] = fmaf(a, h[j], v.y * bb[j]);
+          pr[j] *= a;
+          sa[j] = fmaf(pr[j], cc[j] * v.w, sa[j]);
+        }
       }
     }
-    // du and ddelta along L
-    for (int e = tid; e < kSub * CH; e += kThreads) {
-      const int i = e % kSub, cc = e / kSub;
-      if (i < ns && cc < blk.n_ch) {
-        const long long o = (b * cx.channels + blk.d0 + cc) * cx.length + l0 + i;
-        static_cast<T*>(out.du)[o] = from_float<T>(sm.gu[i][cc]);
-        out.ddt[o] = sm.gd[i][cc];
+
+    // pass 2's first sub-tile is still staged (every one when the chunk
+    // stays resident); else the next goes in flight now
+    if (!cx.resident && n_sub >= 2) issue(n_sub - 2);
+    hopper::cp_async_commit();
+
+    // R_k, the adjoint carried into this chunk from the right
+    float rr[kNS];
+#pragma unroll
+    for (int j = 0; j < kNS; ++j) rr[j] = 0.0f;
+    if (k == nc - 1) {
+      if (active && dlast != nullptr) vld(rr, dlast + (b * cx.channels + d) * N + n0);
+    }
+    // R_{k-1} = P_k R_k + S_k, this chunk's carry out
+    auto carry_out = [&]() {
+      float r_out[kNS];
+#pragma unroll
+      for (int j = 0; j < kNS; ++j) r_out[j] = fmaf(pr[j], rr[j], sa[j]);
+      vst(wk.incl + (my * TH + tid) * kNS, r_out);
+    };
+    if (k > 0) {                                // chunk 0's summary is never read
+      vst(wk.agg + ((my * 2) * TH + tid) * kNS, sa);
+      vst(wk.agg + ((my * 2 + 1) * TH + tid) * kNS, pr);
+      if (k == nc - 1) carry_out();
+      __threadfence();
+      __syncthreads();
+      if (tid == 0) st_release(wk.flags + my, k == nc - 1 ? kIncl : kAgg);
+    }
+    if (k < nc - 1) {
+      if (tid == 0) {
+        // the nearest chunk to the right with its carry out published,
+        // within kLookback chunks whose summaries are all published
+        int j = k + 1;
+        for (;;) {
+          const int f = ld_acquire(wk.flags + slot0 + j);
+          if (f == kIncl) break;
+          if (f == kAgg && j + 1 < nc && j - k < kLookback) {
+            ++j;
+            continue;
+          }
+          __nanosleep(64);
+          j = k + 1;
+        }
+        fx.from = j;
+        __threadfence();
+      }
+      __syncthreads();
+      const int j = fx.from;
+      vld_cg(rr, wk.incl + ((slot0 + j) * TH + tid) * kNS);
+      for (int i = j - 1; i > k; --i) {        // the sequential fold, in order
+        float sv_[kNS], pv_[kNS];
+        vld_cg(sv_, wk.agg + (((slot0 + i) * 2) * TH + tid) * kNS);
+        vld_cg(pv_, wk.agg + (((slot0 + i) * 2 + 1) * TH + tid) * kNS);
+#pragma unroll
+        for (int q = 0; q < kNS; ++q) rr[q] = fmaf(pv_[q], rr[q], sv_[q]);
+      }
+      if (k > 0) {
+        carry_out();
+        __threadfence();
+        __syncthreads();
+        if (tid == 0) st_release(wk.flags + my, kIncl);
+      }
+    }
+
+    // pass 2: backward over the sub-tiles from R_k; sub-tile s + 1's
+    // outputs go out while sub-tile s is derived
+    float sv[kNS], acc_a[kNS];
+#pragma unroll
+    for (int j = 0; j < kNS; ++j) {
+      sv[j] = rr[j];
+      acc_a[j] = 0.0f;
+    }
+    float acc_d = 0.0f, acc_bias = 0.0f;
+    for (int s = n_sub - 1; s >= 0; --s) {
+      if (!cx.resident && s < n_sub - 1 && s >= 1) issue(s - 1);
+      hopper::cp_async_commit();
+      hopper::cp_async_wait<1>();
+      __syncthreads();
+      derive(s, true);
+      if (s + 1 < n_sub) flush(s + 1);
+      __syncthreads();
+#pragma unroll
+      for (int half = kSegs - 1; half >= 0; --half) {
+        float hs[kNS][kSeg + 1], av[kNS][kSeg];
+        float ck[kNS];
+        vld(ck, ckpt + ((s * kSegs + half) * TH + tid) * kNS);
+#pragma unroll
+        for (int j = 0; j < kNS; ++j) hs[j][0] = ck[j];
+#pragma unroll
+        for (int i = 0; i < kSeg; ++i) {           // the segment's states again
+          const float4 v = fx.vals[half * kSeg + i][c];
+          float bb[kNS];
+          vld(bb, &fx.b32[half * kSeg + i][n0]);
+#pragma unroll
+          for (int j = 0; j < kNS; ++j) {
+            av[j][i] = ex2(v.x * a2[j]);
+            hs[j][i + 1] = fmaf(av[j][i], hs[j][i], v.y * bb[j]);
+          }
+        }
+#pragma unroll
+        for (int i = kSeg - 1; i >= 0; --i) {      // and the adjoint down it
+          const int step = half * kSeg + i;
+          const float4 v = fx.vals[step][c];       // delta, delta u, u, dy
+          float bb[kNS], cc[kNS];
+          vld(bb, &fx.b32[step][n0]);
+          vld(cc, &fx.c32[step][n0]);
+          float pv[2 * kNS];                         // dB's terms, then dC's
+          float sgb = 0.0f, sat = 0.0f;
+#pragma unroll
+          for (int j = 0; j < kNS; ++j) {
+            const float gg = fmaf(cc[j], v.w, sv[j]);   // g_l
+            pv[j] = gg * v.y;
+            pv[kNS + j] = hs[j][i + 1] * v.w;
+            sgb = fmaf(gg, bb[j], sgb);
+            const float t = gg * (av[j][i] * hs[j][i]);
+            sat = fmaf(an[j], t, sat);
+            acc_a[j] = fmaf(v.x, t, acc_a[j]);
+            sv[j] = av[j][i] * gg;                     // a_l g_l
+          }
+          // du's and ddelta's sums over the channel's states
+          float pd[2] = {v.x * sgb, fmaf(v.z, sgb, sat)};
+          LaneSum<2, 0, LP>::run(pd, lane);
+          if (part == 0) {
+            fx.gu[step][c] = fmaf(d_skip, v.w, pd[0]);
+            acc_d = fmaf(v.w, v.z, acc_d);
+          }
+          if (part == (P > 1 ? 1 : 0)) {
+            const float gx = pd[P > 1 ? 0 : 1] * fx.sg[step][c];
+            fx.gd[step][c] = gx;
+            acc_bias += gx;
+          }
+          // dB's and dC's over the warp's channels
+          const int sel = LaneSum<2 * kNS, LP, 5 - LP>::run(pv, lane);
+          if ((lane & kReplica) == 0)
+            fx.wred[warp][step][(sel / kNS) * N + n0 + sel % kNS] = pv[0];
+        }
       }
     }
     __syncthreads();
+    flush(0);
+
+    // dA, dD and dbias: this (b, chunk)'s partials; the tile's last block
+    // sums them all in (b, chunk) order
+    const long long pk = b * nc + k;
+    if (active) {
+      vst(wk.part_a + (pk * cx.channels + d) * N + n0, acc_a);
+      if (part == 0) wk.part_d[pk * cx.channels + d] = acc_d;
+      if (part == (P > 1 ? 1 : 0)) wk.part_b[pk * cx.channels + d] = acc_bias;
+    }
+    __threadfence();
+    __syncthreads();
+    if (tid == 0)
+      fx.last = atomicAdd(wk.counters + g * cx.tiles + tile, 1) == cx.batch * nc - 1;
+    __syncthreads();
+    if (fx.last) {
+      __threadfence();
+      if (active) {
+        float sa4[kNS] = {}, x[kNS];
+        float sd = 0.0f, sb = 0.0f;
+        const int partials = cx.batch * nc;
+        for (int q = 0; q < partials; ++q) {
+          vld_cg(x, wk.part_a + (static_cast<long long>(q) * cx.channels + d) * N + n0);
+#pragma unroll
+          for (int j = 0; j < kNS; ++j) sa4[j] += x[j];
+          if (part == 0) {
+            sd += __ldcg(wk.part_d + static_cast<long long>(q) * cx.channels + d);
+            sb += __ldcg(wk.part_b + static_cast<long long>(q) * cx.channels + d);
+          }
+        }
+        vst(out.dA + d * N + n0, sa4);
+        if (part == 0) {
+          out.dD[d] = sd;
+          out.dbias[d] = sb;
+        }
+      }
+    }
+
+    // dB and dC: this tile's chunk sums; the chunk's last tile to finish
+    // adds them all in tile order
+    float* mine = wk.part_bc + (static_cast<long long>(bgk) * cx.tiles + tile) * 2 * N * cx.chunk;
+    for (int e = tid; e < 2 * N * len; e += TH) {
+      const int qn = e / len, i = e % len;
+      mine[qn * cx.chunk + i] = bc[i * kBcLd + qn];
+    }
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) fx.last_bc = atomicAdd(wk.done + bgk, 1) == cx.tiles - 1;
+    __syncthreads();
+    if (fx.last_bc) {
+      __threadfence();
+      const float* all = wk.part_bc + static_cast<long long>(bgk) * cx.tiles * 2 * N * cx.chunk;
+      for (int e = tid; e < 2 * N * len; e += TH) {
+        const int qn = e / len, i = e % len;
+        float v = 0.0f;
+        for (int t = 0; t < cx.tiles; ++t) v += __ldcg(all + (t * 2 * N + qn) * cx.chunk + i);
+        T* dst = static_cast<T*>(qn < N ? out.dB : out.dC);
+        dst[((b * cx.groups + g) * N + qn % N) * cx.length + l_begin + i] = from_float<T>(v);
+      }
+    }
   }
-  if (!active) return;
-  float* pp = out.part_p + ((b * cx.n_chunks + k) * cx.channels + d) * (N + 2);
-  pp[n] = acc_a;
-  if (n == 0) {
-    pp[N] = acc_d;
-    pp[N + 1] = acc_bias;
-  }
-}
-
-// Kernel 4: dB and dC [B, G, N, L], the channel blocks' partials summed.
-template <typename T>
-__global__ void __launch_bounds__(kFoldThreads)
-selective_scan_bwd_bc_kernel(const float* __restrict__ part_bc, T* __restrict__ dB,
-                             T* __restrict__ dC, int bg, int tiles, int n_state, int length) {
-  const long long idx = static_cast<long long>(blockIdx.x) * kFoldThreads + threadIdx.x;
-  const long long per = static_cast<long long>(n_state) * length;
-  if (idx >= 2LL * bg * per) return;
-  const long long r = idx % per;                // (n, l)
-  const int q = static_cast<int>((idx / per) % 2);
-  const long long i = idx / (2 * per);          // b * G + g
-  const float* p = part_bc + (i * tiles * 2 + q) * per + r;
-  float v = 0.0f;
-  for (int t = 0; t < tiles; ++t) v += p[t * 2 * per];
-  (q == 0 ? dB : dC)[i * per + r] = from_float<T>(v);
-}
-
-// Kernel 5: dA [KD, N], dD and dbias [KD], the (b, chunk) partials summed.
-__global__ void __launch_bounds__(kFoldThreads)
-selective_scan_bwd_params_kernel(const float* __restrict__ part_p, float* __restrict__ dA,
-                                 float* __restrict__ dD, float* __restrict__ dbias,
-                                 int partials, int channels, int n_state) {
-  const int idx = blockIdx.x * kFoldThreads + threadIdx.x;
-  const int w = n_state + 2;
-  if (idx >= channels * w) return;
-  const long long step = static_cast<long long>(channels) * w;
-  float v = 0.0f;
-  for (int i = 0; i < partials; ++i) v += part_p[i * step + idx];
-  const int d = idx / w, j = idx % w;
-  if (j < n_state)
-    dA[d * n_state + j] = v;
-  else if (j == n_state)
-    dD[d] = v;
-  else
-    dbias[d] = v;
-}
-
-unsigned blocks_for(long long n) {
-  return static_cast<unsigned>((n + kFoldThreads - 1) / kFoldThreads);
 }
 
 template <typename T, int N>
 int launch_typed(const void* u, const void* dt, const void* A, const void* Bm,
                  const void* Cm, const void* D, const void* bias, const void* dy,
-                 const void* carries, const void* dlast, void* du, void* ddt, void* dB,
-                 void* dC, void* dA, void* dD, void* dbias, float* scratch,
-                 const Strides& st, int batch, const Ctx& cx, cudaStream_t s) {
-  constexpr int CH = channels_of<N>();
+                 const void* carries, const void* dlast, const Out& out, float* scratch,
+                 const Strides& st, Ctx cx, cudaStream_t s) {
+  constexpr int TH = threads_of<N>();
   const int dk = cx.channels / cx.groups;
-  const int tiles = (dk + CH - 1) / CH;
-  const long long nc = cx.n_chunks, kd = cx.channels;
-  // the scratch, in the wrapper's order (ops/selective_scan.py `_bwd_scratch`)
-  float* radj = scratch;
-  float* dsum = radj + batch * (nc - 1) * kd * N;
-  float* ckpt = dsum + batch * (nc - 1) * kd;
-  float* part_bc = ckpt + batch * nc * (cx.chunk / kSub) * kd * N;
-  float* part_p = part_bc + static_cast<long long>(batch) * cx.groups * tiles * 2 * N * cx.length;
-  const T* ut = static_cast<const T*>(u);
-  const float* dtf = static_cast<const float*>(dt);
-  const float* Af = static_cast<const float*>(A);
-  const T* bt = static_cast<const T*>(Bm);
-  const T* ct = static_cast<const T*>(Cm);
-  const float* biasf = static_cast<const float*>(bias);
-  const T* dyt = static_cast<const T*>(dy);
-  const unsigned bg = static_cast<unsigned>(batch * cx.groups);
-  cudaError_t err;
-  if (nc > 1) {
-    selective_scan_bwd_chunks_kernel<T, N><<<dim3(tiles, nc - 1, bg), kThreads, 0, s>>>(
-        dtf, Af, ct, biasf, dyt, radj, dsum, st, cx);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    selective_scan_bwd_carries_kernel<<<blocks_for(batch * kd * N), kFoldThreads, 0, s>>>(
-        Af, static_cast<const float*>(dlast), radj, dsum, batch, cx.channels, N, cx.n_chunks);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  }
-  Out out{du, static_cast<float*>(ddt), ckpt, part_bc, part_p};
-  selective_scan_bwd_kernel<T, N><<<dim3(tiles, nc, bg), kThreads, 0, s>>>(
-      ut, dtf, Af, bt, ct, static_cast<const float*>(D), biasf, dyt,
-      static_cast<const float*>(carries), radj, static_cast<const float*>(dlast), out, st, cx,
-      tiles);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  selective_scan_bwd_bc_kernel<T><<<blocks_for(2LL * bg * N * cx.length), kFoldThreads, 0, s>>>(
-      part_bc, static_cast<T*>(dB), static_cast<T*>(dC), static_cast<int>(bg), tiles, N,
-      cx.length);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  selective_scan_bwd_params_kernel<<<blocks_for(kd * (N + 2)), kFoldThreads, 0, s>>>(
-      part_p, static_cast<float*>(dA), static_cast<float*>(dD), static_cast<float*>(dbias),
-      static_cast<int>(batch * nc), cx.channels, N);
+  cx.tiles = (dk + kChannels - 1) / kChannels;
+  const long long nc = cx.n_chunks;
+  const long long chunks = static_cast<long long>(cx.batch) * cx.groups * nc;
+  const long long slots = chunks * cx.tiles;   // one block each
+  if (slots > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const long long n_ints = (1 + slots + cx.groups * cx.tiles + chunks + 3) / 4 * 4;
+  int* ints = reinterpret_cast<int*>(scratch);
+  float* f = scratch + n_ints;
+  const long long chains = static_cast<long long>(kChannels) * N;
+  const long long parts = static_cast<long long>(cx.batch) * nc * cx.channels;
+  float* params = f + slots * 3 * chains;
+  Work wk{ints, ints + 1, ints + 1 + slots, ints + 1 + slots + cx.groups * cx.tiles,
+          f, f + slots * 2 * chains, params, params + parts * N, params + parts * (N + 1),
+          params + parts * (N + 2)};
+  cudaError_t err = cudaMemsetAsync(ints, 0, n_ints * sizeof(int), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int esize = static_cast<int>(sizeof(T));
+  Layout lay;
+  lay.u = operand_of(esize, st.u[2], st.u[1]);
+  lay.dt = operand_of(4, st.dt[2], st.dt[1]);
+  lay.b = operand_of(esize, st.b[3], st.b[2]);
+  lay.c = operand_of(esize, st.c[3], st.c[2]);
+  lay.dy = operand_of(esize, st.dy[2], st.dy[1]);
+  cx.resident = Dyn<T, N>(cx.chunk, cx.chunk / kSub).total <= kSmemMax;
+  const int smem = Dyn<T, N>(cx.chunk, cx.resident ? cx.chunk / kSub : 2).total;
+  if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = selective_scan_bwd_kernel<T, N>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<static_cast<unsigned>(slots), TH, smem, s>>>(
+      static_cast<const T*>(u), static_cast<const float*>(dt), static_cast<const float*>(A),
+      static_cast<const T*>(Bm), static_cast<const T*>(Cm), static_cast<const float*>(D),
+      static_cast<const float*>(bias), static_cast<const T*>(dy),
+      static_cast<const float*>(carries), static_cast<const float*>(dlast), out, wk, st, lay,
+      cx);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_n(int n_state, const void* u, const void* dt, const void* A, const void* Bm,
              const void* Cm, const void* D, const void* bias, const void* dy,
-             const void* carries, const void* dlast, void* du, void* ddt, void* dB, void* dC,
-             void* dA, void* dD, void* dbias, float* scratch, const Strides& st, int batch,
-             const Ctx& cx, cudaStream_t s) {
+             const void* carries, const void* dlast, const Out& out, float* scratch,
+             const Strides& st, const Ctx& cx, cudaStream_t s) {
   switch (n_state) {
     case 4:
-      return launch_typed<T, 4>(u, dt, A, Bm, Cm, D, bias, dy, carries, dlast, du, ddt, dB,
-                                dC, dA, dD, dbias, scratch, st, batch, cx, s);
+      return launch_typed<T, 4>(u, dt, A, Bm, Cm, D, bias, dy, carries, dlast, out, scratch,
+                                st, cx, s);
     case 8:
-      return launch_typed<T, 8>(u, dt, A, Bm, Cm, D, bias, dy, carries, dlast, du, ddt, dB,
-                                dC, dA, dD, dbias, scratch, st, batch, cx, s);
+      return launch_typed<T, 8>(u, dt, A, Bm, Cm, D, bias, dy, carries, dlast, out, scratch,
+                                st, cx, s);
     case 16:
-      return launch_typed<T, 16>(u, dt, A, Bm, Cm, D, bias, dy, carries, dlast, du, ddt, dB,
-                                 dC, dA, dD, dbias, scratch, st, batch, cx, s);
+      return launch_typed<T, 16>(u, dt, A, Bm, Cm, D, bias, dy, carries, dlast, out, scratch,
+                                 st, cx, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -534,9 +723,10 @@ int launch_n(int n_state, const void* u, const void* dt, const void* A, const vo
 // KD, N] float32 (null: zero).  Outputs, contiguous: du [B, KD, L] (u's
 // dtype), ddelta [B, KD, L] float32, dB and dC [B, G, N, L] (u's dtype), dA
 // [KD, N], dD and dbias [KD] float32 (always written).  D and delta_bias may
-// be null.  scratch: the float32 count of ops/selective_scan.py
-// `_bwd_scratch`.  dtype: 0 = float32, 1 = bf16.  Launches up to five
-// kernels on `stream`; returns the cudaError_t of the launches.
+// be null.  chunk: the forward's, a multiple of 16 up to 128.  scratch: the
+// float32 count of ops/selective_scan.py `_bwd_scratch`.  dtype: 0 =
+// float32, 1 = bf16.  Queues a memset of the scratch's flags and one
+// kernel on `stream`; returns the cudaError_t of the launches.
 extern "C" int selective_scan_bwd_launch(
     const void* u, const void* delta, const void* A, const void* Bm, const void* Cm,
     const void* D, const void* delta_bias, const void* dy, const void* carries,
@@ -545,22 +735,23 @@ extern "C" int selective_scan_bwd_launch(
     int channels, int length, int groups, int n_state, int delta_softplus, int chunk,
     void* stream) {
   if (batch < 1 || channels < 1 || length < 1 || groups < 1 || channels % groups != 0 ||
-      static_cast<long long>(batch) * groups > 65535 || chunk < kSub || chunk % kSub != 0)
+      chunk < kSub || chunk % kSub != 0 || chunk > kMaxChunk)
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_chunks = (length + chunk - 1) / chunk;
-  if (n_chunks > 65535 || (n_chunks > 1 && carries == nullptr) || scratch == nullptr)
+  if ((n_chunks > 1 && carries == nullptr) || scratch == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   Strides st;
   memcpy(&st, strides, sizeof(Strides));
-  const Ctx cx{channels, length, groups, chunk, n_chunks, delta_softplus};
+  const Ctx cx{batch, channels, length, groups, chunk, n_chunks, delta_softplus, 0, 0};
+  const Out out{du, static_cast<float*>(ddelta), dB, dC, static_cast<float*>(dA),
+                static_cast<float*>(dD), static_cast<float*>(dbias)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* sc = static_cast<float*>(scratch);
   if (dtype == 1)
     return launch_n<__nv_bfloat16>(n_state, u, delta, A, Bm, Cm, D, delta_bias, dy, carries,
-                                   dlast, du, ddelta, dB, dC, dA, dD, dbias, sc, st, batch,
-                                   cx, s);
+                                   dlast, out, sc, st, cx, s);
   if (dtype == 0)
     return launch_n<float>(n_state, u, delta, A, Bm, Cm, D, delta_bias, dy, carries, dlast,
-                           du, ddelta, dB, dC, dA, dD, dbias, sc, st, batch, cx, s);
+                           out, sc, st, cx, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -16,11 +16,13 @@ forward kernel is ``csrc/selective_scan.cu``, the backward
 design are in its file's header.  Both are parallel over L in chunks of
 ``scan_chunk`` steps: the forward scans the chunks, folds their carries and
 rescans them (three CUDA kernels per call); the backward keeps the
-forward's chunk carry-ins, folds the chunks' adjoints from the last and
-rescans each chunk backward from its recomputed states (five CUDA kernels
-per call).  ``selective_scan_chunked`` and ``selective_scan_bwd_chunked``
-are those orders in plain PyTorch, which the CPU tests hold to the JAX
-scans and their ``jax.vjp``.
+forward's chunk carry-ins and, in one CUDA kernel after a memset of its
+flags, walks each chunk forward from its carry-in (its states and its
+adjoint summary), takes its adjoint carry by a look-back over the chunks to
+its right and walks it backward (two device operations per call).
+``selective_scan_chunked`` and ``selective_scan_bwd_chunked`` are those
+orders in plain PyTorch, which the CPU tests hold to the JAX scans and
+their ``jax.vjp``.
 
 ``selective_scan`` takes CPU tensors to the plain versions and CUDA tensors
 to the kernels; anything else raises.  There is no fallback.  With
@@ -47,8 +49,9 @@ _CHUNK = 64                   # steps per vectorised slab of the plain loop
 # the kernel's blocks: 64 channels of one group x one chunk of L, which is
 # a multiple of its 16-step sub-tiles; chunks are cut for ~512 blocks, one
 # wave at the 4 blocks per SM that the H100's 132 SMs hold (a second,
-# partial wave was slower at the backbone's shape)
-_BLOCK_CHANNELS, _SUB, _TARGET_BLOCKS, _MIN_CHUNK = 64, 16, 512, 32
+# partial wave was slower at the backbone's shape), and at most 128 steps
+# long, so that the backward's checkpoints of a chunk fit in shared memory
+_BLOCK_CHANNELS, _SUB, _TARGET_BLOCKS, _MIN_CHUNK, _MAX_CHUNK = 64, 16, 512, 32, 128
 _LOG2E = 1.4426950408889634
 
 
@@ -106,12 +109,13 @@ def selective_scan_reference(u, delta, A, B, C, D=None, delta_bias=None,
 
 
 def scan_chunk(batch: int, channels: int, length: int, groups: int) -> int:
-    """The chunk length K5 cuts L into: a multiple of 16 steps, at least 32,
-    short enough for ~512 blocks of 64 channels (128 at the backbone's
-    B=2, KD=384, L=5121; 32 at the VSS encoder's)."""
+    """The chunk length K5 and its backward cut L into: a multiple of 16
+    steps from 32 to 128, short enough for ~512 blocks of 64 channels (128
+    at the backbone's B=2, KD=384, L=5121; 64 at its B=1; 32 at the VSS
+    encoder's)."""
     tiles = batch * groups * -(-(channels // groups) // _BLOCK_CHANNELS)
     per_chunk = -(-length // -(-_TARGET_BLOCKS // tiles))
-    return max(_MIN_CHUNK, -(-per_chunk // _SUB) * _SUB)
+    return min(_MAX_CHUNK, max(_MIN_CHUNK, -(-per_chunk // _SUB) * _SUB))
 
 
 class _Chunks:
@@ -265,70 +269,94 @@ def selective_scan_bwd_reference(u, delta, A, B, C, dy, D=None,
     return (du.to(u.dtype), dd, dA, dB.to(B.dtype), dC.to(C.dtype), dD, dbias)
 
 
-_BWD_THREADS = 256            # csrc/selective_scan_bwd.cu: 256 / N channels a block
+# csrc/selective_scan_bwd.cu: a block's channels (a tile), a thread's states
+_BWD_CHANNELS, _BWD_STATES = 64, 2
+
+
+def _lane_tree(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum ``x`` over ``dim`` (a power of two) as the kernel's butterfly
+    does over lanes: pairs by the index's lowest bit first."""
+    dim %= x.dim()
+    while x.shape[dim] > 1:
+        x = x.unflatten(dim, (-1, 2)).sum(dim + 1)
+    return x
+
+
+def _in_order(parts):
+    """parts[0] + parts[1] + ..., left to right, as the kernel adds them."""
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    return total
 
 
 def selective_scan_bwd_chunked(u, delta, A, B, C, dy, D=None,
                                delta_bias=None, delta_softplus: bool = False,
                                dlast=None, chunk: int = 64):
-    """``selective_scan_bwd_reference`` in the backward kernel's chunked
-    order (``csrc/selective_scan_bwd.cu``), float32: the forward's chunk
-    carry-ins folded as K5 folds them; every chunk but the first scanned
-    backward from g = 0 to its adjoint at the chunk start, with its sum of
-    delta; those summaries folded from the last chunk into each chunk's
-    adjoint carry, R_{k-1} = exp2(A log2e * sum delta_k) R_k + S_k (R of
-    the last chunk: ``dlast`` or 0); every chunk's states recomputed from
-    its carry-in and walked backward from R_k; dB and dC summed over blocks
-    of 256 / N channels, then over the blocks; dA, dD and d delta_bias per
-    (b, chunk), then summed.  Arguments and results as the reference's;
-    the CPU tests hold it to ``jax.vjp`` of the JAX scans."""
+    """``selective_scan_bwd_reference`` in the backward kernel's order
+    (``csrc/selective_scan_bwd.cu``), float32: the forward's chunk
+    carry-ins folded as K5 folds them; every chunk walked forward from its
+    carry-in, its states and, in the same walk, its adjoint summary from
+    zero, S_k = sum_l (prod_{j <= l} a_j) C_l dy_l, with the running product
+    P_k of its decays; the adjoint carries folded in order from the last
+    chunk, R_{k-1} = P_k R_k + S_k (R of the last chunk: ``dlast`` or 0);
+    every chunk walked backward from R_k.  du's and ddelta's sums over the
+    states: each thread's 2 states, then the channel's N / 2 threads
+    pairwise; dB's and dC's over the channels: each warp's channels
+    pairwise, the warps of a 64-channel tile in order, the tiles in order;
+    dA, dD and d delta_bias per (b, chunk), then in (b, chunk) order.
+    Arguments and results as the reference's; the CPU tests hold it to
+    ``jax.vjp`` of the JAX scans."""
     B, C = _grouped(B), _grouped(C)
     ch = _Chunks(u, delta, A, B, C, delta_bias, delta_softplus, chunk)
     bsz, groups, dk, n = ch.shape
+    parts = n // _BWD_STATES
     dy_c = ch.fold(dy.float())
     cdy = lambda i: ch.c_c[..., i, :] * dy_c[..., i, None]
-    # 1: every chunk's adjoint from g = 0 (the first's is never used)
-    s = torch.zeros((bsz, groups, dk, ch.nc, n), dtype=torch.float32,
-                    device=u.device)
-    for i in reversed(range(chunk)):
-        s = ch.decay(i) * (cdy(i) + s)
-    # 2: the adjoint carries, from the last chunk
-    total = torch.exp2(ch.a2 * ch.d_c.sum(-1)[..., None])
-    r = (torch.zeros_like(s[..., 0, :]) if dlast is None
+    # pass 1: the states from the carry-ins, the summaries from zero
+    hs, decays = [ch.carries()], []
+    prod, summ = torch.ones_like(hs[0]), torch.zeros_like(hs[0])
+    for i in range(chunk):
+        decays.append(ch.decay(i))
+        hs.append(decays[i] * hs[i] + ch.du_c[..., i, None] * ch.b_c[..., i, :])
+        prod = prod * decays[i]
+        summ = summ + prod * cdy(i)
+    # the adjoint carries, folded from the last chunk
+    r = (torch.zeros_like(hs[0][..., 0, :]) if dlast is None
          else dlast.float().reshape(bsz, groups, dk, n))
     radj = [None] * ch.nc
     for k in reversed(range(ch.nc)):
         radj[k] = r
-        r = total[..., k, :] * r + s[..., k, :]
-    # 3: the states recomputed from the carry-ins, then walked backward
-    hs, decays = [ch.carries()], []
-    for i in range(chunk):
-        decays.append(ch.decay(i))
-        hs.append(decays[i] * hs[i] + ch.du_c[..., i, None] * ch.b_c[..., i, :])
+        r = prod[..., k, :] * r + summ[..., k, :]
+    # pass 2: backward from R_k
     s = torch.stack(radj, dim=3)
-    a = ch.a2 / _LOG2E
+    a = A.float().reshape(1, groups, dk, 1, n)
+    by_thread = lambda t: t.unflatten(-1, (parts, _BWD_STATES)).sum(-1)
     terms = {k: [None] * chunk for k in ("b", "c", "u", "d")}
     acc_a = torch.zeros_like(s)
     for i in reversed(range(chunk)):
         g = cdy(i) + s
         d_i = ch.d_c[..., i, None]
-        b_i = ch.b_c[..., i, :]
+        t = g * (decays[i] * hs[i])
+        gb = by_thread(g * ch.b_c[..., i, :])
         terms["c"][i] = hs[i + 1] * dy_c[..., i, None]
         terms["b"][i] = g * ch.du_c[..., i, None]
-        terms["u"][i] = (g * d_i * b_i).sum(-1)
-        terms["d"][i] = (g * (a * decays[i] * hs[i]
-                              + ch.u_c[..., i, None] * b_i)).sum(-1)
-        acc_a = acc_a + g * d_i * decays[i] * hs[i]
+        terms["u"][i] = _lane_tree(d_i * gb, -1)[..., 0]
+        terms["d"][i] = _lane_tree(ch.u_c[..., i, None] * gb + by_thread(a * t),
+                                   -1)[..., 0]
+        acc_a = acc_a + d_i * t
         s = decays[i] * g
-    # dB, dC: over blocks of channels, then over the blocks
-    per_block = _BWD_THREADS // n
-    tiles = -(-dk // per_block)
+    tiles = -(-dk // _BWD_CHANNELS)
+    per_warp = 32 // parts
 
-    def channel_sum(parts):
-        t = torch.stack(parts, dim=4)                  # [B, G, dk, nc, c, N]
-        t = torch.nn.functional.pad(t, (0, 0, 0, 0, 0, 0, 0, tiles * per_block - dk))
-        t = t.reshape(bsz, groups, tiles, per_block, -1, n).sum(3).sum(2)
-        return t.transpose(-1, -2)[..., :ch.length]    # [B, G, N, L]
+    def channel_sum(parts_):
+        t = torch.stack(parts_, dim=4)                 # [B, G, dk, nc, c, N]
+        t = torch.nn.functional.pad(
+            t, (0, 0, 0, 0, 0, 0, 0, tiles * _BWD_CHANNELS - dk))
+        t = t.unflatten(2, (tiles, -1, per_warp))      # [B, G, tile, warp, ch, ...]
+        t = _lane_tree(t, 4)[:, :, :, :, 0]
+        t = _in_order(_in_order(t.unbind(3)).unbind(2))   # the warps, the tiles
+        return t.flatten(2, 3).transpose(-1, -2)[..., :ch.length]   # [B, G, N, L]
 
     du = ch.unfold(torch.stack(terms["u"], dim=-1))
     if D is not None:
@@ -336,10 +364,12 @@ def selective_scan_bwd_chunked(u, delta, A, B, C, dy, D=None,
     dd = ch.unfold(torch.stack(terms["d"], dim=-1))
     if delta_softplus:
         dd = dd * torch.sigmoid(ch.x)
-    dA = acc_a.sum(0).sum(2).reshape(groups * dk, n)
-    dD = ((ch.fold(dy.float()) * ch.u_c).sum(-1).sum(0).sum(-1).reshape(-1)
+    in_chunks = lambda x: _in_order(
+        x.permute(0, 3, 1, 2, 4).flatten(0, 1).unbind(0))
+    dA = in_chunks(acc_a).reshape(groups * dk, n)      # over (b, chunk)
+    dD = (in_chunks((dy_c * ch.u_c).sum(-1, keepdim=True)).reshape(-1)
           if D is not None else None)
-    dbias = (ch.fold(dd).sum(-1).sum(0).sum(-1).reshape(-1)
+    dbias = (in_chunks(ch.fold(dd).sum(-1, keepdim=True)).reshape(-1)
              if delta_bias is not None else None)
     return (du.to(u.dtype), dd, dA, channel_sum(terms["b"]).to(B.dtype),
             channel_sum(terms["c"]).to(C.dtype), dD, dbias)
@@ -418,20 +448,25 @@ def scan_carries(u, delta, A, B, C, D=None, delta_bias=None,
 
 
 def _bwd_scratch(bsz, kd, length, groups, n, chunk) -> int:
-    """float32s of the backward kernel's scratch: the chunks' adjoint
-    summaries and sums of delta, the states at each 16-step sub-tile's
-    start, dB's and dC's per-block sums, dA's, dD's and d delta_bias's
-    per-(b, chunk) sums (``csrc/selective_scan_bwd.cu`` `launch_typed`)."""
+    """float32s of the backward kernel's scratch (``csrc/selective_scan_bwd.cu``
+    `launch_typed`): its ticket, per-block flags, per-tile and per-chunk
+    counters (ints, zeroed by a memset before the kernel); every block's
+    adjoint summary, product of decays and carry out (a float per chain of
+    its 64-channel tile); dA's, dD's and d delta_bias's per-(b, chunk)
+    partials; every block's dB / dC sums over its tile, which the chunk's
+    last block adds up."""
     nc = -(-length // chunk)
-    tiles = -(-(kd // groups) // (_BWD_THREADS // n))
-    return (bsz * (nc - 1) * kd * (n + 1) + bsz * nc * (chunk // _SUB) * kd * n
-            + bsz * groups * tiles * 2 * n * length + bsz * nc * kd * (n + 2))
+    tiles = -(-(kd // groups) // _BWD_CHANNELS)
+    slots = bsz * groups * tiles * nc
+    ints = -(-(1 + slots + groups * tiles + bsz * groups * nc) // 4) * 4
+    return (ints + 3 * slots * _BWD_CHANNELS * n + bsz * nc * kd * (n + 2)
+            + slots * 2 * n * chunk)
 
 
 def _launch_bwd(u, delta, A, B, C, dy, D, delta_bias, delta_softplus,
                 carries, dlast):
-    """The backward kernel on CUDA tensors (two to five CUDA kernels, see
-    ``csrc/selective_scan_bwd.cu``)."""
+    """The backward kernel on CUDA tensors (a memset and one CUDA kernel,
+    see ``csrc/selective_scan_bwd.cu``)."""
     _check_kernel_args(u, delta, A, B, C, D, delta_bias)
     if dy.shape != u.shape or dy.dtype != u.dtype:
         raise ValueError(f"dy must be u's shape and dtype {tuple(u.shape)} "
@@ -449,8 +484,13 @@ def _launch_bwd(u, delta, A, B, C, dy, D, delta_bias, delta_softplus,
         raise ValueError(f"dlast must be [{bsz}, {kd}, {n}]; got "
                          f"{tuple(dlast.shape)}")
     f32 = lambda x: None if x is None else x.float().contiguous()
+    # the kernel reads a thread's states of carries and dlast as one vector
+    aligned = lambda x: (None if x is None else
+                         x if x.dtype == torch.float32 and x.is_contiguous()
+                         and x.data_ptr() % 16 == 0 else x.float().clone())
     delta = delta.float()
-    A, D, delta_bias, carries, dlast = map(f32, (A, D, delta_bias, carries, dlast))
+    A, D, delta_bias = map(f32, (A, D, delta_bias))
+    carries, dlast = map(aligned, (carries, dlast))
     du = torch.empty(u.shape, dtype=u.dtype, device=u.device)
     ddelta = torch.empty(u.shape, dtype=torch.float32, device=u.device)
     dB = torch.empty(B.shape, dtype=u.dtype, device=u.device)

@@ -1,6 +1,6 @@
-"""Device times of this checkout's K5 (selective scan), K10 and K11 (the
-native blend) against another checkout's, in turns on one card, at the
-shapes ``chip_smoke.py`` times.
+"""Device times of this checkout's K5 (selective scan) and its backward,
+K10 and K11 (the native blend) against another checkout's, in turns on one
+card, at the shapes ``chip_smoke.py`` times.
 
     python -m class_query_vad_tpu_torch.scripts.compare_k5_k11 --against DIR
 
@@ -13,9 +13,12 @@ took a scratch and a chunk length from this PR on) on the same inputs, in
 the order other, this, this, other (CUDA events around launches queued
 behind a device sleep, ``chip_smoke.kernel_device_ms``).  K5 at the VSS
 path's backbone (bf16) and encoder (float32) scans, summed per VSS forward
-(48 of each); K10 (T=2) and K11 (T=8) bf16 at the native mode's four query
-grids, summed per encoder layer.  Prints the card's name and power limit,
-one line per shape, and one JSON object.  Needs a CUDA card.
+(48 of each); K5's backward at the train path's (B=1), summed per VSS train
+step (48 of each), each checkout's call with its own scratch
+(``_bwd_scratch`` of its ``ops/selective_scan.py``) on this checkout's
+chunk carry-ins; K10 (T=2) and K11 (T=8) bf16 at the native mode's four
+query grids, summed per encoder layer.  Prints the card's name and power
+limit, one line per shape, and one JSON object.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import ctypes
 import importlib.util
 import json
 import subprocess
+import sys
 import tempfile
 from pathlib import Path
 
@@ -35,9 +39,10 @@ import chip_smoke
 
 from ..ops import cuda_build
 from ..ops.fast_deform import native_tables_on
-from ..ops.selective_scan import scan_chunk
+from ..ops.selective_scan import scan_carries, scan_chunk
 
-SOURCES = ("selective_scan", "native_blend2d", "native_blend3d")
+SOURCES = ("selective_scan", "selective_scan_bwd", "native_blend2d", "native_blend3d")
+ROOTS = {}                    # "this" / "other": the checkouts compare() builds
 
 
 def kernel_table(root: Path) -> dict:
@@ -47,6 +52,20 @@ def kernel_table(root: Path) -> dict:
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module.KERNELS
+
+
+def scan_module(root: Path):
+    """``root``'s ``ops/selective_scan.py``, loaded as a module of its own
+    ``ops`` package."""
+    ops = root / "class_query_vad_tpu_torch" / "ops"
+    name = f"_ops_{abs(hash(str(root)))}"
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            name, ops / "__init__.py", submodule_search_locations=[str(ops)])
+        package = importlib.util.module_from_spec(spec)
+        sys.modules[name] = package
+        spec.loader.exec_module(package)
+    return importlib.import_module(f"{name}.selective_scan")
 
 
 def build(root: Path, out_dir: Path, names=SOURCES) -> dict:
@@ -100,6 +119,23 @@ def scan_args(fn, inputs, shape, dtype, dev, keep):
     return head + [scratch.data_ptr()] + tail + [chunk]
 
 
+def scan_bwd_args(root, inputs, shape, dtype, dev, keep):
+    """K5's backward launcher arguments (before the stream) at ``shape``,
+    with the scratch ``root``'s wrapper allocates."""
+    u, delta, a, bm, cm, d, bias, dy, carries, dlast, outs = inputs
+    b, kd, length, ns, g = shape
+    chunk = scan_chunk(b, kd, length, g)
+    scratch = torch.empty(scan_module(root)._bwd_scratch(b, kd, length, g, ns, chunk),
+                          dtype=torch.float32, device=dev)
+    strides = (ctypes.c_longlong * 17)(
+        *u.stride(), *delta.stride(), *bm.stride(), *cm.stride(), *dy.stride())
+    keep += [scratch, strides]
+    return [x.data_ptr() for x in (u, delta, a, bm, cm, d, bias, dy, carries, dlast,
+                                   *outs, scratch)] + [
+        ctypes.addressof(strides), int(dtype == torch.bfloat16), b, kd, length, g, ns, 1,
+        chunk]
+
+
 def native_args(grid, t, nc, dev, keep):
     """K10 (nc=2) or K11 (nc=3) launcher arguments at one query grid over
     the native mode's four levels, B=2, bf16."""
@@ -120,6 +156,8 @@ def cases(built, dev, keep):
     layer))."""
     for shape, dtype in ((chip_smoke.K5_BACKBONE, torch.bfloat16),
                          (chip_smoke.K5_ENCODER, torch.float32)):
+        if "selective_scan" not in built["this"]:
+            break
         inputs = chip_smoke.scan_inputs(np.random.default_rng(5), shape, dtype, dev)
         inputs = (*inputs, torch.empty_like(inputs[0]))
         keep += inputs
@@ -128,7 +166,31 @@ def cases(built, dev, keep):
                {who: scan_args(built[who]["selective_scan"], inputs, shape, dtype,
                                dev, keep) for who in built},
                ("K5 per VSS forward", chip_smoke.K5_PER_FORWARD[shape]))
+    for shape, dtype in ((chip_smoke.K5_TRAIN_BACKBONE, torch.bfloat16),
+                         (chip_smoke.K5_TRAIN_ENCODER, torch.float32)):
+        if "selective_scan_bwd" not in built["this"]:
+            break
+        rng = np.random.default_rng(15)
+        u, delta, a, bm, cm, d, bias = chip_smoke.scan_inputs(rng, shape, dtype, dev)
+        b, kd, length, ns, g = shape
+        dy = torch.from_numpy(rng.standard_normal(u.shape).astype(np.float32)).to(dev).to(dtype)
+        dlast = torch.zeros((b, kd, ns), device=dev)
+        carries = scan_carries(u, delta, a, bm, cm, d, bias, True)
+        outs = (torch.empty_like(u), torch.empty(u.shape, device=dev),
+                torch.empty(bm.shape, dtype=dtype, device=dev),
+                torch.empty(bm.shape, dtype=dtype, device=dev),
+                torch.empty((kd, ns), device=dev), torch.empty(kd, device=dev),
+                torch.empty(kd, device=dev))
+        inputs = (u, delta, a, bm, cm, d, bias, dy, carries, dlast, outs)
+        keep += [u, delta, a, bm, cm, d, bias, dy, carries, dlast, *outs]
+        tag = f"K5 backward {'x'.join(map(str, shape))} {str(dtype)[6:]}"
+        yield (tag, "selective_scan_bwd",
+               {who: scan_bwd_args(ROOTS[who], inputs, shape, dtype, dev, keep)
+                for who in built},
+               ("K5 backward per VSS train step", chip_smoke.K5_BWD_PER_STEP[shape]))
     for k, name, nc in (("K10", "native_blend2d", 2), ("K11", "native_blend3d", 3)):
+        if name not in built["this"]:
+            continue
         t = chip_smoke.NATIVE_T[k]
         for grid in chip_smoke.NATIVE_GRIDS:
             args = native_args(grid, t, nc, dev, keep)
@@ -144,13 +206,17 @@ def compare(doc: str, names, make_cases) -> dict:
     parser = argparse.ArgumentParser(description=doc.split("\n\n")[0])
     parser.add_argument("--against", type=Path, required=True,
                         help="root of the other checkout")
+    parser.add_argument("--kernels", nargs="+", choices=names, default=names,
+                        help="time only these kernels")
     opts = parser.parse_args()
+    names = opts.kernels
     if not torch.cuda.is_available():
         raise RuntimeError("the comparison needs a CUDA card")
     dev = torch.device("cuda", 0)
     card = chip_smoke.card_info()
     print(f"card: {card}")
     res = {"card": card, "shapes": {}, "totals": {}}
+    ROOTS.update(this=Path.cwd(), other=opts.against.resolve())
     with tempfile.TemporaryDirectory() as tmp:
         (Path(tmp) / "this").mkdir()
         (Path(tmp) / "other").mkdir()
@@ -158,6 +224,8 @@ def compare(doc: str, names, make_cases) -> dict:
                  "other": build(opts.against.resolve(), Path(tmp) / "other", names)}
         keep = []
         for tag, name, args, (total, count) in make_cases(built, dev, keep):
+            if name not in names:
+                continue
             stream = torch.cuda.current_stream().cuda_stream
             times = {"this": [], "other": []}
             for who in ("other", "this", "this", "other"):

@@ -570,6 +570,46 @@ def test_selective_scan_bwd_matches_plain(card, dtype, shape, layout, flags):
         assert err <= lim * r.float().abs().max().item(), (name, err)
 
 
+# The backward kernel's edges: a channel count per group that is not a
+# multiple of its 64-channel tile (80; 1100, 18 tiles, the last 12 wide), L
+# one past a 32-step chunk and several chunks, the backbone's transposed
+# strided views, with and without dlast; tolerances as above.  Two calls on
+# the same inputs agree bit for bit.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape,layout,length", [
+    (torch.bfloat16, (1, 384, 16, 1), "backbone", 33),
+    (torch.float32, (2, 80, 8, 1), "backbone", 33),
+    (torch.float32, (1, 1100, 4, 1), "encoder", 101),
+    (torch.bfloat16, (1, 160, 16, 2), "encoder", 101),
+])
+@pytest.mark.parametrize("last", [True, False])
+def test_selective_scan_bwd_edges(card, dtype, shape, layout, length, last):
+    b, kd, ns, g = shape
+    chunk = scan_chunk(b, kd, length, g)
+    assert chunk == 32 and length in (chunk + 1, 3 * chunk + 5)
+    u, delta, a, bm, cm, d, bias = _scan_inputs(card, dtype, b, kd, length, ns,
+                                                g, layout, seed=kd + length)
+    kw = dict(D=d, delta_bias=bias, delta_softplus=True)
+    dy = torch.randn(u.shape, device=card).to(dtype)
+    dlast = torch.randn((b, kd, ns), device=card) if last else None
+    carries = scan_carries(u, delta, a, bm, cm, **kw)
+    got = [selective_scan_bwd(u, delta, a, bm, cm, dy, carries=carries,
+                              dlast=dlast, **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    for x, y in zip(*got):
+        assert torch.equal(x, y)
+    want = selective_scan_bwd_reference(u, delta, a, bm, cm, dy, dlast=dlast,
+                                        **kw)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    names = ("du", "ddelta", "dA", "dB", "dC", "dD", "dbias")
+    for name, x, r in zip(names, got[0], want):
+        assert x.dtype == r.dtype and x.shape == r.shape, name
+        assert torch.isfinite(x).all(), name
+        lim = 1e-3 if name in ("dA", "dD", "dbias") else tol
+        err = (x.float() - r.float()).abs().max().item()
+        assert err <= lim * r.float().abs().max().item(), (name, err)
+
+
 @pytest.mark.cuda
 def test_tiny_vss_model_card_matches_cpu(card):
     """A tiny float32 VSS model on the card (K5) and on the CPU (plain

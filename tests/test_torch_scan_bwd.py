@@ -1,16 +1,19 @@
 """K5's backward on the CPU: the plain versions ``selective_scan_bwd_reference``
 (sequential over L) and ``selective_scan_bwd_chunked`` (the backward
-kernel's chunked order: chunk adjoints from zero, their carries folded from
-the last chunk, every chunk's states recomputed from the forward's carry-ins
-and walked backward, dB / dC summed per block of 256 / N channels) against
-``jax.vjp`` of the JAX package's scans: the associative ``selective_scan``,
-the sequential ``selective_scan_sequential`` and the Pallas
-``selective_scan_pallas`` (interpret mode on the CPU, where its kernel
-tiles: KD a multiple of 128, L of 32; its VJP is the associative scan's).
-Lengths under a chunk, exact multiples and one step past them; G in {1, 2,
-4}, N in {4, 8, 16}; D, delta_bias and the softplus each on and off; the
-last state's gradient; bf16 u, B and C.  Also ``SelectiveScanFn`` (what
-``selective_scan`` runs under autograd) against autograd through
+kernel's order: every chunk walked forward from the forward's carry-in to
+its states and its adjoint summary from zero, the adjoint carries folded in
+order from the last chunk, every chunk walked backward; dB / dC summed over
+each warp's channels pairwise, the warps of a 64-channel tile in order, the
+tiles in order) against ``jax.vjp`` of the JAX
+package's scans: the associative ``selective_scan``, the sequential
+``selective_scan_sequential`` and the Pallas ``selective_scan_pallas``
+(interpret mode on the CPU, where its kernel tiles: KD a multiple of 128, L
+of 32; its VJP is the associative scan's).  At N = 4, 8 and 16 each: one
+chunk (under it or exact), an exact number of chunks, one step past them
+and several chunks; G in {1, 2, 4}, 80 channels per group at G = 1 (a
+ragged second tile), 600 in one case (10 tiles, the last 24 wide); D, delta_bias and the softplus each on and off;
+the last state's gradient; bf16 u, B and C.  Also ``SelectiveScanFn``
+(what ``selective_scan`` runs under autograd) against autograd through
 ``selective_scan_reference``.  The kernel itself is held to the plain
 version on a card in tests/test_torch_cuda.py.
 
@@ -58,14 +61,16 @@ FLAGS = {                                  # (D, delta_bias, softplus)
     "skip_bias": (True, True, False),
 }
 
-# (L, N, G, flags): under a chunk, one and two chunks exactly, one step past
-# them; every N, G and flag set
+# (L, N, G, flags): one chunk (under it or exact), an exact number of
+# chunks, one step past a chunk and several chunks, at every N; every G and
+# flag set
 CASES = [
-    (20, 4, 1, "all"), (20, 16, 2, "none"), (20, 8, 4, "softplus"),
-    (CHUNK, 8, 1, "skip_bias"), (CHUNK + 1, 16, 4, "all"),
+    (20, 4, 1, "all"), (CHUNK, 16, 2, "none"), (20, 8, 4, "softplus"),
+    (CHUNK + 1, 8, 1, "skip_bias"), (CHUNK + 1, 16, 4, "all"),
     (2 * CHUNK, 4, 2, "softplus"), (2 * CHUNK, 16, 1, "all"),
-    (2 * CHUNK + 1, 8, 2, "all"), (2 * CHUNK + 1, 4, 4, "skip_bias"),
-    (2 * CHUNK + 1, 16, 1, "none"),
+    (3 * CHUNK + 5, 8, 2, "all"), (2 * CHUNK + 1, 4, 4, "skip_bias"),
+    (4 * CHUNK + 3, 16, 1, "none"), (3 * CHUNK, 8, 1, "all"),
+    (4 * CHUNK + 1, 4, 1, "softplus"),
 ]
 
 
@@ -134,7 +139,7 @@ def _close(got, want, bf16: bool = False):
 @pytest.mark.parametrize("fn", ["reference", "chunked"])
 @pytest.mark.parametrize("length,ns,g,flags", CASES, ids=lambda v: str(v))
 def test_bwd_matches_jax_associative_vjp(fn, length, ns, g, flags):
-    shape = (2, 32, length, ns, g, 3 * length + ns + g)
+    shape = (2, 80, length, ns, g, 3 * length + ns + g)
     bwd = (selective_scan_bwd_reference if fn == "reference" else
            selective_scan_bwd_chunked)
     kw = {} if fn == "reference" else {"chunk": CHUNK}
@@ -144,10 +149,20 @@ def test_bwd_matches_jax_associative_vjp(fn, length, ns, g, flags):
 
 @pytest.mark.parametrize("length,ns,g,flags", CASES[::3], ids=lambda v: str(v))
 def test_bwd_chunked_matches_jax_sequential_vjp(length, ns, g, flags):
-    shape = (1, 16 * g, length, ns, g, 5 * length + ns)
+    shape = (1, 80 * g, length, ns, g, 5 * length + ns)
     got = _torch_grads(selective_scan_bwd_chunked, _inputs(*shape), flags,
                        chunk=CHUNK)
     _close(got, _jax_grads(j_scan_sequential, shape, flags))
+
+
+@pytest.mark.parametrize("ns", [4, 16])
+def test_bwd_chunked_wide_group(ns):
+    """600 channels in one group: 10 tiles of 64, the last 24 wide; three
+    chunks."""
+    shape = (1, 600, 2 * CHUNK + 9, ns, 1, 7 + ns)
+    got = _torch_grads(selective_scan_bwd_chunked, _inputs(*shape), "all",
+                       chunk=CHUNK)
+    _close(got, _jax_grads(j_scan, shape, "all"))
 
 
 @pytest.mark.parametrize("length,ns,g,flags", [
