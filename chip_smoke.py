@@ -99,8 +99,8 @@ NVIDIA card.
    width in bf16 serves 3 requests: 24 K6 launches per forward and no K1
    or K2; median ms/batch, peak memory, stage events, busy share.
 16. The same 3d model in float32 on the card (K6) and on the CPU (plain
-   version), B=1, at the YAML's 6 encoder layers: all three heads must
-   agree.
+   version), B=1, at ``RESAMPLE_3D_CPU_LAYERS`` (2) of the YAML's 6
+   encoder layers: all three heads must agree.
 17. Its train path: 1 + 4 full-width bf16 B=1 steps through ``Trainer``,
    24 launches each of K6, K8 and K9 per step and of no other kernel;
    median ms/step, peak memory, stage shares, busy share.
@@ -248,6 +248,26 @@ NVIDIA card.
    decoder layer pairs: 20 launches each of K5 and its backward on the
    card, phase 6's tolerances, ``KinkSides`` hooked on the 4x temporal
    max-pool and the ReLUs.
+41. The main path trained under ``torch.distributed`` at world 1 over
+   NCCL (``parallel.initialize_distributed`` with a local address and a
+   free port; ``engine.Trainer`` in ``DistributedDataParallel`` with its
+   summing comm hook): the first step's loss and the float32 masters after
+   AdamW equal an unwrapped ``Trainer``'s on the same seed and batch, bit
+   for bit (a sum over one rank is the identity); ``DDP_STEPS`` timed
+   steps interleaved with the unwrapped trainer's, ms/step beside its and
+   phase 5's, 24 launches each of K1, K3, K4 per step, the NCCL kernels
+   of one profiled step; ``DDP_LOOP_BATCHES`` of
+   phase 31's eval-loop batches through ``run_validation`` with
+   ``barrier=sync_hosts``, their txt files byte-equal to the unwrapped
+   loop's; one float32 ``AVA22_CSN50`` train step (loss and backward) with
+   sync-BN on (in DDP under the group) and off (before the group came
+   up): the loss and every gradient bit for bit (the statistics are sums
+   then a division either way; one rank's sum is the identity).
+42. ``--profile`` / ``--flops``: ``utils.profiling.trace`` around one
+   main-path forward writes a Chrome trace whose kernel rows hold K1's 24
+   launches; ``utils.flops.count_flops`` of the main path at 1x16x256x320
+   on the card, in GFLOP, equal to phase 4's count of the same model on
+   the CPU (the plain versions hidden from the counter, as the kernels).
 
 Each phase's seconds are printed on a line of their own (``[seconds]``).
 The float32 card-vs-CPU train checks of phases 18, 24, 26 and 29 run the
@@ -930,11 +950,12 @@ def phase_main_path(dev, counters):
 
 
 def phase_in_model(dev, config: str = CONFIG, opts=(), tag: str = "",
-                   tol: float = MODEL_TOL):
+                   tol: float = MODEL_TOL, flops=None):
     """The full-width model of ``config`` (with ``opts``) in float32, B=1,
     on a clip of the config's shape (``clip_shape``): the kernels on the
     card against the plain versions on the CPU, each head within ``tol``
-    x max|CPU head|."""
+    x max|CPU head|.  With ``flops`` (a dict) the CPU forward's FLOP count
+    (``utils.flops``) lands in ``flops["cpu"]``."""
     from class_query_vad_tpu_torch.config import get_cfg_custom
     from class_query_vad_tpu_torch.models import build_model
     from class_query_vad_tpu_torch.models.detr import randomize_constants
@@ -953,9 +974,15 @@ def phase_in_model(dev, config: str = CONFIG, opts=(), tag: str = "",
     out_g, _ = serve(m_gpu, pixels, mask, dev)
     torch.cuda.synchronize()
     torch.set_num_threads(os.cpu_count() or 1)
+    from class_query_vad_tpu_torch.utils.flops import counting
+
     t0 = time.perf_counter()
-    out_c, _ = serve(m_cpu, pixels, mask, "cpu")
+    with (counting(m_cpu) if flops is not None
+          else contextlib.nullcontext()) as counter:
+        out_c, _ = serve(m_cpu, pixels, mask, "cpu")
     cpu_s = time.perf_counter() - t0
+    if flops is not None:
+        flops["cpu"] = int(counter.get_total_flops())
     print(f"{tag}CPU float32 forward (plain versions), "
           f"{cfg.CONFIG.MODEL.ENC_LAYERS} encoder layers: {cpu_s:.1f} s")
     for k in ("pred_logits", "pred_boxes", "pred_logits_b"):
@@ -1051,6 +1078,9 @@ def check_train_step(trainer, metrics, before):
     return norm, moved
 
 
+# median ms/step of each ``phase_train`` call, by its tag ("" the main path)
+TRAIN_MS = {}
+
 # launches per train step of the main path (K1 forward, K3 + K4 backward)
 # and of its 3d resample window (K6 forward, K8 + K9 backward)
 TRAIN_KERNELS = {"2d": ("fused_blend2d", "blend2d_bwd_dvol",
@@ -1120,6 +1150,7 @@ def phase_train(dev, counters, window: str = "2d", steps: int = 7,
           f"{per_step} each of {', '.join(kernels) or 'no kernel'} and no "
           f"other kernel")
     med = statistics.median(times)
+    TRAIN_MS[tag] = med
     print(f"{tag}full-width train, B={TRAIN_B} bf16, forward + matcher + criterion "
           f"+ backward + clip + AdamW, host->device copy included: median "
           f"{med:.2f} ms/step ({1e3 * TRAIN_B / med:.2f} clips/s) over "
@@ -2551,6 +2582,9 @@ def phase_eval_variant(dev, counters, config: str, window: str, kernel: str,
 # forward took 113.7 s at 6 layers on the 8 host cores beside an H100,
 # 10.8 s at 2)
 NATIVE_3D_CPU_LAYERS = 1
+# phase 16's likewise at 2 of the 6 (its plain 3d blend is phase 13's
+# kind of work; 6 until phases 41-42 came)
+RESAMPLE_3D_CPU_LAYERS = 2
 
 
 # the 3d resample window's train path: 1 + 4 steps
@@ -4055,6 +4089,249 @@ def phase_device_preprocess(dev, counters, loop_ms: float):
             "preprocessed train step": train}
 
 
+# phase 41: DDP_STEPS timed steps, DDP_LOOP_BATCHES eval-loop batches
+DDP_STEPS = 4
+DDP_LOOP_BATCHES = 2
+
+
+def phase_distributed(dev, counters):
+    """Phase 41 (see the module docstring).  Returns the launches of the
+    timed DDP steps and of the eval loop, by path."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from class_query_vad_tpu_torch import parallel
+    from class_query_vad_tpu_torch.config import get_cfg_custom
+    from class_query_vad_tpu_torch.datasets import DataLoader
+    from class_query_vad_tpu_torch.engine import Trainer, run_validation
+    from class_query_vad_tpu_torch.losses import (
+        build_criterion_and_postprocessor, build_matcher)
+    from class_query_vad_tpu_torch.models import build_model
+
+    # CSN-50's step without a process group (sync-BN off), before it comes up
+    _, off = csn_step(dev)
+    cfg = get_cfg_custom(CONFIG, ["CONFIG.MODEL.FAST_WINDOW", "2d"])
+    batch = train_batch(cfg)
+    plain = Trainer(build_model(cfg, dtype=torch.bfloat16), cfg)
+    os.environ.update(MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(parallel.free_port()))
+    rank_dev = parallel.initialize_distributed("cuda", rank=0, world=1)
+    ddp = Trainer(build_model(cfg, dtype=torch.bfloat16), cfg)
+    print(f"process group: backend {dist.get_backend()}, world "
+          f"{parallel.world_size()}, rank {parallel.rank()} on {rank_dev}; "
+          f"Trainer in {type(ddp.net).__name__}, the unwrapped one in "
+          f"{type(plain.net).__name__}")
+    check(dist.get_backend() == "nccl" and rank_dev == dev
+          and ddp.distributed and not plain.distributed,
+          "the DDP trainer is not on NCCL at world 1 on the card")
+    metrics = []
+    for tr in (plain, ddp):
+        torch.manual_seed(0)          # the same dropout / drop path draws
+        metrics.append(tr.step(batch))
+    loss_eq = torch.equal(metrics[0]["total_loss"], metrics[1]["total_loss"])
+    masters = list(zip(plain.optimizer.masters, ddp.optimizer.masters))
+    same = sum(torch.equal(a, b) for a, b in masters)
+    worst = max((a - b).abs().max().item() for a, b in masters)
+    print(f"DDP (world 1, NCCL) vs unwrapped first step: total "
+          f"{metrics[1]['total_loss'].item():.6f} vs "
+          f"{metrics[0]['total_loss'].item():.6f} "
+          f"({'equal' if loss_eq else 'DIFFERENT'} bit for bit); float32 "
+          f"masters after AdamW equal in {same}/{len(masters)} tensors "
+          f"(max |diff| {worst:.3e})")
+    check(loss_eq and same == len(masters),
+          "the DDP step differs from the unwrapped step at world 1")
+    del masters
+
+    # the two trainers' steps interleaved (every other round the DDP one
+    # first), so that host drift hits both
+    times = {"unwrapped": [], "DDP": []}
+    step_counts = []
+    for c in counters:
+        c.launches = 0
+    for i in range(DDP_STEPS):
+        order = (("unwrapped", plain), ("DDP", ddp))
+        for tag, tr in (order if i % 2 else order[::-1]):
+            counts = [c.launches for c in counters]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = tr.step(batch)
+            torch.cuda.synchronize()
+            times[tag].append((time.perf_counter() - t0) * 1e3)
+            check(all(bool(torch.isfinite(v).all()) for v in m.values()),
+                  f"{tag} step {i}: metrics not finite {m}")
+            if tr is ddp:
+                step_counts.append({c.__name__: c.launches - n
+                                    for c, n in zip(counters, counts)})
+    launches = {k: sum(d[k] for d in step_counts) for k in step_counts[0]}
+    check(all(d == {**{k: 0 for k in d}, **{k: 24 for k in TRAIN_KERNELS["2d"]}}
+              for d in step_counts),
+          f"DDP train launches per step {step_counts}, expected 24 each of "
+          f"K1, K3, K4 and no other kernel")
+    med = {k: statistics.median(v) for k, v in times.items()}
+    print(f"DDP train (world 1, NCCL), B={TRAIN_B} bf16: median "
+          f"{med['DDP']:.2f} ms/step against the unwrapped trainer's "
+          f"{med['unwrapped']:.2f} in the same rounds "
+          f"({med['DDP'] / med['unwrapped'] - 1:+.1%}; {DDP_STEPS} steps "
+          f"each, interleaved: DDP {[round(x, 2) for x in times['DDP']]}, "
+          f"unwrapped {[round(x, 2) for x in times['unwrapped']]}) and "
+          f"phase 5's {TRAIN_MS['']:.2f}; DDP launches over its "
+          f"{DDP_STEPS} steps {launches}")
+    # where the DDP step's extra host time goes: the host ops whose self
+    # time grew most against the unwrapped step's, one profiled step each
+    profs = {}
+    for tag, tr in (("unwrapped", plain), ("DDP", ddp)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            tr.step(batch)
+            torch.cuda.synchronize()
+        profs[tag] = prof.key_averages()
+    host = {tag: {e.key: (e.self_cpu_time_total / 1e3, e.count) for e in ev
+                  if e.device_type == DeviceType.CPU}
+            for tag, ev in profs.items()}
+    grew = sorted(host["DDP"], key=lambda k: host["unwrapped"].get(
+        k, (0, 0))[0] - host["DDP"][k][0])[:8]
+    print("host self ms per profiled step, DDP against unwrapped (the 8 ops "
+          "that grew most): " + "; ".join(
+              f"{k} {host['DDP'][k][0]:.2f} ({host['DDP'][k][1]} calls) vs "
+              f"{host['unwrapped'].get(k, (0, 0))[0]:.2f} "
+              f"({host['unwrapped'].get(k, (0, 0))[1]})" for k in grew))
+    del plain
+    torch.cuda.empty_cache()
+    rows = [e for e in profs["DDP"] if e.device_type == DeviceType.CUDA]
+    nccl = [(e.key, e.count, round(e.self_device_time_total / 1e3, 3))
+            for e in rows if "nccl" in e.key.lower()]
+    copies = [(e.key, e.count, round(e.self_device_time_total / 1e3, 3))
+              for e in rows if "memcpy" in e.key.lower()]
+    print(f"NCCL kernels in one profiled DDP step (name, launches, device "
+          f"ms): {nccl or 'none (at world 1 NCCL copies, no kernel)'}; "
+          f"copies {copies}; {len(rows)} device rows")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        lcfg = loop_cfg(CONFIG, tmp, LOOP_CANVAS, 2)
+        lcfg.CONFIG.DATA.LABEL_PATH = write_labelmap(
+            os.path.join(tmp, "labelmap.pbtxt"))
+        loader = DataLoader(SyntheticClips(lcfg, 2 * DDP_LOOP_BATCHES, 31,
+                                           LOOP_WIDTHS), 2, lcfg,
+                            num_workers=4)
+        model = ddp.model.eval()
+        criterion, post, _ = build_criterion_and_postprocessor(
+            lcfg, build_matcher(lcfg))
+        files = {}
+        for tag, kw in (("unwrapped", {}),
+                        ("barrier", dict(rank=parallel.rank(),
+                                         world_size=parallel.world_size(),
+                                         barrier=parallel.sync_hosts))):
+            lcfg.CONFIG.LOG.RES_DIR = tag
+            for c in counters:
+                c.launches = 0
+            run_validation(lcfg, model, post, loader, criterion=criterion,
+                           transfer_dtype=torch.bfloat16, **kw)
+            torch.cuda.synchronize()
+            files[tag] = {f: open(os.path.join(tmp, tag, f), "rb").read()
+                          for f in ("0.txt", "GT_0.txt")}
+        loop = {c.__name__: c.launches for c in counters}
+        same = files["unwrapped"] == files["barrier"]
+        print(f"eval loop over {DDP_LOOP_BATCHES} batches with barrier="
+              f"sync_hosts: txt files "
+              f"{'byte-equal' if same else 'DIFFERENT'} to the unwrapped "
+              f"loop's ({len(files['barrier']['0.txt'])} bytes of "
+              f"detections); launches {loop}")
+        check(same, "the eval loop's txt files differ under the process "
+                    "group")
+        check(loop == {**{k: 0 for k in loop},
+                       "fused_blend2d": 24 * DDP_LOOP_BATCHES},
+              f"eval loop launches {loop}")
+    del ddp, model
+    torch.cuda.empty_cache()
+
+    on, (l_on, g_on) = csn_step(dev)
+    (l_off, g_off) = off
+    exact = sum(torch.equal(g_on[n], g) for n, g in g_off.items())
+    worst = max((g_on[n] - g).abs().max().item() for n, g in g_off.items())
+    print(f"CSN-50 float32 train step, sync-BN on (DDP at world 1) vs off "
+          f"(no process group): loss {l_on.item():.6f} vs {l_off.item():.6f}"
+          f" ({'equal' if torch.equal(l_on, l_off) else 'DIFFERENT'} bit for "
+          f"bit); gradients bit-equal in {exact}/{len(g_off)} tensors (max "
+          f"|diff| {worst:.3e})")
+    check(on and torch.equal(l_on, l_off) and sorted(g_on) == sorted(g_off)
+          and exact == len(g_off), "sync-BN on and off disagree at world 1")
+    del g_on, g_off, off
+    torch.cuda.empty_cache()
+    parallel.destroy()
+    return {f"DDP train at world 1, {DDP_STEPS} steps": launches,
+            f"eval loop with barrier=sync_hosts, {DDP_LOOP_BATCHES} batches":
+                loop}
+
+
+def csn_step(dev):
+    """One float32 ``AVA22_CSN50`` train step's loss and backward (no
+    update) through ``engine.Trainer``, in DDP when a process group is up:
+    (whether it ran in DDP, (loss, {name: gradient})).  cuDNN
+    deterministic, dropout seeded."""
+    from class_query_vad_tpu_torch.config import get_cfg_custom
+    from class_query_vad_tpu_torch.engine import Trainer
+    from class_query_vad_tpu_torch.models import build_model
+
+    cfg = get_cfg_custom(CSN_CONFIGS["CSN50"])
+    trainer = Trainer(build_model(cfg, dtype=torch.float32), cfg)
+    batch = {k: torch.as_tensor(v).to(dev)
+             for k, v in train_batch(cfg).items()}
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.manual_seed(0)
+    total, _, _ = trainer.loss(batch)
+    total.backward()
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    grads = {n: p.grad.detach().clone()
+             for n, p in trainer.model.named_parameters() if p.grad is not None}
+    ddp = trainer.distributed
+    del trainer
+    torch.cuda.empty_cache()
+    return ddp, (total.detach(), grads)
+
+
+def phase_profile_flops(dev, cpu_flops: int):
+    """Phase 42 (see the module docstring)."""
+    import glob
+    import tempfile
+
+    from class_query_vad_tpu_torch.config import get_cfg_custom
+    from class_query_vad_tpu_torch.models import build_model
+    from class_query_vad_tpu_torch.utils.flops import count_flops
+    from class_query_vad_tpu_torch.utils.profiling import trace
+
+    cfg = get_cfg_custom(CONFIG)
+    t, h, w = clip_shape(cfg)
+    cost = count_flops(cfg, t, h, w)
+    print(f"count_flops of the main path at 1x{t}x{h}x{w} on the card (bf16): "
+          f"{cost['flops'] / 1e9:.3f} GFLOP; on the CPU (phase 4, float32): "
+          f"{cpu_flops / 1e9:.3f} GFLOP; bytes accessed {cost['note']}")
+    check(cost["flops"] == cpu_flops,
+          "the card's FLOP count differs from the CPU's")
+    model = build_model(cfg, dtype=torch.bfloat16)
+    pixels, mask = make_request(11, b=1, shape=(t, h, w))
+    serve(model, pixels, mask, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp):
+            serve(model, pixels, mask, dev)
+        paths = glob.glob(os.path.join(tmp, "trace_*_rank0.json"))
+        check(len(paths) == 1, f"trace wrote {paths}")
+        with open(paths[0]) as f:
+            events = json.load(f)["traceEvents"]
+        size = os.path.getsize(paths[0])
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    k1 = sum("fused_blend2d_kernel" in e.get("name", "") for e in kern)
+    print(f"trace of one main-path forward: {size / 2**20:.2f} MiB, "
+          f"{len(events)} events, {len(kern)} kernel rows, K1 "
+          f"(fused_blend2d_kernel) {k1} launches (24 expected)")
+    check(k1 == 24, "the trace does not name K1's 24 launches")
+    del model
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4118,7 +4395,8 @@ def main() -> int:
     with phase_seconds("phase 3 (the main path served)"):
         main_eval, main_ms = phase_main_path(dev, counters)
     with phase_seconds("phase 4 (its float32 forward, card vs CPU)"):
-        phase_in_model(dev)
+        flops = {}
+        phase_in_model(dev, flops=flops)
     with phase_seconds("phase 5 (its train path, the components route)"):
         launches = phase_train(dev, counters)
         comps = phase_components_route(dev, counters)
@@ -4162,8 +4440,9 @@ def main() -> int:
     with phase_seconds("phases 15-16 (resample 3d served, card vs CPU)"):
         phase_eval_variant(dev, counters, CONFIG, "3d", "blend3d_fwd",
                            "resample-3d", (31, 32, 33))
-        # card vs CPU at the YAML's full depth (6 encoder layers)
-        phase_in_model(dev, CONFIG, ["CONFIG.MODEL.FAST_WINDOW", "3d"],
+        phase_in_model(dev, CONFIG, ["CONFIG.MODEL.FAST_WINDOW", "3d",
+                                     "CONFIG.MODEL.ENC_LAYERS",
+                                     RESAMPLE_3D_CPU_LAYERS],
                        tag="resample-3d ")
     with phase_seconds("phase 17 (its train path)"):
         t3d = phase_train(dev, counters, "3d", RESAMPLE_3D_TRAIN_STEPS,
@@ -4241,6 +4520,10 @@ def main() -> int:
     kernels.append(k5_bwd)
     with phase_seconds("phase 40 (a float32 VSS train step, card vs CPU)"):
         phase_mamba_card_vs_cpu(dev, counters)
+    with phase_seconds("phase 41 (the main path under torch.distributed)"):
+        tube_launches.update(phase_distributed(dev, counters))
+    with phase_seconds("phase 42 (--profile and --flops on the card)"):
+        phase_profile_flops(dev, flops["cpu"])
     print(f"eval loop (phase 31) {loop_ms:.2f} ms/batch (busy {loop_busy:.2f}"
           f") vs phase 3 {main_ms:.2f}; UCF loop {ucf_loop_ms:.2f} ms/batch; "
           f"checkpoint save / load: model {save_s:.2f} / {load_s:.2f} s, "

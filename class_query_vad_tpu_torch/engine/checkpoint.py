@@ -156,13 +156,19 @@ def load_pretrained_params(cfg, path: str, model: nn.Module) -> List[str]:
     BatchNorm3d's) are dropped too, and returned by name and printed.
     With the fast encoder the window heads stay at their init and the
     exact heads are not loaded; both are returned, by name, and printed.
-    Any other missing or unexpected key, or a shape that differs, raises.
+    A VideoMamba backbone's position tables are resampled to
+    ``(IMG_SIZE // 16)**2`` patches and ``DATA.TEMP_LEN`` frames, as the
+    JAX package's ``convert_detr_checkpoint`` resamples them (a no-op at
+    the checkpoint's own sizes).  Any other missing or unexpected key, or
+    a shape that differs, raises.
     """
     ckpt = _read(path)
     if isinstance(ckpt, dict) and ckpt.get("format") == FORMAT:
         model.load_state_dict(ckpt["model"], strict=True)
         return []
     sd = _flat(ckpt)
+    if "VideoMamba" in cfg.CONFIG.MODEL.BACKBONE_NAME:
+        _resample_videomamba(sd, cfg)
     own = model.state_dict()
     sd = {k: v for k, v in sd.items() if not _REFERENCE_ONLY.search(k)}
     counters = [k for k in sd if _BN_COUNTERS.search(k) and k not in own]
@@ -187,6 +193,22 @@ def load_pretrained_params(cfg, path: str, model: nn.Module) -> List[str]:
               f"{kept} stay at their init; the reference's exact heads "
               f"{unused} are not loaded")
     return counters + kept + unused
+
+
+def _resample_videomamba(sd: Dict[str, torch.Tensor], cfg) -> None:
+    from ..utils.checkpoint_convert import (
+        BODY,
+        interp_mamba_pos_embed,
+        interp_mamba_temporal,
+    )
+
+    img = int(cfg.CONFIG.DATA.get("IMG_SIZE", 224))
+    for key, fn, size in (
+            ("pos_embed", interp_mamba_pos_embed, (img // 16) ** 2),
+            ("temporal_pos_embedding", interp_mamba_temporal,
+             int(cfg.CONFIG.DATA.TEMP_LEN))):
+        if BODY + key in sd:
+            sd[BODY + key] = fn(sd[BODY + key], size)
 
 
 _DONOR = ("transformer.encoder.", "transformer.decoder.",

@@ -18,15 +18,31 @@ optimizer keeps a float32 master copy of every parameter, adds the (bf16)
 gradients into float32 sums, steps the masters and copies them back into
 the modules.  AdamW on bf16 parameters would round away the 1e-4-sized
 updates.
+
+Several ranks (``parallel.initialize_distributed``).  ``Trainer`` wraps
+the model in ``DistributedDataParallel`` whose comm hook SUMS each bucket
+in float32 (the losses carry the global normalizers, ``losses.criterion``),
+so the update is the JAX package's single step on the concatenated batch.
+The micro-batches of an accumulation window run under ``no_sync()``;
+their float32 sums are summed over the ranks once, at the update, with
+the last micro-batch's (reduced by DDP during its backward).  The clip
+takes the global norm after the reduction, so every rank steps the same
+bits.  Frozen parameters stay out of DDP's buckets.  Every trainable
+parameter of every YAML's model gets a gradient in every step, so DDP
+runs without its search for unused parameters (an extra walk of the
+autograd graph per step).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Iterable, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
+from .. import parallel
 from ..losses import build_criterion_and_postprocessor, build_matcher
 from ..utils.lr_scheduler import build_scheduler
 
@@ -81,11 +97,18 @@ class MasterAdamW:
     ``grad_accum``-th call, clips, steps and copies the masters back; it
     then returns the global norm of the summed gradients (before the clip),
     else None.  ``last_grad(p)`` is the clipped float32 gradient of the last
-    update."""
+    update.
+
+    ``reduce`` (set by ``Trainer`` under a process group) sums a flat
+    float32 tensor over the ranks in place: at the update it sums the
+    window's earlier micro-batches (run under DDP's ``no_sync``), whose
+    gradients were not reduced."""
 
     def __init__(self, params: Iterable[nn.Parameter],
                  lr: float | Callable[[int], float], grad_accum: int = 1,
-                 clip_norm: float = 1.0):
+                 clip_norm: float = 1.0,
+                 reduce: Optional[Callable[[torch.Tensor], None]] = None):
+        self.reduce = reduce
         self.params = [p for p in params if p.requires_grad]
         self.masters = [p.detach().float().clone() for p in self.params]
         self._index = {id(p): i for i, p in enumerate(self.params)}
@@ -98,8 +121,26 @@ class MasterAdamW:
         self.micro = 0          # micro-batches seen
         self.steps = 0          # optimizer updates made
 
+    def last_micro(self) -> bool:
+        """Whether the next ``update()`` steps."""
+        return (self.micro + 1) % self.grad_accum == 0
+
+    @torch.no_grad()
+    def _reduce_window(self) -> None:
+        """Sum the float32 sums of this window's earlier micro-batches
+        over the ranks (one flat all-reduce)."""
+        flat = torch.cat([
+            (a if a is not None else torch.zeros_like(m)).reshape(-1)
+            for a, m in zip(self.acc, self.masters)])
+        self.reduce(flat)
+        for i, part in enumerate(flat.split([m.numel() for m in self.masters])):
+            self.acc[i] = part.view_as(self.masters[i])
+
     @torch.no_grad()
     def update(self) -> Optional[torch.Tensor]:
+        if (self.reduce is not None and self.grad_accum > 1
+                and self.last_micro()):
+            self._reduce_window()
         for i, p in enumerate(self.params):
             if p.grad is None:
                 continue
@@ -156,9 +197,18 @@ class MasterAdamW:
 
 def make_optimizer(params: Iterable[nn.Parameter],
                    lr: float | Callable[[int], float], grad_accum: int = 1,
-                   clip_norm: float = 1.0) -> MasterAdamW:
+                   clip_norm: float = 1.0, reduce=None) -> MasterAdamW:
     """lr may be a float (constant) or a schedule step -> lr."""
-    return MasterAdamW(params, lr, grad_accum, clip_norm)
+    return MasterAdamW(params, lr, grad_accum, clip_norm, reduce)
+
+
+def _sum_hook(_, bucket):
+    """DDP comm hook: the bucket SUMMED over the ranks (DDP's default
+    averages), in float32 whatever the gradients' dtype."""
+    buf = bucket.buffer()
+    acc = buf if buf.dtype in (torch.float32, torch.float64) else buf.float()
+    fut = dist.all_reduce(acc, async_op=True).get_future()
+    return fut.then(lambda f: f.value()[0].to(buf.dtype))
 
 
 _TARGET_KEYS = ("boxes", "labels", "n_boxes", "frame_valid", "n_actors")
@@ -174,9 +224,16 @@ class Trainer:
     ``device`` (CUDA by default) must hold ``model``; with no card and no
     ``device="cpu"`` it raises rather than train on the CPU.  Dropout and
     drop path draw from torch's default generators, which the constructor
-    seeds with ``seed`` (``torch.manual_seed``): their bits cannot equal
-    the JAX package's.  Parameters frozen by ``backbone_freeze_labels``
-    get ``requires_grad=False``."""
+    seeds with ``seed + rank`` (``torch.manual_seed``): their bits cannot
+    equal the JAX package's.  Parameters frozen by
+    ``backbone_freeze_labels`` get ``requires_grad=False``.
+
+    Under a process group (``parallel.initialize_distributed``) the
+    forward runs through ``self.net``, the model in
+    ``DistributedDataParallel`` (see the module docstring); ``self.model``
+    stays the bare module, which evaluation and checkpoints use.  Each
+    rank's losses are then its share of the global batch's; ``step``
+    returns them summed over the ranks."""
 
     def __init__(self, model: nn.Module, cfg, steps_per_epoch: int = 0,
                  device=None, seed: int = 0):
@@ -193,7 +250,7 @@ class Trainer:
             if p.device != self.device:
                 raise ValueError(f"parameter {name} is on {p.device}, the "
                                  f"trainer on {self.device}")
-        torch.manual_seed(seed)
+        torch.manual_seed(seed + parallel.rank())
         self.model = model.train()
         (self.criterion, self.postprocess,
          self.weight_dict) = build_criterion_and_postprocessor(
@@ -206,17 +263,30 @@ class Trainer:
         lr = float(tc.LR)
         if tc.get("LR_POLICY", "constant") != "constant" and steps_per_epoch > 0:
             lr = build_scheduler(cfg, steps_per_epoch)
-        self.optimizer = make_optimizer(model.parameters(), lr,
-                                        int(tc.GRAD_ACCUM),
-                                        float(tc.get("CLIP_GRAD_NORM", 1.0)))
+        self.distributed = parallel.is_distributed()
+        self.optimizer = make_optimizer(
+            model.parameters(), lr, int(tc.GRAD_ACCUM),
+            float(tc.get("CLIP_GRAD_NORM", 1.0)),
+            reduce=dist.all_reduce if self.distributed else None)
+        self.net = model
+        if self.distributed:
+            from torch.nn.parallel import DistributedDataParallel
+
+            self.net = DistributedDataParallel(
+                model, device_ids=([self.device.index]
+                                   if self.device.type == "cuda" else None),
+                broadcast_buffers=False)
+            self.net.register_comm_hook(None, _sum_hook)
         self.last_match = None
 
     def loss(self, batch: Dict[str, torch.Tensor]):
         """(total, loss dict, MatchResult of every decoder layer) of one
         micro-batch; the batch's tensors must be on the trainer's device."""
-        outputs = self.model(batch["pixels"], batch["mask"])
+        outputs = self.net(batch["pixels"], batch["mask"])
         targets = {k: batch[k] for k in _TARGET_KEYS if k in batch}
-        losses, match = self.criterion(outputs, targets, return_match=True)
+        losses, match = self.criterion(
+            outputs, targets, return_match=True,
+            reduce=parallel.all_reduce_sum if self.distributed else None)
         total = sum(losses[k] * w for k, w in self.weight_dict.items())
         return total, losses, match
 
@@ -226,14 +296,21 @@ class Trainer:
         NC], n_boxes [B], or tube boxes [B, A, T, 4], labels [B, A, T],
         frame_valid [B, T], n_actors [B]):
         forward, backward and, every GRAD_ACCUM calls, the update.  Returns
-        the total and the last layer's four losses (detached), plus
-        ``grad_norm`` when it stepped."""
+        the total and the last layer's four losses (detached; summed over
+        the ranks under a process group), plus ``grad_norm`` when it
+        stepped."""
         batch = {k: torch.as_tensor(v).to(self.device, non_blocking=True)
                  for k, v in batch.items()}
-        total, losses, self.last_match = self.loss(batch)
-        total.backward()
+        sync = not self.distributed or self.optimizer.last_micro()
+        with contextlib.nullcontext() if sync else self.net.no_sync():
+            total, losses, self.last_match = self.loss(batch)
+            total.backward()
         metrics = {"total_loss": total.detach()}
         metrics.update({k: losses[k].detach() for k in self.weight_dict})
+        if self.distributed:
+            vals = torch.stack(list(metrics.values()))
+            dist.all_reduce(vals)
+            metrics = dict(zip(metrics, vals.unbind()))
         norm = self.optimizer.update()
         if norm is not None:
             metrics["grad_norm"] = norm

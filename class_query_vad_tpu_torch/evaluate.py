@@ -3,18 +3,31 @@
 
     python -m class_query_vad_tpu_torch.evaluate --config-file <yaml> \\
         --pretrained_path <ckpt> [--split N] [--debug] [--amp] \\
-        [--root_data_path DIR] [--num_workers N] [--device cuda|cpu]
+        [--root_data_path DIR] [--num_workers N] [--device cuda|cpu] \\
+        [--profile DIR] [--flops]
 
 Builds the model and the val loader, loads the checkpoint (a reference
 ``.pth`` or a port checkpoint), runs ``engine.run_validation`` with the
 criterion and prints the JSON metrics line (mAP, v_mAP for the tubes, the
 eval loss, seconds).  The model runs on the card; with no card it raises
-unless ``--device cpu`` is given.
+unless ``--device cpu`` is given.  ``--profile DIR`` writes a
+``torch.profiler`` trace of the eval loop into DIR; ``--flops`` prints the
+model's dense-product and convolution FLOPs on the first batch.
+
+One process per GPU under ``torchrun`` (NCCL; gloo with ``--device
+cpu``), as the JAX package runs one per host:
+
+    torchrun --nproc_per_node N -m class_query_vad_tpu_torch.evaluate ...
+
+Each rank evaluates its share of the val set (``host_id=rank``,
+``num_hosts=world``) and writes its txt files; after a barrier rank 0
+merges them and prints the metrics line.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import datetime
 import json
 import os
@@ -41,15 +54,12 @@ def parse_args(argv=None):
         description="Evaluate video action detection models (PyTorch port).")
     add_common_args(parser)
     parser.add_argument("--profile", type=str, default=None, metavar="DIR",
-                        help="not ported yet (ROADMAP.md Queue 1 step 17)")
+                        help="write a torch.profiler trace of the eval "
+                             "loop into DIR")
     parser.add_argument("--flops", action="store_true",
-                        help="not ported yet (ROADMAP.md Queue 1 step 17)")
-    args = parser.parse_args(argv)
-    if args.profile or args.flops:
-        parser.error("--profile and --flops wait for the port of "
-                     "utils/profiling.py and utils/flops.py (ROADMAP.md "
-                     "Queue 1 step 17)")
-    return args
+                        help="print the model's FLOPs (dense products and "
+                             "convolutions) on the first batch")
+    return parser.parse_args(argv)
 
 
 def setup_cfg(args):
@@ -78,15 +88,12 @@ def setup_cfg(args):
 
 
 def resolve_device(name: str):
-    """``name`` as a torch device; a CUDA device with no card raises."""
-    import torch
+    """``name`` as this rank's torch device, after joining the process
+    group when ``torchrun`` started several (``parallel.
+    initialize_distributed``); a CUDA device with no card raises."""
+    from class_query_vad_tpu_torch.parallel import initialize_distributed
 
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"--device {name}: no CUDA device is available; pass "
-            f"--device cpu to run the plain PyTorch path on the CPU")
-    return dev
+    return initialize_distributed(name)
 
 
 def main(argv=None):
@@ -103,11 +110,19 @@ def main(argv=None):
         build_matcher,
     )
     from class_query_vad_tpu_torch.models import build_model
+    from class_query_vad_tpu_torch.parallel import (
+        destroy,
+        rank,
+        sync_hosts,
+        world_size,
+    )
     from class_query_vad_tpu_torch.utils.misc import param_count
 
     cfg = setup_cfg(args)
     dev = resolve_device(args.device)
-    loader = build_dataloader(cfg, "val", num_workers=args.num_workers)
+    loader = build_dataloader(cfg, "val", host_id=rank(),
+                              num_hosts=world_size(),
+                              num_workers=args.num_workers)
     amp = args.amp or cfg.CONFIG.AMP
     dtype = torch.bfloat16 if amp else torch.float32
     model = build_model(cfg, dtype=dtype, device=dev, input_hw=loader.canvas)
@@ -121,10 +136,26 @@ def main(argv=None):
     print("Number of parameters in the model: %6.2fM"
           % (param_count(model) / 1e6))
 
+    if args.flops:
+        from class_query_vad_tpu_torch.utils.flops import model_cost
+
+        first = next(iter(loader))[0]
+        cost = model_cost(model, torch.as_tensor(first["pixels"]).to(dev),
+                          torch.as_tensor(first["mask"]).to(dev))
+        print("Model cost analysis: %.2f GFLOPs; bytes accessed %s"
+              % (cost["flops"] / 1e9, cost["note"]))
+
+    profile_ctx = contextlib.nullcontext()
+    if args.profile:
+        from class_query_vad_tpu_torch.utils.profiling import trace
+
+        profile_ctx = trace(args.profile)
     t0 = time.time()
-    result = run_validation(cfg, model, postprocess, loader,
-                            criterion=criterion,
-                            transfer_dtype=dtype if amp else None)
+    with profile_ctx:
+        result = run_validation(cfg, model, postprocess, loader,
+                                rank=rank(), world_size=world_size(),
+                                barrier=sync_hosts, criterion=criterion,
+                                transfer_dtype=dtype if amp else None)
     if result is not None:
         line = {"mAP": result["mAP"], "time": time.time() - t0}
         if "v_mAP" in result:
@@ -132,6 +163,7 @@ def main(argv=None):
         if "eval_losses" in result:
             line["eval_loss"] = result["eval_losses"]["total_loss"]
         print(json.dumps(line))
+    destroy()
     return result
 
 

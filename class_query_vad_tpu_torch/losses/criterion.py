@@ -14,6 +14,14 @@ Loss semantics as the JAX package pins them against the reference:
   ``{name}_{i}``.  All layers are matched in ONE matcher call (one host
   copy of the costs per step).
 
+Under a process group the train step passes ``reduce``
+(``parallel.all_reduce_sum``): every normalizer over the batch (the gt
+count, n_p, the class-weight sum of the cross entropy, the clip and frame
+counts) is then summed over the ranks before it divides, as the JAX
+package's global batch gives it under a mesh, so each rank's loss is its
+share of the global one and the ranks' summed gradients are the global
+step's.  The eval path passes none and issues no collective.
+
 The tube criteria (``criterion_frames``) score per frame, with the
 reference's quirks as the JAX package keeps them: the k-th matched query
 (in query order) pairs with the k-th live gt slot, whatever the matcher's
@@ -26,7 +34,7 @@ live gts / their count.
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -61,12 +69,18 @@ def sigmoid_focal_loss(inputs, targets, weights=None, alpha: float = 0.25,
     return loss.sum()
 
 
-def weighted_cross_entropy(logits, labels, class_weights) -> torch.Tensor:
+def _global(x: torch.Tensor, reduce: Optional[Callable]) -> torch.Tensor:
+    """``x`` summed over the ranks when ``reduce`` is given."""
+    return x if reduce is None else reduce(x)
+
+
+def weighted_cross_entropy(logits, labels, class_weights,
+                           reduce: Optional[Callable] = None) -> torch.Tensor:
     """F.cross_entropy with per-class weights: sum w[y]·nll / sum w[y]."""
     logp = F.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
     w = class_weights[labels]
-    return (w * nll).sum() / w.sum()
+    return (w * nll).sum() / _global(w.sum(), reduce)
 
 
 def gather_matched(values: torch.Tensor, match: MatchResult) -> torch.Tensor:
@@ -92,12 +106,14 @@ def box_losses(src_boxes, tgt_boxes, pair_ok, denom):
 def criterion_ava(outputs: Dict, targets: Dict, matcher: Callable,
                   num_classes: int, weight: float = 10.0,
                   eos_coef: float = 0.1, label_smoothing_alpha: float = 0.1,
-                  evaluation: bool = False, return_match: bool = False):
+                  evaluation: bool = False, return_match: bool = False,
+                  reduce: Optional[Callable] = None):
     """targets: boxes [B, M, 4] cxcywh, labels [B, M, NC] multi-hot,
     n_boxes [B].  Returns the loss dict, and with ``return_match`` also the
     MatchResult of every decoder layer [L, B, NQ] (layer order; the last
-    layer is index -1)."""
-    num_boxes = targets["n_boxes"].sum().float().clamp(min=1.0)
+    layer is index -1).  ``reduce``: see the module docstring."""
+    num_boxes = _global(targets["n_boxes"].sum().float(), reduce).clamp(
+        min=1.0)
     layers, match = _layer_matches(outputs, matcher, targets)
     cw = torch.tensor([1.0, 1.0, eos_coef], device=num_boxes.device)
     a = label_smoothing_alpha
@@ -106,10 +122,11 @@ def criterion_ava(outputs: Dict, targets: Dict, matcher: Callable,
     def layer_losses(out, m: MatchResult):
         matched = m.match_ok.float()
         tgt_b = torch.where(m.match_ok, 1, 2)
-        loss_ce_b = weighted_cross_entropy(out["pred_logits_b"], tgt_b, cw)
+        loss_ce_b = weighted_cross_entropy(out["pred_logits_b"], tgt_b, cw,
+                                           reduce)
 
         raw = gather_matched(targets["labels"].float(), m) * matched[..., None]
-        n_p = raw.sum().clamp(min=1.0)
+        n_p = _global(raw.sum(), reduce).clamp(min=1.0)
         smoothed = raw * true_l + (1 - raw) * false_l
         target_classes = torch.where(m.match_ok[..., None], smoothed, false_l)
         logits = out["pred_logits"].float()
@@ -152,20 +169,22 @@ def _losses_by_layer(per_layer, match, return_match: bool):
 def criterion_frames(outputs: Dict, targets: Dict, matcher: Callable,
                      num_classes: int, weight: float = 10.0,
                      eos_coef: float = 0.1, label_smoothing_alpha: float = 0.1,
-                     jhmdb: bool = False, return_match: bool = False):
+                     jhmdb: bool = False, return_match: bool = False,
+                     reduce: Optional[Callable] = None):
     """UCF / JHMDB per-frame criterion (the JAX ``criterion_frames``,
     criterion.py:186).  outputs [B, T, NQ, ...]; targets: boxes [B, A, T,
     4], labels [B, A, T] int (``num_classes`` = background), frame_valid
     [B, T] bool, optional n_actors [B].  Returns the loss dict, and with
     ``return_match`` also the matcher's MatchResult of every decoder layer
-    [L, B, T, NQ] (before the sequential pairing)."""
+    [L, B, T, NQ] (before the sequential pairing).  ``reduce``: see the
+    module docstring."""
     b, t, nq = outputs["pred_logits"].shape[:3]
     frame_valid = targets["frame_valid"]
     boxes_t = targets["boxes"].transpose(1, 2).float()         # [B, T, A, 4]
     labels_t = targets["labels"].transpose(1, 2).long()        # [B, T, A]
     live_gt = live_frame_gts(targets, filter_empty=not jhmdb)  # [B, T, A]
     a_slots = live_gt.shape[-1]
-    num_valid_boxes = live_gt.sum().float().clamp(min=1.0)
+    num_valid_boxes = _global(live_gt.sum().float(), reduce).clamp(min=1.0)
     layers, match = _layer_matches(outputs, matcher, targets)
     cw = torch.tensor([1.0, 1.0, eos_coef], device=boxes_t.device)
     a = label_smoothing_alpha
@@ -180,12 +199,15 @@ def criterion_frames(outputs: Dict, targets: Dict, matcher: Callable,
     shift = torch.arange(t, device=front_pad.device)[None] + front_pad[:, None]
     shift_ok = (shift < t)[..., None]                             # [B, T, 1]
     shift = shift.clamp(max=t - 1)[..., None].expand(b, t, nq)
+    clips = b if reduce is None else reduce(
+        torch.tensor(float(b), device=boxes_t.device))
 
     def layer_losses(out, matched):
         rank = (matched.long().cumsum(-1) - 1).clamp(0, a_slots - 1)
         pairs = MatchResult(torch.gather(order, -1, rank), matched)
         tgt_b = torch.where(matched, 1, 2)
-        loss_ce_b = weighted_cross_entropy(out["pred_logits_b"], tgt_b, cw)
+        loss_ce_b = weighted_cross_entropy(out["pred_logits_b"], tgt_b, cw,
+                                           reduce)
 
         gt_label = gather_matched(labels_t[..., None], pairs)[..., 0]
         tgt_cls = torch.where(matched, gt_label, num_classes)
@@ -197,12 +219,14 @@ def criterion_frames(outputs: Dict, targets: Dict, matcher: Callable,
         fused = inverse_sigmoid(torch.sigmoid(out["pred_logits"].float()) * p_b)
         if jhmdb:
             valid_len = frame_valid.sum(1).clamp(min=1).float()
+            mean_len = (valid_len.mean() if reduce is None else
+                        reduce(valid_len.sum()) / clips)
             loss_ce = sigmoid_focal_loss(
                 fused, onehot[..., :-1], weights,
-                elem_mask=frame_valid[:, :, None]) / valid_len.mean()
+                elem_mask=frame_valid[:, :, None]) / mean_len
         else:
             loss_ce = sigmoid_focal_loss(fused, onehot[..., :-1],
-                                         weights) / (b * t)
+                                         weights) / (clips * t)
 
         gt_boxes = gather_matched(boxes_t, pairs)
         l1, giou = box_losses(out["pred_boxes"], gt_boxes, matched,
@@ -262,15 +286,19 @@ def build_criterion_and_postprocessor(cfg, matcher):
     )
 
     if name == "ava":
-        def criterion(outputs, targets, evaluation=False, return_match=False):
+        def criterion(outputs, targets, evaluation=False, return_match=False,
+                      reduce=None):
             return criterion_ava(outputs, targets, evaluation=evaluation,
-                                 return_match=return_match, **common)
+                                 return_match=return_match, reduce=reduce,
+                                 **common)
 
         return criterion, postprocess_ava, weight_dict
 
-    def criterion(outputs, targets, evaluation=False, return_match=False):
+    def criterion(outputs, targets, evaluation=False, return_match=False,
+                  reduce=None):
         # ``evaluation`` changes nothing in the tube criteria, as in JAX
         return criterion_frames(outputs, targets, jhmdb=name == "jhmdb",
-                                return_match=return_match, **common)
+                                return_match=return_match, reduce=reduce,
+                                **common)
 
     return criterion, postprocess_frames, weight_dict

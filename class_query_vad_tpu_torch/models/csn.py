@@ -42,6 +42,7 @@ from typing import List, Sequence
 import torch
 import torch.nn as nn
 
+from .. import parallel
 from .common import remat_call
 
 CSN_BLOCKS = {"50": (3, 4, 6, 3), "152": (3, 8, 36, 3)}
@@ -66,7 +67,15 @@ class Affine(nn.Module):
 class CSNBatchNorm(nn.Module):
     """BatchNorm3d (eps 1e-3) over NCDHW: ``eval()`` normalises by the
     running statistics, ``train()`` by the batch's (biased variance,
-    float32); the running statistics are never updated."""
+    float32); the running statistics are never updated.
+
+    The statistics are taken as float32 sums of x and x² over (B, T, H,
+    W) and the element count, then divided.  Sync-BN: under a process
+    group those sums are summed over the ranks first
+    (``parallel.all_reduce_sum``, through which the gradient flows), so
+    the statistics span the global batch, as the JAX package's do under a
+    mesh; one rank's sum is the identity, so at world 1 the arithmetic is
+    the same bit for bit (``class_query_vad_tpu/models/csn.py:76-82``)."""
 
     def __init__(self, features: int, eps: float = 1e-3):
         super().__init__()
@@ -81,8 +90,13 @@ class CSNBatchNorm(nn.Module):
             # float32 statistics (float64 for a float64 input)
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
             axes = (0,) + tuple(range(2, x.ndim))
-            mean = xf.mean(axes)
-            var = xf.square().mean(axes) - mean.square()
+            c = x.shape[1]
+            stats = torch.cat([xf.sum(axes), xf.square().sum(axes),
+                               xf.new_full((1,), x.numel() // c)])
+            if parallel.is_distributed():
+                stats = parallel.all_reduce_sum(stats)
+            mean = stats[:c] / stats[-1]
+            var = stats[c:2 * c] / stats[-1] - mean.square()
         else:
             mean, var = self.running_mean, self.running_var
         inv = self.weight / torch.sqrt(var + self.eps)

@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from .cuda_build import device_of, launch
+from .cuda_build import device_of, launch, plain_version
 
 _HEADS, _CHANNELS, _MAX_LEVELS = 8, 256, 4
 
@@ -256,7 +256,7 @@ def _blend2d_forward(vol, dx, dy, a, nh: int,
     ``kernels``."""
     b, jl, t, h, w, c, kp = _shapes(vol, dx, dy, a, nh)
     if device_of(vol, dx, dy, a) == "cpu" or not kernels:
-        return blend2d_reference(vol, dx, dy, a, nh)
+        return plain_version(kernels, blend2d_reference, vol, dx, dy, a, nh)
     check_kernel_args(nh, c, jl, vol.dtype,
                       {"vol": vol, "dx": dx, "dy": dy, "a": a})
     out = torch.empty((b, t, h, w, c), dtype=torch.float32, device=vol.device)

@@ -34,7 +34,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from .blend2d import check_kernel_args, hat, hat_grad
-from .cuda_build import device_of, launch
+from .cuda_build import device_of, launch, plain_version
 
 # The side of the square (y, x) tile of one frame that a block of K6, K8 or
 # K9 owns (csrc/blend3d.cu, csrc/blend3d_bwd_dvol.cu,
@@ -233,7 +233,7 @@ def blend3d_fwd(vol, dx, dy, dt, a, nh: int = 8) -> torch.Tensor:
     plain version on CPU tensors: float32 [B, T, H, W, C]."""
     b, jl, t, h, w, c, kp = _shapes(vol, (dx, dy, dt, a), nh)
     if device_of(vol, dx, dy, dt, a) == "cpu":
-        return blend3d_reference(vol, dx, dy, dt, a, nh)
+        return plain_version(True, blend3d_reference, vol, dx, dy, dt, a, nh)
     check_kernel_args(nh, c, jl, vol.dtype,
                       {"vol": vol, "dx": dx, "dy": dy, "dt": dt, "a": a})
     out = torch.empty((b, t, h, w, c), dtype=torch.float32, device=vol.device)
@@ -319,7 +319,8 @@ class _Blend3d(torch.autograd.Function):
         ctx.save_for_backward(vol, dx, dy, dt, a)
         ctx.nh, ctx.kernels = nh, kernels
         if device_of(vol, dx, dy, dt, a) == "cpu" or not kernels:
-            return blend3d_reference(vol, dx, dy, dt, a, nh)
+            return plain_version(kernels, blend3d_reference, vol, dx, dy, dt,
+                                 a, nh)
         return blend3d_fwd(vol, dx, dy, dt, a, nh)
 
     @staticmethod

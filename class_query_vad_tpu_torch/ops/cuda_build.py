@@ -200,6 +200,20 @@ def device_of(*tensors: torch.Tensor) -> str:
                      f"{sorted(str(d) for d in devs)}")
 
 
+def plain_version(stands_in: bool, fn, *args):
+    """``fn(*args)``, a kernel's plain version; where it ``stands_in`` for
+    the kernel (CPU tensors) it runs hidden from torch's dispatch modes:
+    on the card the kernel, launched through ctypes, is invisible to them
+    (``utils.flops``' ``FlopCounterMode``), so a count is the same
+    whichever runs, as XLA gives a Pallas call no cost."""
+    if not stands_in:
+        return fn(*args)
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    with _disable_current_modes():
+        return fn(*args)
+
+
 def launch(name: str, device: torch.device, *args) -> None:
     """Call kernel ``name``'s C launcher on ``device``'s current stream and
     raise on a non-zero CUDA error."""

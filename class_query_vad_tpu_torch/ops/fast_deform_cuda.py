@@ -30,7 +30,7 @@ from .blend2d import (
     check_kernel_args,
     fwd_block,
 )
-from .cuda_build import device_of, launch
+from .cuda_build import device_of, launch, plain_version
 
 _POINTS = 8
 
@@ -97,7 +97,8 @@ def _fused_blend2d_forward(vol, fused, nh: int, radius: float,
     ``kernels``."""
     b, jl, t, h, w, c, kp = _shapes(vol, fused, nh)
     if device_of(vol, fused) == "cpu" or not kernels:
-        return fused_blend2d_reference(vol, fused, nh, radius)
+        return plain_version(kernels, fused_blend2d_reference, vol, fused, nh,
+                             radius)
     check_kernel_args(nh, c, jl, vol.dtype, {"vol": vol, "fused": fused})
     if kp != nh * _POINTS:
         raise ValueError(f"the kernel takes kp=64; got kp={kp}")

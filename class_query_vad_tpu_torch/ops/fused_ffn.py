@@ -35,7 +35,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .cuda_build import device_of, launch
+from .cuda_build import device_of, launch, plain_version
 
 ACTIVATIONS = ("relu", "gelu_exact", "gelu_tanh")
 KERNEL_WIDTHS = (256, 768)           # C the kernel takes
@@ -133,7 +133,8 @@ class _FusedFFN(torch.autograd.Function):
         ctx.activation = activation
         ctx.save_for_backward(x, w1, b1, w2, b2)
         if device_of(x, w1, b1, w2, b2) == "cpu":
-            return fused_ffn_plain(x, w1, b1, w2, b2, activation)
+            return plain_version(True, fused_ffn_plain, x, w1, b1, w2, b2,
+                                 activation)
         return fused_ffn_kernel(x, w1, b1, w2, b2, activation)
 
     @staticmethod

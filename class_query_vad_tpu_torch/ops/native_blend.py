@@ -38,7 +38,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from .blend2d import check_kernel_args
-from .cuda_build import device_of, launch
+from .cuda_build import device_of, launch, plain_version
 from .fast_deform import native_blend_level, native_tables_on
 
 _POINTS, _PASS = 8, 256
@@ -147,7 +147,8 @@ class _NativeBlend(torch.autograd.Function):
         ctx.save_for_backward(dx, dy, dt, a, *values)
         _shapes(values, comps, nh)
         if device_of(*values, *comps) == "cpu" or not kernels:
-            return native_blend_reference(values, dx, dy, a, nh, dt)
+            return plain_version(kernels, native_blend_reference, values, dx,
+                                 dy, a, nh, dt)
         if dt is None:
             return native_blend2d(values, dx, dy, a, nh)
         return native_blend3d(values, dx, dy, dt, a, nh)

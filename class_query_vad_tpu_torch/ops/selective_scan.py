@@ -42,7 +42,7 @@ from typing import Optional
 
 import torch
 
-from .cuda_build import device_of, launch
+from .cuda_build import device_of, launch, plain_version
 
 _STATES = (4, 8, 16)          # the N the kernel is built for
 _CHUNK = 64                   # steps per vectorised slab of the plain loop
@@ -586,8 +586,9 @@ def selective_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
         return SelectiveScanFn.apply(u, delta, A, B, C, D, delta_bias,
                                      delta_softplus, return_last_state)
     if cpu:
-        return selective_scan_reference(u, delta, A, B, C, D, delta_bias,
-                                        delta_softplus, return_last_state)
+        return plain_version(True, selective_scan_reference, u, delta, A, B,
+                             C, D, delta_bias, delta_softplus,
+                             return_last_state)
     y, last, _ = _launch(u, delta, A, B, C, D, delta_bias, delta_softplus,
                          return_last_state)
     return (y, last) if return_last_state else y

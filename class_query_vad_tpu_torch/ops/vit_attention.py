@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from .cuda_build import device_of, launch
+from .cuda_build import device_of, launch, plain_version
 
 HEAD_DIM = 64
 _GRID_LIMIT = 65535           # CUDA's grid y / z: heads and batch
@@ -145,7 +145,8 @@ class _FlashAttention(torch.autograd.Function):
         ctx.num_heads, ctx.scale = num_heads, scale
         ctx.save_for_backward(qkv)
         if device_of(qkv) == "cpu":
-            return flash_attention_plain(qkv, num_heads, scale)
+            return plain_version(True, flash_attention_plain, qkv, num_heads,
+                                 scale)
         return vit_attention(qkv, num_heads, scale)
 
     @staticmethod

@@ -37,7 +37,7 @@ from class_query_vad_tpu_torch.ops.fast_deform_cuda import (
     fused_components,
 )
 
-from torch_parity import n, t
+from torch_parity import jit_opt0, n, t
 
 NH, C, KP = 8, 256, 64
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -97,8 +97,8 @@ def test_blend2d_reference_matches_pallas_interpret(jl, thw, dtype):
 @pytest.mark.parametrize("jl,thw,dtype", CASES)
 def test_blend2d_backward_matches_pallas_vjp(jl, thw, dtype, ties):
     jx, tx, g = _comps(jl, thw, dtype, seed=10 + jl, ties=ties)
-    _, vjp = jax.vjp(_blend2d_jax, *jx)
-    want = vjp(jnp.asarray(g))
+    want = jit_opt0(lambda gg, *x: jax.vjp(_blend2d_jax, *x)[1](gg),
+                    jnp.asarray(g), *jx)
     got = blend2d_backward_reference(*tx, t(g), NH)
     for name, gt, gj in zip(("dvol", "ddx", "ddy", "da"), got, want):
         assert gt.dtype == TDT[dtype], name
@@ -154,8 +154,12 @@ def test_fused_blend2d_grad_matches_jax(jl, thw, dtype, ties):
                                          nh=NH, radius=1.0, use_pallas=True,
                                          interpret=True)
 
-    out_j, vjp = jax.vjp(f, vol_j, fused_j)
-    dvol_j, dfused_j = vjp(jnp.asarray(g))
+    def f_and_vjp(v, fu, gg):
+        out, vjp = jax.vjp(f, v, fu)
+        return out, vjp(gg)
+
+    out_j, (dvol_j, dfused_j) = jit_opt0(f_and_vjp, vol_j, fused_j,
+                                         jnp.asarray(g))
 
     vol_t = t(np.asarray(vol_j.astype(jnp.float32))).to(TDT[dtype])
     fused_t = t(np.asarray(fused_j.astype(jnp.float32))).to(TDT[dtype])

@@ -6,7 +6,10 @@ a padding mask, the encoder layer with and without ``q_chunks``,
 2-layer ``DeformableEncoder`` with its gradients.  Params cross over by
 ``params_from_jax`` (the reference's names, ``transformer.encoder.layers.
 {i}.self_attn.{value_proj,sampling_offsets,attention_weights,output_proj}``,
-``norm1``, ``norm2``, ``linear1``, ``linear2``).
+``norm1``, ``norm2``, ``linear1``, ``linear2``).  Also
+``utils.offset_stats``: the offsets and attention logits a 2-layer encoder's
+heads emit, captured by forward hooks, against the JAX package's captured
+intermediates, and the window statistics computed from them.
 """
 
 import functools
@@ -20,7 +23,7 @@ import torch
 from class_query_vad_tpu.models import deform_encoder as jde
 from class_query_vad_tpu_torch.models import deform_encoder as tde
 
-from torch_parity import load_from_flax, n, random_params, t
+from torch_parity import jit_opt0, load_from_flax, n, random_params, t
 
 # float32 on both sides; projections, softmax, sampling and LayerNorms sum
 # in other orders
@@ -120,7 +123,8 @@ def _layer_world(chunks):
     m = jnp.asarray(mask)
     params = random_params(
         lambda k, *a: jm.init(k, *a, SHAPES, m, True, chunks), *args, seed=6)
-    want = jm.apply(params, *args, SHAPES, m, True, chunks)
+    want = jit_opt0(lambda p, *a: jm.apply(p, *a, SHAPES, m, True, chunks),
+                    params, *args)
     return (src, pos, mask, np.asarray(ref)), params, want
 
 
@@ -151,8 +155,10 @@ def _encoder_world():
     def f(p, x):
         return (jm.apply(p, x, SHAPES, *rest, True) * g).sum()
 
-    out = jm.apply(params, jnp.asarray(src), SHAPES, *rest, True)
-    grads = jax.grad(f, argnums=(0, 1))(params, jnp.asarray(src))
+    out, grads = jit_opt0(
+        lambda p, x: (jm.apply(p, x, SHAPES, *rest, True),
+                      jax.grad(f, argnums=(0, 1))(p, x)),
+        params, jnp.asarray(src))
     return (src, pos, mask, vr, g), params, out, grads
 
 
@@ -182,3 +188,61 @@ class _Grabber(torch.nn.Module):
 
     def load_state_dict(self, sd, strict=True):
         self.store.update(sd)
+
+
+def test_offset_stats_match_jax():
+    """``collect_offsets_and_weights`` (forward hooks) against the JAX
+    package's (flax's captured intermediates) on a 2-layer encoder: the
+    offsets and logits within ``TOL``, in layer order; the native-pixel
+    offsets (the permuted-normalizer quirk), softmax weights and the
+    per-level window fractions from them equal to JAX's functions' within
+    the same tolerance (a fraction may differ where an offset lies within
+    1e-5 of a threshold: the check asserts none does)."""
+    from class_query_vad_tpu.utils import offset_stats as jstats
+    from class_query_vad_tpu_torch.utils import offset_stats as tstats
+
+    src, pos, mask, vr = _inputs(13)
+    jm = jde.DeformableEncoder(2, D, FFN, NL, NH, NP, 0.0)
+    rest = (jnp.asarray(vr), jnp.asarray(pos), jnp.asarray(mask))
+    params = random_params(
+        lambda k, x: jm.init(k, x, SHAPES, *rest, True), jnp.asarray(src),
+        seed=14)
+    _, pairs_j = jstats.collect_offsets_and_weights(
+        _Jitted(jm), params, jnp.asarray(src), SHAPES, *rest, True)
+    tm = tde.DeformableEncoder(2, D, FFN, NL, NH, NP, 0.0).eval()
+    load_from_flax(tm, params, PREFIX, "transformer.encoder.")
+    out, pairs_t = tstats.collect_offsets_and_weights(
+        tm, t(src), SHAPES, t(vr), t(pos), t(mask))
+    assert out.shape == (2, S, D) and len(pairs_t) == len(pairs_j) == 2
+    shapes = [tuple(s) for s in SHAPES]
+    for (o_t, w_t), (o_j, w_j) in zip(pairs_t, pairs_j):
+        np.testing.assert_allclose(o_t, o_j, **TOL)
+        np.testing.assert_allclose(w_t, w_j, **TOL)
+        px_t = tstats.native_pixel_offsets(o_t, shapes, NH, NP)
+        px_j = jstats.native_pixel_offsets(o_j, shapes, NH, NP)
+        np.testing.assert_allclose(px_t, px_j, **TOL)
+        sw_t = tstats.softmax_weights(w_t, NH, NL, NP)
+        sw_j = jstats.softmax_weights(w_j, NH, NL, NP)
+        np.testing.assert_allclose(sw_t, sw_j, **TOL)
+        sp = np.abs(px_j[..., :2])
+        for th in (1.0, 2.0):
+            assert np.abs(np.abs(sp.max(-1)) - th).min() > 1e-5
+            assert np.abs(sp - th).min() > 1e-5
+        rows_t = tstats.window_fractions(px_t, shapes, weights=sw_t)
+        rows_j = jstats.window_fractions(px_j, shapes, weights=sw_j)
+        for r_t, r_j in zip(rows_t, rows_j):
+            assert sorted(r_t) == sorted(r_j)
+            for k, v in r_j.items():
+                np.testing.assert_allclose(r_t[k], v, err_msg=k, **TOL)
+
+
+class _Jitted:
+    """A flax module whose ``apply`` runs jitted (``jit_opt0``), for the
+    JAX package's functions that call ``module.apply``."""
+
+    def __init__(self, module):
+        self.module = module
+
+    def apply(self, variables, *args, **kwargs):
+        return jit_opt0(lambda v: self.module.apply(v, *args, **kwargs),
+                        variables)

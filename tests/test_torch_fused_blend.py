@@ -18,7 +18,7 @@ from class_query_vad_tpu_torch.ops.fast_deform_cuda import (
     fused_blend2d_reference,
 )
 
-from torch_parity import n, t
+from torch_parity import jit_opt0, n, t
 
 NH, C, KP = 8, 256, 64
 
@@ -58,9 +58,9 @@ CASES = [
 @pytest.mark.parametrize("jl,thw,dtype", CASES)
 def test_reference_matches_pallas_interpret(jl, thw, dtype):
     vol_j, fused_j, vol_t, fused_t = _inputs(jl, thw, dtype, seed=jl)
-    out_j = windowed_blend_fused_head(
-        [vol_j[:, i] for i in range(jl)], fused_j, nh=NH, radius=1.0,
-        use_pallas=True, interpret=True)
+    out_j = jit_opt0(lambda v, f: windowed_blend_fused_head(
+        [v[:, i] for i in range(jl)], f, nh=NH, radius=1.0,
+        use_pallas=True, interpret=True), vol_j, fused_j)
     out_t = fused_blend2d_reference(vol_t, fused_t, NH, 1.0)
     assert out_t.dtype == torch.float32
     np.testing.assert_allclose(n(out_t), n(out_j), **TOL[dtype])

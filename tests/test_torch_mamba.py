@@ -41,6 +41,7 @@ from class_query_vad_tpu_torch.utils.weights import params_from_jax
 from torch_parity import (
     TINY_VIDEOMAMBA,
     VSS_YAML,
+    jit_opt0,
     load_from_flax,
     n,
     random_params,
@@ -168,7 +169,7 @@ def test_videomamba_matches_flax(dtype):
     jm = j_vm.VideoMamba(embed_dim=32, depth=2, num_frames=8,
                          dtype=jnp.dtype(dtype))
     params = random_params(lambda k, x: jm.init(k, x), jnp.asarray(pixels))
-    tok_j, sum_j = jax.jit(jm.apply)(params, jnp.asarray(pixels))
+    tok_j, sum_j = jit_opt0(jm.apply, params, jnp.asarray(pixels))
     tm = videomamba.VideoMamba(6, embed_dim=32, depth=2, num_frames=8)
     load_from_flax(tm, params, ("backbone",), "backbone.0.body.")
     cdt = getattr(torch, dtype)
@@ -237,8 +238,8 @@ def _vss_world():
         jm = jax_build_model(tiny_vss_cfg(jax_cfg_custom(VSS_YAML)))
         params = random_params(lambda k, x, m: jm.init(k, x, m, True),
                                jnp.asarray(pixels), jnp.asarray(mask))
-        out_j = jax.jit(lambda p, x, m: jm.apply(p, x, m, True))(
-            params, jnp.asarray(pixels), jnp.asarray(mask))
+        out_j = jit_opt0(lambda p, x, m: jm.apply(p, x, m, True),
+                         params, jnp.asarray(pixels), jnp.asarray(mask))
         model = build_model(tiny_vss_cfg(get_cfg_custom(VSS_YAML)),
                             device="cpu", input_hw=(64, 128))
     model.load_state_dict(params_from_jax(params), strict=True)

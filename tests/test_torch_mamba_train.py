@@ -327,3 +327,39 @@ def test_temporal_max_pool_gradient_at_ties_matches_jax():
     np.testing.assert_array_equal(n(got), n(want))
     np.testing.assert_array_equal(n(xt.grad), n(want_grad))
     assert (n(xt.grad) != 0).sum() == g.size          # one element per window
+
+
+def test_reference_pth_of_another_clip_size_loads_like_jax(tmp_path):
+    """A reference ``.pth`` of VideoMamba + exact whose position tables
+    were trained at another clip size (6x6 patches, 4 frames): the port's
+    ``load_pretrained_params`` resamples them (bicubic, linear) to
+    ``IMG_SIZE`` (4x4 patches) and ``TEMP_LEN`` (8 frames) as the JAX
+    package's ``convert_detr_checkpoint`` does; the loaded model equals
+    ``params_from_jax`` of JAX's load, bit for bit."""
+    from class_query_vad_tpu.engine.checkpoint import (
+        load_pretrained_params as jax_load,
+    )
+    from class_query_vad_tpu_torch.engine.checkpoint import (
+        load_pretrained_params,
+    )
+
+    name, body = "videomamba_exact", "backbone.0.body."
+    sd = _model(_cfg(get_cfg_custom, name), seed=16).state_dict()
+    g = torch.Generator().manual_seed(17)
+    c = sd[body + "pos_embed"].shape[-1]
+    sd[body + "pos_embed"] = torch.randn((1, 1 + 36, c), generator=g)
+    sd[body + "temporal_pos_embedding"] = torch.randn((1, 4, c), generator=g)
+    path = str(tmp_path / "ref.pth")
+    torch.save({"model": sd}, path)
+    dst = _model(_cfg(get_cfg_custom, name), seed=18)
+    jpatch, tpatch = _tiny()
+    with jpatch, tpatch:
+        assert load_pretrained_params(_cfg(get_cfg_custom, name), path,
+                                      dst) == []
+        want = params_from_jax(jax_load(_cfg(jax_cfg_custom, name), path))
+    got = dst.state_dict()
+    assert set(got) == set(want)
+    for k, v in got.items():
+        assert torch.equal(v, torch.as_tensor(np.asarray(want[k])).to(v.dtype)), k
+    assert got[body + "pos_embed"].shape[1] == 1 + 16
+    assert got[body + "temporal_pos_embedding"].shape[1] == 8

@@ -43,7 +43,7 @@ from class_query_vad_tpu_torch.ops import deform_attn as da
 from class_query_vad_tpu_torch.ops import fast_deform as fd
 from class_query_vad_tpu_torch.utils import box_ops, misc
 
-from torch_parity import load_from_flax, n, random_params, t
+from torch_parity import jit_opt0, load_from_flax, n, random_params, t
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 EXACT = dict(atol=1e-6, rtol=1e-6)
@@ -226,8 +226,8 @@ def test_vit(out_frame_range):
               num_frames=8)
     params = random_params(lambda k, a: jm.init(k, a, True), jnp.asarray(x),
                            seed=5)
-    want = jax.jit(lambda p, a: jm.apply(p, a, True, out_frame_range))(
-        params, jnp.asarray(x))
+    want = jit_opt0(lambda p, a: jm.apply(p, a, True, out_frame_range),
+                    params, jnp.asarray(x))
     tm = ViT(spec.ViTSpec(**_VIT)).eval()              # deterministic=True
     load_from_flax(tm, params, ("backbone", "body"), "backbone.0.body.")
     with torch.inference_mode():
@@ -261,8 +261,8 @@ def test_backbone_fpn(sliced):
     kw = dict(out_frames=(1, 2), dec_frame=0) if sliced else {}
     params = random_params(lambda k, a, b: jm.init(k, a, b, True),
                            jnp.asarray(x), jnp.asarray(m), seed=6)
-    want = jax.jit(lambda p, a, b: jm.apply(p, a, b, True, **kw))(
-        params, jnp.asarray(x), jnp.asarray(m))
+    want = jit_opt0(lambda p, a, b: jm.apply(p, a, b, True, **kw),
+                    params, jnp.asarray(x), jnp.asarray(m))
     tm = backbone.ViTBackboneFPN(
         spec.ModelSpec(d_model=32, vit=spec.ViTSpec(**_VIT)), 32).eval()
     load_from_flax(tm, params, ("backbone",), "backbone.0.")
@@ -286,7 +286,7 @@ def test_fast_encoder():
     jm = JEncoder(2, 256, 64, 3, 8, 8, 1, "2d", "resample")
     args = [[jnp.asarray(a) for a in x] for x in (srcs, poses, masks)]
     params = random_params(lambda k, *a: jm.init(k, *a, True), *args, seed=7)
-    want = jax.jit(lambda p, *a: jm.apply(p, *a, True))(params, *args)
+    want = jit_opt0(lambda p, *a: jm.apply(p, *a, True), params, *args)
     tm = FastDeformableEncoder(2, 256, 64, 3, 8, 8, 1, "2d", "resample").eval()
     load_from_flax(tm, params, ("transformer", "encoder"),
                    "transformer.encoder.")
@@ -311,7 +311,8 @@ def test_decoder(num_layers):
     args = [jnp.asarray(a) for a in (tgt, mem, mask, pos, refs)]
     params = random_params(lambda k, *a: jm.init(k, *a, (h, w), True), *args,
                            seed=8)
-    want = jax.jit(lambda p, *a: jm.apply(p, *a, (h, w), True))(params, *args)
+    want = jit_opt0(lambda p, *a: jm.apply(p, *a, (h, w), True), params,
+                    *args)
     tm = TransformerDecoder(num_layers, d, 8, 32, 5, n_levels=nl).eval()
     load_from_flax(tm, params, ("transformer", "decoder"),
                    "transformer.decoder.")

@@ -41,7 +41,7 @@ from class_query_vad_tpu_torch.ops.native_blend import (
     native_blend_reference,
 )
 
-from torch_parity import n, t
+from torch_parity import jit_opt0, n, t
 
 NH, D = 8, 32
 C = NH * D
@@ -138,14 +138,13 @@ def _blend_world(window: str):
         return windowed_blend_native(vals, dx, dy, a_, nh=NH, use_pallas=True,
                                      interpret=True, dt=dt[0] if dt else None)
 
-    @jax.jit
     def forward_and_vjp(args, cotangent):
         out, vjp = jax.vjp(kernels, *args)
         return out, vjp(cotangent)
 
     args = ([jnp.asarray(v) for v in values],
             *(jnp.asarray(x) for x in (offs[0], offs[1], a, *offs[2:])))
-    out, grads = forward_and_vjp(args, jnp.asarray(g))
+    out, grads = jit_opt0(forward_and_vjp, args, jnp.asarray(g))
     return values, offs, a, g, np.asarray(out), grads
 
 

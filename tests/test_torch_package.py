@@ -391,6 +391,41 @@ def test_every_non_csn_yaml_builds_and_serves_on_the_cpu(yaml):
                for k in ("pred_logits", "pred_boxes", "pred_logits_b"))
 
 
+@pytest.mark.parametrize("yaml", YAMLS)
+def test_every_yaml_gives_every_trainable_parameter_a_gradient(yaml):
+    """``engine.Trainer`` wraps the model in DDP without its search for
+    unused parameters, which holds only while a train step's loss reaches
+    every trainable parameter: for each configuration at a tiny depth,
+    one ``Trainer.loss`` and its backward on the CPU leave a gradient on
+    every parameter that ``requires_grad`` (the frozen ones, out of DDP's
+    buckets, get none)."""
+    import numpy as np
+
+    from torch_parity import tube_targets
+
+    cfg = _cut(get_cfg_custom(str(REPO / "configuration" / yaml)))
+    model = build_model(cfg, device="cpu", input_hw=(64, 64))
+    trainer = Trainer(model, cfg, device="cpu")
+    nc = cfg.CONFIG.DATA.NUM_CLASSES
+    rng = np.random.default_rng(0)
+    batch = {"pixels": rng.normal(size=(1, 8, 64, 64, 3)).astype(np.float32),
+             "mask": np.zeros((1, 64, 64), bool)}
+    if cfg.CONFIG.MODEL.SINGLE_FRAME:
+        labels = np.zeros((1, 2, nc), np.float32)
+        labels[0, :, :2] = 1.0
+        batch.update(boxes=rng.uniform(0.3, 0.6, (1, 2, 4)).astype(np.float32),
+                     labels=labels, n_boxes=np.array([2], np.int32))
+    else:
+        batch.update(tube_targets(0, 1, 8, num_classes=nc, front_pad=(1,),
+                                  end_pad=(0,), n_actors=(2,)))
+    total, _, _ = trainer.loss({k: torch.as_tensor(v) for k, v in batch.items()})
+    total.backward()
+    missing = [k for k, p in model.named_parameters()
+               if p.requires_grad and p.grad is None]
+    assert not missing
+    assert any(p.grad is not None for p in model.parameters())
+
+
 def test_videomamba_rejects_another_clip_size():
     model = _tiny_vss(device="cpu")
     with pytest.raises(ValueError, match="input_hw"):

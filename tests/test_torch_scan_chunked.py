@@ -35,7 +35,7 @@ from class_query_vad_tpu_torch.ops.selective_scan import (
     selective_scan_reference,
 )
 
-from torch_parity import n, t
+from torch_parity import jit_opt0, n, t
 
 TOL = 1e-5
 BF16_TOL = 2 ** -7
@@ -72,11 +72,18 @@ def _inputs(b, kd, length, ns, g, seed):
 
 
 def _call(fn, x, flags, wrap, **kw):
+    """``fn`` on ``x`` with ``flags``; a JAX function (``wrap``
+    ``jnp.asarray``) jitted (``jit_opt0``)."""
     d, bias, softplus = FLAGS[flags]
-    return fn(wrap(x["u"]), wrap(x["delta"]), wrap(x["A"]), wrap(x["B"]),
-              wrap(x["C"]), wrap(x["D"]) if d else None,
-              delta_bias=wrap(x["delta_bias"]) if bias else None,
-              delta_softplus=softplus, **kw)
+
+    def call(u, delta, A, B, C, D, delta_bias):
+        return fn(u, delta, A, B, C, D, delta_bias=delta_bias,
+                  delta_softplus=softplus, **kw)
+
+    args = (wrap(x["u"]), wrap(x["delta"]), wrap(x["A"]), wrap(x["B"]),
+            wrap(x["C"]), wrap(x["D"]) if d else None,
+            wrap(x["delta_bias"]) if bias else None)
+    return jit_opt0(call, *args) if wrap is jnp.asarray else call(*args)
 
 
 def _close(got, want, tol=TOL):
@@ -134,10 +141,13 @@ def test_chunked_bf16_inputs_at_the_kernels_chunk():
     y_t = selective_scan_chunked(
         bf(x["u"]), t(x["delta"]), t(x["A"]), bf(x["B"]), bf(x["C"]),
         t(x["D"]), t(x["delta_bias"]), True, chunk=chunk)
-    y_j = j_scan(jnp.asarray(x["u"], jnp.bfloat16), jnp.asarray(x["delta"]),
-                 jnp.asarray(x["A"]), jnp.asarray(x["B"], jnp.bfloat16),
-                 jnp.asarray(x["C"], jnp.bfloat16), jnp.asarray(x["D"]),
-                 delta_bias=jnp.asarray(x["delta_bias"]), delta_softplus=True)
+    y_j = jit_opt0(
+        lambda u, delta, A, B, C, D, bias: j_scan(
+            u, delta, A, B, C, D, delta_bias=bias, delta_softplus=True),
+        jnp.asarray(x["u"], jnp.bfloat16), jnp.asarray(x["delta"]),
+        jnp.asarray(x["A"]), jnp.asarray(x["B"], jnp.bfloat16),
+        jnp.asarray(x["C"], jnp.bfloat16), jnp.asarray(x["D"]),
+        jnp.asarray(x["delta_bias"]))
     assert y_t.dtype == torch.bfloat16
     _close(y_t, y_j, BF16_TOL)
 

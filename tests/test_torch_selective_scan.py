@@ -27,7 +27,7 @@ from class_query_vad_tpu_torch.ops.selective_scan import (
     selective_scan_reference,
 )
 
-from torch_parity import n, t
+from torch_parity import jit_opt0, n, t
 
 TOL = 1e-5
 BF16_TOL = 2 ** -7
@@ -53,11 +53,18 @@ FLAGS = {                                  # (D, delta_bias, softplus)
 
 
 def _call(fn, x, flags, wrap, **kw):
+    """``fn`` on ``x`` with ``flags``; a JAX function (``wrap``
+    ``jnp.asarray``) jitted (``jit_opt0``)."""
     d, bias, softplus = FLAGS[flags]
-    return fn(wrap(x["u"]), wrap(x["delta"]), wrap(x["A"]), wrap(x["B"]),
-              wrap(x["C"]), wrap(x["D"]) if d else None,
-              delta_bias=wrap(x["delta_bias"]) if bias else None,
-              delta_softplus=softplus, **kw)
+
+    def call(u, delta, A, B, C, D, delta_bias):
+        return fn(u, delta, A, B, C, D, delta_bias=delta_bias,
+                  delta_softplus=softplus, **kw)
+
+    args = (wrap(x["u"]), wrap(x["delta"]), wrap(x["A"]), wrap(x["B"]),
+            wrap(x["C"]), wrap(x["D"]) if d else None,
+            wrap(x["delta_bias"]) if bias else None)
+    return jit_opt0(call, *args) if wrap is jnp.asarray else call(*args)
 
 
 def _close(got, want, tol=TOL):
@@ -105,8 +112,9 @@ def test_plain_scan_bf16_inputs(shape):
               jb(x["B"]), jb(x["C"]), jnp.asarray(x["D"])]
     y_t = selective_scan_reference(*args_t, delta_bias=t(x["delta_bias"]),
                                    delta_softplus=True)
-    y_j = j_scan_pallas(*args_j, delta_bias=jnp.asarray(x["delta_bias"]),
-                        delta_softplus=True)
+    y_j = jit_opt0(lambda *a: j_scan_pallas(*a[:-1], delta_bias=a[-1],
+                                            delta_softplus=True),
+                   *args_j, jnp.asarray(x["delta_bias"]))
     assert y_t.dtype == torch.bfloat16 and y_j.dtype == jnp.bfloat16
     _close(y_t, y_j, BF16_TOL)
 

@@ -5,7 +5,10 @@ loader-padded actor slots and padded frames), ``criterion_frames`` given
 the same outputs (the sequential pairing, the front-pad-shifted focal
 weights, JHMDB's valid-frame mask and ``valid_len``, aux layers),
 ``postprocess_frames``; tiny eval forwards of the four tube YAMLs; one
-tiny ``UCF_ViT-B.yaml`` train step against ``jax.value_and_grad``.
+tiny ``UCF_ViT-B.yaml`` train step against ``jax.value_and_grad``, and the
+same step on two gloo ranks (``engine.Trainer`` in DDP, one clip each;
+with the criteria's normalizers summed over the ranks, ``criterion_frames``
+of a UCF and a JHMDB case as well).
 
 Inputs and params come from numpy with a seed; params cross over by
 ``params_from_jax``.  One JAX jit per model, shared (``functools.
@@ -40,6 +43,7 @@ from class_query_vad_tpu_torch.losses import (
     postprocess_frames,
 )
 from class_query_vad_tpu_torch.models import build_model
+from class_query_vad_tpu_torch.parallel.launch import start_ranks
 from class_query_vad_tpu_torch.utils import box_ops
 from class_query_vad_tpu_torch.utils.weights import params_from_jax
 
@@ -314,3 +318,56 @@ def test_tiny_ucf_train_step_matches_jax():
         np.testing.assert_allclose(n(p.grad), n(want[name]), rtol=1e-3,
                                    atol=5e-4, err_msg=name)
     assert trainer.optimizer.update() is not None
+
+
+def test_two_rank_ddp_step_matches_jax():
+    """The UCF train step on two gloo ranks, clip r on rank r (front-padded
+    and end-padded, 2 and 1 actors): the summed losses and every gradient
+    after DDP's summing hook are JAX's step on both clips, within
+    ``test_tiny_ucf_train_step_matches_jax``'s tolerances, and bit-equal on
+    the two ranks, as are the parameters after the update.  In the same
+    processes ``criterion_frames`` of the "ucf" and "jhmdb" cases (JHMDB's
+    valid_len mean, UCF's B x T) summed over the ranks equals JAX's on the
+    whole batch."""
+    cfg = _train_cfg(get_cfg_custom)
+    cases = {key: _case(key) for key in ("ucf", "jhmdb")}
+    params, total_j, losses_j, match_j, grads_j = _jax_train_step()
+    jobs = [("class_query_vad_tpu_torch.parallel.jobs:train_step",
+             {"cfg": cfg.dump(), "batch": _train_batch(),
+              "state": params_from_jax(params)})]
+    jobs += [("class_query_vad_tpu_torch.parallel.jobs:criterion_losses",
+              {"cfg": cfgs[1].dump(), "outputs": outputs, "targets": targets})
+             for cfgs, targets, outputs in cases.values()]
+    ranks = start_ranks(2, jobs)
+    want_crit = []
+    for cfgs, targets, outputs in cases.values():
+        crit_j, _, _ = jax_build_criterion(cfgs[0], jax_build_matcher(cfgs[0]))
+        want_crit.append(crit_j(_tree(outputs, jnp.asarray),
+                                _tree(targets, jnp.asarray)))
+    want = params_from_jax(grads_j)
+    got = ranks.join()
+    step = [r[0] for r in got]
+    np.testing.assert_allclose(float(step[0]["losses"]["total"]), total_j,
+                               rtol=1e-4)
+    for k in losses_j:
+        np.testing.assert_allclose(n(step[0]["losses"][k]), n(losses_j[k]),
+                                   rtol=1e-4, atol=1e-6, err_msg=k)
+    for r, res in enumerate(step):
+        gt_idx, match_ok = res["match"]
+        for layer, mj in enumerate(match_j):
+            ok = np.asarray(mj.match_ok)[r]
+            np.testing.assert_array_equal(match_ok[layer, 0].numpy(), ok)
+            np.testing.assert_array_equal(gt_idx[layer, 0].numpy()[ok],
+                                          np.asarray(mj.gt_idx)[r][ok])
+    assert step[0]["grad_norm"] is not None
+    for name, g in step[0]["grads"].items():
+        assert torch.equal(g, step[1]["grads"][name]), name
+        assert torch.equal(step[0]["params"][name], step[1]["params"][name])
+        np.testing.assert_allclose(n(g), n(want[name]), rtol=1e-3,
+                                   atol=5e-4, err_msg=name)
+    for i, (key, want_l) in enumerate(zip(cases, want_crit)):
+        assert sorted(got[0][i + 1]) == sorted(want_l), key
+        for k in want_l:
+            np.testing.assert_allclose(n(got[0][i + 1][k]),
+                                       np.asarray(want_l[k]),
+                                       err_msg=f"{key} {k}", **LOSS_TOL)

@@ -38,7 +38,7 @@ from class_query_vad_tpu_torch.ops import (
 )
 from class_query_vad_tpu_torch.utils.weights import params_from_jax
 
-from torch_parity import n, random_params, t, tiny_cfg
+from torch_parity import jit_opt0, n, random_params, t, tiny_cfg
 
 WRAPPERS = ("fused_blend2d", "blend2d", "blend3d", "native_blend")
 ROUTES = {   # name: (FAST_WINDOW, FAST_CROSS_LEVEL, NUM_ENC_N_POINTS, wrapper)
@@ -81,8 +81,8 @@ def _jax_out():
     jm = jax_build_model(cfg)
     params = random_params(lambda k, x, m: jm.init(k, x, m, True),
                            jnp.asarray(pixels), jnp.asarray(mask))
-    out = jax.jit(lambda p, x, m: jm.apply(p, x, m, True))(
-        params, jnp.asarray(pixels), jnp.asarray(mask))
+    out = jit_opt0(lambda p, x, m: jm.apply(p, x, m, True),
+                   params, jnp.asarray(pixels), jnp.asarray(mask))
     return params, out
 
 

@@ -55,6 +55,16 @@ def random_params(apply_init, *args, seed: int = 0):
     return walk(shapes)
 
 
+def jit_opt0(fn, *args):
+    """``jax.jit(fn)(*args)`` compiled without LLVM's optimisation passes
+    (``xla_backend_optimization_level`` 0): about half the compile time of
+    a tiny model's jit on the CPU, where the compile is most of a test."""
+    import jax
+
+    return jax.jit(fn).lower(*args).compile(
+        {"xla_backend_optimization_level": 0})(*args)
+
+
 def load_from_flax(module: torch.nn.Module, flax_params, jax_prefix=(),
                    torch_prefix: str = "") -> None:
     """Load a flax sub-tree into a port module with strict key checking:
