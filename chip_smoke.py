@@ -5,7 +5,7 @@ NVIDIA card.
     python3 chip_smoke.py            # needs one CUDA card and nvcc
 
 1. Device and build: the card's name and power limit (nvidia-smi), TF32
-   off for the parity phases, every CUDA kernel (K1-K6, K8-K13 and K5's
+   off for the parity phases, every CUDA kernel (K1-K6, K8-K14 and K5's
    backward) built from ``csrc/`` (one nvcc per source, started together)
    with ptxas's register report; K10 and K11 share one source, and K6's
    serves K7.
@@ -268,6 +268,17 @@ NVIDIA card.
    launches; ``utils.flops.count_flops`` of the main path at 1x16x256x320
    on the card, in GFLOP, equal to phase 4's count of the same model on
    the CPU (the plain versions hidden from the counter, as the kernels).
+43. K14, the row gather of the repo root's ``scripts/probe_gather.py``
+   (``csrc/row_gather.cu``), against ``row_gather_ref`` bit for bit at
+   the probe's shape (S=40960, D=32, G=435,200, bf16) and at D=128
+   float32, int32 and int64 indices, with wrapped and out-of-range ones
+   among them (NaN rows); at the probe's shape its device time beside the
+   bound (``k14_work``), the plain version and ``index_select``.  Then
+   the port's timers as their CLIs run them: ``scripts.probe_gather``'s
+   ``main`` at its full shape (``PROBE_ITERS``; K14 exact against
+   ``index_select``, its launches counted), ``scripts.
+   bench_selective_scan quick`` (K5 and its backward launched) and
+   ``scripts.bench_model_stages`` on the main path (K1 alone launched).
 
 Each phase's seconds are printed on a line of their own (``[seconds]``).
 The float32 card-vs-CPU train checks of phases 18, 24, 26 and 29 run the
@@ -4332,6 +4343,123 @@ def phase_profile_flops(dev, cpu_flops: int):
     torch.cuda.empty_cache()
 
 
+# ---- K14 (``scripts/probe_gather.py``'s row gather) and the kernel and
+# forward timers of ``class_query_vad_tpu_torch/scripts/`` (phase 43)
+# (S, D, G, dtype): the probe's shape (the exact encoder's level 0, one
+# head's depth, 54,400 queries x 8 points) and a wider float32 table
+K14_CASES = ((40960, 32, 435_200, torch.bfloat16),
+             (40960, 128, 435_200, torch.float32))
+# wrapped and out-of-range indices written over the first few: 5 NaN rows
+K14_EDGES = (-1, -40960, 40960, -40961, 2**31 - 1, -2**31, 40967, -5)
+K14_NAN_ROWS = 5
+PROBE_ITERS = 5
+SCAN_BENCH_ITERS = 3
+STAGE_BENCH_ITERS = 3
+
+
+def k14_work(s: int, d: int, g: int, itemsize: int, index_itemsize: int = 4):
+    """(bytes, operations) K14 must spend: the table, the indices and the
+    output each cross HBM once; it does no arithmetic."""
+    return s * d * itemsize + g * index_itemsize + g * d * itemsize, 0
+
+
+def phase_gather_and_timers(dev, bw, counters):
+    """Phase 43 (see the module docstring).  Returns K14's entry of the
+    ``kernels`` line (its launches filled in by ``main``)."""
+    from class_query_vad_tpu_torch.ops.row_gather import (row_gather,
+                                                          row_gather_ref)
+    from class_query_vad_tpu_torch.scripts import (bench_model_stages,
+                                                   bench_selective_scan,
+                                                   probe_gather)
+
+    entry = {"name": "row_gather", "route": "cuda",
+             "source": "class_query_vad_tpu_torch/csrc/row_gather.cu",
+             "replaces": "scripts/probe_gather.py:72", "launches": None,
+             "max_abs_err": 0.0}
+    rng = np.random.default_rng(43)
+    for s, d, g, dtype in K14_CASES:
+        table = torch.from_numpy(rng.standard_normal((s, d), np.float32)).to(
+            dev, dtype)
+        inside = rng.integers(0, s, g).astype(np.int32)
+        edges = inside.copy()
+        edges[:len(K14_EDGES)] = K14_EDGES
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        for index_dtype in (torch.int32, torch.int64):
+            idx = torch.from_numpy(edges).to(dev, index_dtype)
+            got = row_gather(table, idx)
+            torch.cuda.synchronize()
+            want = row_gather_ref(table, idx)
+            same = torch.equal(got.view(bits), want.view(bits))
+            nan_rows = int(torch.isnan(got.float()).all(-1).sum())
+            ok = torch.isfinite(want)
+            err = (got.float() - want.float())[ok].abs().max().item()
+            print(f"K14 {str(dtype)[6:]} S={s} D={d} G={g} "
+                  f"{str(index_dtype)[6:]} indices: bit for bit "
+                  f"{'ok' if same else 'FAIL'}, {nan_rows} NaN rows "
+                  f"(expected {K14_NAN_ROWS}), max|err| {err:.1e}")
+            check(same and nan_rows == K14_NAN_ROWS,
+                  f"K14 disagrees with row_gather_ref: {dtype} D={d} "
+                  f"{index_dtype}")
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        if (d, dtype) != (32, torch.bfloat16):
+            continue
+        # the probe's timed row: in-range indices (index_select takes no
+        # other)
+        idx = torch.from_numpy(inside).to(dev)
+        t_k = kernel_device_ms(lambda: row_gather(table, idx))
+        t_p = cuda_ms(lambda: row_gather_ref(table, idx), 5, 1)
+        t_l = kernel_device_ms(lambda: torch.index_select(table, 0, idx))
+        nbytes, _ = k14_work(s, d, g, 2)
+        t_b = nbytes / bw * 1e3
+        print(f"K14 bf16 S={s} D={d} G={g}: kernel {t_k:.4f} ms, plain "
+              f"{t_p:.4f} ms, index_select {t_l:.4f} ms, bound {t_b:.4f} ms "
+              f"(bytes: {nbytes / 1e6:.1f} MB) -> {t_b / t_k:.1%} of the "
+              f"bound's speed, {nbytes / t_k / 1e6:.0f} GB/s")
+        entry.update(ms=t_k, plain_ms=t_p, bound_ms=t_b, bound_by="bytes",
+                     library_ms=t_l)
+    for c in counters:
+        c.launches = 0
+    recs = probe_gather.main(["--iters", str(PROBE_ITERS)])
+    probe = {c.__name__: c.launches for c in counters}
+    k14 = next(r for r in recs if r["probe"] == "K14 row_gather")
+    check(k14["exact"], "probe_gather: K14 is not index_select bit for bit")
+    check(len(recs) == 10 and all(r["ms"] > 0 for r in recs),
+          f"probe_gather printed {len(recs)} measurements")
+    # one exact check, one warm-up call and the timed ones
+    check(probe == {**{k: 0 for k in probe}, "row_gather": PROBE_ITERS + 2},
+          f"probe_gather launches {probe}")
+    print(f"probe_gather.main: {probe['row_gather']} K14 launches; K14 "
+          f"{k14['ms']:.4f} ms host-timed ({k14['share_of_bound']:.1%} of "
+          f"the bound), index_select {k14['index_select_ms']:.4f} ms")
+    entry.update(probe_launches=probe["row_gather"],
+                 probe_host_ms=k14["ms"],
+                 probe_index_select_host_ms=k14["index_select_ms"])
+    for c in counters:
+        c.launches = 0
+    rows = bench_selective_scan.main(["quick", "--iters",
+                                      str(SCAN_BENCH_ITERS)])
+    scans = {c.__name__: c.launches for c in counters}
+    check(len(rows) == 4 and all(
+        v > 0 for r in rows for k, v in r.items() if k.endswith("_ms")),
+        "bench_selective_scan quick: missing or non-positive times")
+    check(scans["selective_scan"] > 0 and scans["selective_scan_bwd"] > 0,
+          f"bench_selective_scan launched no K5 forward or backward: {scans}")
+    print(f"bench_selective_scan quick: launches {scans}")
+    for c in counters:
+        c.launches = 0
+    stages = bench_model_stages.main(["--iters", str(STAGE_BENCH_ITERS)])
+    fwd = {c.__name__: c.launches for c in counters}
+    check(all(stages[f"{k}_ms"] > 0 for k in ("full", "backbone", "encoder")),
+          f"bench_model_stages: {stages}")
+    check(fwd == {**{k: 0 for k in fwd}, "fused_blend2d": fwd["fused_blend2d"]}
+          and fwd["fused_blend2d"] > 0 and fwd["fused_blend2d"] % 24 == 0,
+          f"bench_model_stages launches {fwd}: K1 alone, 24 per encoder "
+          f"call")
+    print(f"bench_model_stages: launches {fwd}")
+    torch.cuda.empty_cache()
+    return entry
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4354,18 +4482,20 @@ def main() -> int:
         native_blend2d,
         native_blend3d,
     )
+    from class_query_vad_tpu_torch.ops.row_gather import row_gather
     from class_query_vad_tpu_torch.ops.selective_scan import (
         selective_scan,
         selective_scan_bwd,
     )
     from class_query_vad_tpu_torch.ops.vit_attention import vit_attention
 
-    # K12 and K13 are on no model path (as in the JAX package): every phase
-    # below that drives a model checks that they launch 0 times
+    # K12, K13 and K14 are on no model path (as in the JAX package): every
+    # phase below that drives a model checks that they launch 0 times
     counters = [fused_blend2d, blend2d, blend2d_bwd_dvol, blend2d_bwd_dcomps,
                 selective_scan, selective_scan_bwd, native_blend2d,
                 native_blend3d, blend3d_fwd, blend3d_bwd_dvol,
-                blend3d_bwd_dcomps, vit_attention, fused_ffn_kernel]
+                blend3d_bwd_dcomps, vit_attention, fused_ffn_kernel,
+                row_gather]
     dev = torch.device("cuda", 0)
     card = card_info()
     name = torch.cuda.get_device_name(0)
@@ -4524,6 +4654,11 @@ def main() -> int:
         tube_launches.update(phase_distributed(dev, counters))
     with phase_seconds("phase 42 (--profile and --flops on the card)"):
         phase_profile_flops(dev, flops["cpu"])
+    with phase_seconds("phase 43 (K14, probe_gather and the timers)"):
+        k14 = phase_gather_and_timers(dev, bw, counters)
+    # main-path launches (eval and train): 0, as K12's and K13's
+    k14["launches"] = main_eval["row_gather"] + launches["row_gather"]
+    kernels.append(k14)
     print(f"eval loop (phase 31) {loop_ms:.2f} ms/batch (busy {loop_busy:.2f}"
           f") vs phase 3 {main_ms:.2f}; UCF loop {ucf_loop_ms:.2f} ms/batch; "
           f"checkpoint save / load: model {save_s:.2f} / {load_s:.2f} s, "

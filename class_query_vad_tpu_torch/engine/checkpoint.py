@@ -6,9 +6,15 @@
   holding the model's state_dict, ``MasterAdamW``'s whole state (float32
   masters, AdamW's moments, a half-done accumulation window, the
   counters), epoch, accuracy, the config, and the RNG streams a resumed
-  run draws from (python, numpy, torch's CPU generator and, on a card,
-  every CUDA generator: dropout and drop path draw there), as the
-  reference saves them (utils/model_utils.py:266-299).
+  run draws from, as the reference saves them
+  (utils/model_utils.py:266-299): python's and numpy's (process 0's, as
+  the JAX package keeps its hosts'), and every rank's torch CPU generator
+  and, on a card, its CUDA generators (dropout and drop path draw there;
+  ``Trainer`` seeds them ``seed + rank``), a list by rank, so that each
+  rank of a resumed run draws its own stream, as the JAX package's
+  dropout key in its ``TrainState`` resumes.  Under a process group every
+  rank calls ``save_checkpoint`` (it gathers the streams to rank 0) and
+  rank 0 alone writes.
 * ``load_pretrained_params``: a reference ``.pth`` (the reference's
   DETR state_dict, whose key names the port's modules keep) or a port
   checkpoint, into a model.
@@ -40,6 +46,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from .. import parallel
+
 FORMAT = "class_query_vad_tpu_torch/checkpoint-1"
 # keys of a reference DETR state_dict that no port module holds: the class
 # decoder layer's ConvBlock has a ``q_proj`` its forward never calls
@@ -62,44 +70,62 @@ def _ckpt_dir(cfg) -> str:
     )
 
 
-def _rng_state() -> dict:
-    state = {"python": random.getstate(), "numpy": np.random.get_state(),
-             "torch": torch.get_rng_state()}
+def _device_rng_state() -> dict:
+    """This process's torch CPU generator and, on a card, its CUDA
+    generators."""
+    state = {"torch": torch.get_rng_state()}
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         state["cuda"] = torch.cuda.get_rng_state_all()
     return state
 
 
 def _set_rng_state(state: dict) -> None:
+    """Restore python's and numpy's streams, and this rank's torch / CUDA
+    generators: its entry of ``state["ranks"]``.  A rank past the saved
+    world keeps the stream its ``Trainer`` seeded; so do the ranks past 0
+    on a checkpoint written before the streams were kept by rank, which
+    holds rank 0's alone."""
     random.setstate(state["python"])
     np.random.set_state(state["numpy"])
-    torch.set_rng_state(state["torch"])
-    if "cuda" in state and torch.cuda.is_available():
-        torch.cuda.set_rng_state_all(state["cuda"])
+    ranks = state.get("ranks", [state])
+    if parallel.rank() >= len(ranks):
+        return
+    own = ranks[parallel.rank()]
+    torch.set_rng_state(own["torch"])
+    if "cuda" in own and torch.cuda.is_available():
+        torch.cuda.set_rng_state_all(own["cuda"])
 
 
 def save_checkpoint(cfg, trainer_or_model, epoch: int,
                     accuracy: float = 0.0) -> str:
     """Write ``ckpt_epoch_{epoch:02d}.pt`` for an ``engine.Trainer`` (model,
-    optimizer, RNG streams) or a bare model; returns its path."""
+    optimizer, RNG streams) or a bare model; returns its path.  Under a
+    process group every rank must call it: the ranks' generator states
+    are gathered to rank 0, which writes the file, and the call returns
+    on every rank once it is written."""
     trainer = None if isinstance(trainer_or_model, nn.Module) else trainer_or_model
     model = trainer_or_model if trainer is None else trainer.model
     path = os.path.abspath(
         os.path.join(_ckpt_dir(cfg), f"ckpt_epoch_{epoch:02d}.pt"))
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    ckpt = {
-        "format": FORMAT,
-        "model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
-        "epoch": int(epoch),
-        "accuracy": float(accuracy),
-        "config": cfg.dump(),
-        "rng": _rng_state(),
-    }
-    if trainer is not None:
-        ckpt["optimizer"] = trainer.optimizer.state_dict()
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save(ckpt, tmp)
-    os.replace(tmp, path)
+    ranks = parallel.process_allgather(_device_rng_state())
+    if parallel.rank() == 0:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        ckpt = {
+            "format": FORMAT,
+            "model": {k: v.detach().cpu()
+                      for k, v in model.state_dict().items()},
+            "epoch": int(epoch),
+            "accuracy": float(accuracy),
+            "config": cfg.dump(),
+            "rng": {"python": random.getstate(),
+                    "numpy": np.random.get_state(), "ranks": ranks},
+        }
+        if trainer is not None:
+            ckpt["optimizer"] = trainer.optimizer.state_dict()
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save(ckpt, tmp)
+        os.replace(tmp, path)
+    parallel.sync_hosts()
     return path
 
 
@@ -109,8 +135,9 @@ def _read(path: str):
 
 def load_checkpoint(path: str, trainer) -> dict:
     """Restore a port checkpoint of a training run into ``trainer``: its
-    model, its optimizer and the RNG streams, so that the next step is the
-    one an uninterrupted run takes.  Returns ``{"epoch", "accuracy",
+    model, its optimizer and the RNG streams (each rank its own torch /
+    CUDA generators), so that the next step is the one an uninterrupted
+    run takes.  Returns ``{"epoch", "accuracy",
     "config"}``.  (A bare model loads through ``load_pretrained_params``.)
     """
     ckpt = _read(path)

@@ -225,7 +225,8 @@ class Trainer:
     ``device="cpu"`` it raises rather than train on the CPU.  Dropout and
     drop path draw from torch's default generators, which the constructor
     seeds with ``seed + rank`` (``torch.manual_seed``): their bits cannot
-    equal the JAX package's.  Parameters frozen by
+    equal the JAX package's.  A checkpoint keeps every rank's stream
+    (``engine.checkpoint``), so a resumed rank draws its own.  Parameters frozen by
     ``backbone_freeze_labels`` get ``requires_grad=False``.
 
     Under a process group (``parallel.initialize_distributed``) the

@@ -98,6 +98,12 @@ KERNELS = {
         "fused_ffn.cu", "fused_ffn_launch",
         [_P] * 6 + [_I] * 5 + [_P],
     ),
+    # table, idx, out, rows in the table, indices, 16-byte vectors per row,
+    # int64 indices, the NaN row's word
+    "row_gather": (
+        "row_gather.cu", "row_gather_launch",
+        [_P] * 3 + [_L] * 2 + [_I] * 3 + [_P],
+    ),
 }
 
 NVCC_FLAGS = [

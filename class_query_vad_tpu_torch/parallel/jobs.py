@@ -116,6 +116,47 @@ def remat_steps(cfg: str, batches) -> dict:
             "digest": digest(dict(model.named_parameters()))}
 
 
+def resumed_steps(cfg: str, batches, base_path: str) -> dict:
+    """``engine.Trainer.step`` (DDP) over ``batches``, this rank's clips of
+    each, with ``cfg``'s dropout on (the class head's fixed dropout off):
+    once uninterrupted, and once stopped before the last batch,
+    ``save_checkpoint`` (under ``base_path``), a fresh trainer restored by
+    ``load_checkpoint`` and the last step.  For each run: the last step's
+    metrics, the mask of the elements the first dropout module with p > 0
+    dropped in that step, and a digest of the parameters after."""
+    import torch.nn as nn
+
+    from ..engine import load_checkpoint, save_checkpoint
+
+    cfg = cfg_from_dump(cfg)
+    cfg.CONFIG.LOG.BASE_PATH = base_path
+
+    def last_step(trainer, batch) -> dict:
+        drop = next(m for m in trainer.model.modules()
+                    if isinstance(m, nn.Dropout) and m.p > 0)
+        masks = []
+        handle = drop.register_forward_hook(
+            lambda _m, i, o: masks.append((o == 0) & (i[0] != 0)))
+        metrics = trainer.step(rank_share(batch))
+        handle.remove()
+        return {"metrics": metrics, "mask": masks[0],
+                "digest": digest(dict(trainer.model.named_parameters()))}
+
+    # one run after the other: both draw from torch's global generators,
+    # which each Trainer seeds ``seed + rank``
+    runs = {}
+    for name in ("uninterrupted", "resumed"):
+        trainer = cpu_trainer(cfg)
+        for b in batches[:-1]:
+            trainer.step(rank_share(b))
+        if name == "resumed":
+            path = save_checkpoint(cfg, trainer, len(batches) - 2)
+            trainer = cpu_trainer(cfg)
+            load_checkpoint(path, trainer)
+        runs[name] = last_step(trainer, batches[-1])
+    return runs
+
+
 def criterion_losses(cfg: str, outputs: dict, targets: dict) -> dict:
     """The train criterion of ``cfg`` on this rank's clips of given
     outputs, its normalizers summed over the ranks; the losses summed

@@ -27,7 +27,8 @@ Every rank takes the same number of steps per epoch, the least of the
 ranks' ``len(train_loader)`` (one all-reduce per epoch: the loaders can
 give ranks one batch more or less, and a collective step on one rank
 alone would hang the others).  Only rank 0 writes logs, metrics and
-checkpoints.
+checkpoints; a checkpoint holds every rank's torch / CUDA RNG streams,
+and ``--resume`` gives each rank its own.
 """
 
 from __future__ import annotations
@@ -179,9 +180,12 @@ def main(argv=None):
                     line.update({f"eval/{k}": v
                                  for k, v in result["eval_losses"].items()})
                 logger.log(line)
-                # every eval epoch, as the reference saves (train.py:99-103)
-                path = save_checkpoint(cfg, trainer, epoch,
-                                       accuracy=result["mAP"])
+            # every eval epoch, as the reference saves (train.py:99-103);
+            # every rank calls it (its RNG streams go to rank 0's file,
+            # which alone reads the accuracy)
+            path = save_checkpoint(cfg, trainer, epoch, accuracy=(
+                result["mAP"] if r == 0 else 0.0))
+            if r == 0:
                 print_log(log_path, f"Saved checkpoint {path}")
     destroy()
     return best_map

@@ -308,3 +308,26 @@ def test_resume_is_bit_exact(tmp_path, accum, steps, save_after):
     assert resumed.optimizer.micro == steps
     for a, b in zip(resumed.optimizer.acc, ref.optimizer.acc):
         assert (a is None and b is None) or torch.equal(a, b)
+
+
+def test_checkpoint_without_per_rank_streams_still_resumes(tmp_path):
+    """A checkpoint written before the torch / CUDA streams were kept by
+    rank (one state beside python's and numpy's) still loads, and a
+    single process takes its torch stream back; a new one keeps its
+    streams as a list by rank, here one."""
+    cfg = _resume_cfg(tmp_path, 1)
+    first = _trainer(cfg, 100)
+    first.step(train_batch(seed=0))          # the stream moves on
+    path = save_checkpoint(cfg, first, 0)
+    want = torch.get_rng_state()
+    ckpt = torch.load(path, weights_only=False)
+    rng = ckpt["rng"]
+    assert len(rng["ranks"]) == 1
+    assert torch.equal(rng["ranks"][0]["torch"], want)
+    ckpt["rng"] = {"python": rng["python"], "numpy": rng["numpy"],
+                   **rng["ranks"][0]}
+    torch.save(ckpt, path)
+    resumed = _trainer(cfg, 200)            # reseeds the stream
+    assert not torch.equal(torch.get_rng_state(), want)
+    load_checkpoint(path, resumed)
+    assert torch.equal(torch.get_rng_state(), want)

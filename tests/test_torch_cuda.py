@@ -54,6 +54,7 @@ from class_query_vad_tpu_torch.ops.native_blend import (
     native_blend3d,
     native_blend_reference,
 )
+from class_query_vad_tpu_torch.ops.row_gather import row_gather, row_gather_ref
 from class_query_vad_tpu_torch.ops.selective_scan import (
     scan_carries,
     scan_chunk,
@@ -1408,3 +1409,30 @@ def test_k1_k3_k4_at_the_tube_grids(card, dtype, tol, grad_tol, thw):
            grad_tol, "K1 d vol")
     _close(a1[1].grad, d_fused, grad_tol, "K1 d fused")
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bits", [(torch.float32, torch.int32),
+                                        (torch.bfloat16, torch.int16)])
+@pytest.mark.parametrize("d", [32, 128, 256])
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64])
+def test_row_gather_matches_plain_bit_for_bit(card, dtype, bits, d,
+                                               index_dtype):
+    """K14 against ``row_gather_ref``, bit for bit: a ragged G (not a
+    multiple of a warp's 32 rows), wrapped and out-of-range indices (NaN
+    rows), a [3, 17] index."""
+    g = torch.Generator().manual_seed(14)
+    s = 1000
+    table = torch.randn((s, d), generator=g).to(card, dtype)
+    idx = torch.randint(-s, s, (51,), generator=g)
+    idx[::7] = torch.tensor([s, -s - 1, 2**31 - 1, -2**31, s + 3, -1, 0,
+                             s - 1])
+    idx = idx.reshape(3, 17).to(card, index_dtype)
+    before = row_gather.launches
+    got = row_gather(table, idx)
+    torch.cuda.synchronize()
+    assert row_gather.launches == before + 1
+    want = row_gather_ref(table, idx)
+    assert got.shape == want.shape == (3, 17, d)
+    assert torch.equal(got.view(bits), want.view(bits))
+    assert int(torch.isnan(got.float()).all(-1).sum()) == 5

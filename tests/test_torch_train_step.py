@@ -17,6 +17,8 @@ with a seed.
 """
 
 import functools
+import shutil
+import tempfile
 from unittest import mock
 
 import jax
@@ -203,15 +205,31 @@ def _one_process_steps(cfg, batches):
     return {"metrics": metrics, "grads": grads}
 
 
+RESUME_STEPS = 3
+RESUME_JOB = 3 + 2 * len(REMAT_MODELS)     # its index in ``_two_ranks``
+
+
+def _dropout_cfg():
+    """``train_cfg``'s model with dropout and drop path on, one
+    micro-batch per update."""
+    cfg = train_cfg(get_cfg_defaults)
+    cfg.CONFIG.MODEL.DROPOUT = 0.1
+    cfg.CONFIG.ViT.DROP_PATH_RATE = 0.2
+    cfg.CONFIG.TRAIN.GRAD_ACCUM = 1
+    return cfg
+
+
 @functools.lru_cache(maxsize=None)
 def _two_ranks():
     """The two gloo ranks' results for the tests below: the train step on
     ``train_batch()`` from JAX's params, ``GRAD_ACCUM`` 2 over two
     micro-batches, CSN's sync-BN, two steps of each ``REMAT_MODELS`` model
-    with remat on and off; and meanwhile, in this process, the same
+    with remat on and off, ``RESUME_STEPS`` steps with dropout on against
+    a run saved and resumed before the last; and meanwhile, in this process, the same
     accumulation on both clips of each micro-batch and the remat models'
     two steps (remat off) on both clips."""
     x, g, w, b = _sync_bn_inputs()
+    base_path = tempfile.mkdtemp(prefix="cqvad_resume_")
     acc = train_cfg(get_cfg_defaults)
     acc.CONFIG.TRAIN.GRAD_ACCUM = 2
     windows = [train_batch(0), train_batch(1)]
@@ -225,14 +243,21 @@ def _two_ranks():
          {"x": x, "g": g, "weight": w, "bias": b})] + [
         ("class_query_vad_tpu_torch.parallel.jobs:remat_steps",
          {"cfg": _remat_cfg(name, remat).dump(), "batches": windows})
-        for name in REMAT_MODELS for remat in (True, False)])
+        for name in REMAT_MODELS for remat in (True, False)] + [
+        ("class_query_vad_tpu_torch.parallel.jobs:resumed_steps",
+         {"cfg": _dropout_cfg().dump(),
+          "batches": [train_batch(s) for s in range(RESUME_STEPS)],
+          "base_path": base_path})])
     model = build_model(acc, device="cpu")
     model.head_dropout.p = 0.0
     single = Trainer(model, acc, device="cpu")
     metrics = [single.step({k: t(v) for k, v in b.items()}) for b in windows]
     remat_one = {name: _one_process_steps(_remat_cfg(name, False), windows)
                  for name in REMAT_MODELS}
-    return ranks.join(), model, metrics, remat_one
+    try:
+        return ranks.join(), model, metrics, remat_one
+    finally:
+        shutil.rmtree(base_path, ignore_errors=True)
 
 
 def test_two_rank_ddp_step_matches_jax():
@@ -360,3 +385,25 @@ def test_gradient_checkpointing_under_ddp_on_two_ranks(name):
         assert (g_on[k] - g_off[k]).abs().max().item() <= 1e-6 * scale, k
         np.testing.assert_allclose(n(g_on[k]), n(g), rtol=1e-4,
                                    atol=1e-5 * top, err_msg=k)
+
+
+def test_two_rank_resume_gives_each_rank_its_own_dropout_stream():
+    """Two gloo ranks, dropout and drop path on: ``RESUME_STEPS`` steps
+    against the same steps with ``save_checkpoint`` (every rank's torch
+    generator gathered to rank 0's file) and ``load_checkpoint`` into a
+    fresh trainer before the last.  On each rank the last step's losses,
+    its dropout mask and every parameter after it are the uninterrupted
+    run's, bit for bit; the two ranks' masks differ (each rank restored
+    its own stream, ``Trainer``'s ``seed + rank``)."""
+    res = [r[RESUME_JOB] for r in _two_ranks()[0]]
+    for rank, runs in enumerate(res):
+        want, got = runs["uninterrupted"], runs["resumed"]
+        assert sorted(got["metrics"]) == sorted(want["metrics"])
+        for k, v in want["metrics"].items():
+            assert torch.equal(got["metrics"][k], v), (rank, k)
+        assert torch.equal(got["mask"], want["mask"]), rank
+        assert got["digest"] == want["digest"], rank
+    assert res[0]["resumed"]["digest"] == res[1]["resumed"]["digest"]
+    masks = [runs["resumed"]["mask"] for runs in res]
+    assert masks[0].shape == masks[1].shape
+    assert not torch.equal(masks[0], masks[1])
